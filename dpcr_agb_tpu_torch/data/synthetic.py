@@ -1,0 +1,75 @@
+"""Synthetic airborne-LiDAR plot generator (numpy only): the plot
+generator of `dpcr_agb_tpu/data/synthetic.py` without its LAS writer and
+label tables. Cylindrical plots of ground + tree-crown points with
+plot-level biomass/volume targets from an allometric model."""
+from __future__ import annotations
+
+import numpy as np
+
+
+def generate_plot(rng: np.random.Generator, radius: float = 15.0,
+                  density: float = 12.0, spatial_signal: bool = False):
+    """One plot: returns (points [N,3] float32 local coords, biomass_Mg_ha,
+    volume_m3_ha). `density` is points per m² of ground and crown;
+    spatial_signal=True mixes two species whose allometry differs ~2x at
+    equal height (readable only from local crown geometry)."""
+    area = np.pi * radius ** 2
+    n_ground = max(50, int(area * density * rng.uniform(0.2, 0.5)))
+    r = radius * np.sqrt(rng.random(n_ground))
+    th = rng.random(n_ground) * 2 * np.pi
+    gx, gy = r * np.cos(th), r * np.sin(th)
+    slope = rng.uniform(-0.02, 0.02, size=2)
+    gz = gx * slope[0] + gy * slope[1] + rng.normal(0, 0.05, n_ground)
+    ground = np.stack([gx, gy, gz], axis=1)
+
+    n_trees = rng.poisson(rng.uniform(2, 40))
+    parts = [ground]
+    biomass_kg = 0.0
+    volume_m3 = 0.0
+    for _ in range(n_trees):
+        h = rng.gamma(4.0, 4.0)  # tree height, mean ~16 m
+        h = float(np.clip(h, 2.0, 38.0))
+        conifer = spatial_signal and rng.random() < 0.5
+        dbh = 0.012 * h ** 1.3 * rng.uniform(0.8, 1.25)  # diameter (m)
+        if spatial_signal:
+            crown_r = (np.clip(0.09 * h, 0.4, 2.2) if conifer
+                       else np.clip(0.22 * h, 0.8, 6.0))
+        else:
+            crown_r = np.clip(0.16 * h, 0.6, 4.5)
+        tr = (radius - 0.5) * np.sqrt(rng.random())
+        tth = rng.random() * 2 * np.pi
+        tx, ty = tr * np.cos(tth), tr * np.sin(tth)
+        tz = tx * slope[0] + ty * slope[1]
+        # airborne lidar sees mostly the upper crown
+        n_pts = max(5, int(crown_r ** 2 * np.pi * density
+                           * rng.uniform(0.5, 1.5)))
+        u = rng.random(n_pts) ** 0.4  # bias toward crown top
+        cz = tz + h * (0.35 + 0.65 * (1 - u))
+        if spatial_signal and conifer:
+            rel_h = (cz - tz) / max(h, 1e-6)
+            cone = np.clip(1.2 * (1.0 - rel_h), 0.05, 1.0)
+            cr = crown_r * np.sqrt(rng.random(n_pts)) * cone
+        else:
+            cr = crown_r * np.sqrt(rng.random(n_pts)) * (0.3 + 0.7 * u)
+        cth = rng.random(n_pts) * 2 * np.pi
+        cx = tx + cr * np.cos(cth)
+        cy = ty + cr * np.sin(cth)
+        parts.append(np.stack([cx, cy, cz + rng.normal(0, 0.1, n_pts)],
+                              axis=1))
+        # allometry: stem volume ~ form factor * basal area * height
+        v = 0.45 * np.pi * (dbh / 2) ** 2 * h
+        if spatial_signal:
+            v *= 1.35 if conifer else 0.75
+            wood_density = (rng.uniform(560, 640) if conifer
+                            else rng.uniform(300, 380))
+        else:
+            wood_density = rng.uniform(420, 520)
+        volume_m3 += v
+        biomass_kg += v * wood_density
+
+    pts = np.concatenate(parts, axis=0)
+    keep = (pts[:, 0] ** 2 + pts[:, 1] ** 2) <= radius ** 2
+    pts = pts[keep]
+    area_ha = area / 1e4
+    return (pts.astype(np.float32), biomass_kg / 1000.0 / area_ha,
+            volume_m3 / area_ha)
