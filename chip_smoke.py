@@ -176,6 +176,37 @@ def _check_close(name, got, want, rtol, atol):
     return err.max().item()
 
 
+def stem_work(vol, coords, mask) -> tuple:
+    """What the stem's data needs: (non-zero values in the occupied sites'
+    7^3 neighbourhoods, summed over sites and input channels; volume cells
+    within reach of an occupied site)."""
+    import torch
+    import torch.nn.functional as F
+    b, d, h, w = vol.shape[:4]
+    ones = torch.ones(1, 1, 7, 7, 7, device=vol.device)
+    lim = torch.tensor([d - 1, h - 1, w - 1], device=coords.device)
+    c = torch.minimum(coords.long().clamp(min=0), lim)
+    bi = torch.arange(b, device=c.device)[:, None].expand_as(mask)
+    nz = (vol != 0).sum(-1).to(torch.float32)[:, None]       # [B,1,D,H,W]
+    at = F.conv3d(nz, ones, padding=3)[:, 0][bi, c[..., 0], c[..., 1],
+                                             c[..., 2]]
+    n_nonzero = int(torch.where(mask, at, torch.zeros_like(at)).sum().item())
+    sites = torch.zeros((b, 1, d, h, w), device=vol.device)
+    cm = c[mask]
+    sites[bi[mask], 0, cm[:, 0], cm[:, 1], cm[:, 2]] = 1.0
+    reach = int((F.conv3d(sites, ones, padding=3) > 0).sum().item())
+    return n_nonzero, reach
+
+
+def pool_work(occ) -> tuple:
+    """What the pool's data needs: (occupied input cells, occupied inputs
+    summed over all output windows)."""
+    import torch.nn.functional as F
+    o = (occ[..., 0] > 0).float()[:, None]                   # [B,1,D,H,W]
+    in_windows = F.avg_pool3d(o, 3, 2, 1, count_include_pad=True).sum() * 27
+    return int(o.sum().item()), round(in_windows.item())
+
+
 def phase_kernels(bundles: dict, batch, smi: str) -> list:
     """Both kernels at the first serving batch's shapes, f32 and bf16."""
     import torch
@@ -198,6 +229,7 @@ def phase_kernels(bundles: dict, batch, smi: str) -> list:
         bias = net.stem_conv.bias.detach().to(dt).contiguous()
         n_sites = int(mask.sum())
         cin, cout = wts.shape[1], wts.shape[2]
+        n_nonzero, n_reach = stem_work(vol, coords, mask)
         with torch.no_grad():
             got = stem_conv_sites(vol, coords, mask, wts, bias)
             want = stem_conv_sites_plain(vol, coords, mask, wts, bias)
@@ -214,11 +246,14 @@ def phase_kernels(bundles: dict, batch, smi: str) -> list:
                                                  bias))
             plain_ms = time_ms(lambda: stem_conv_sites_plain(
                 vol, coords, mask, wts, bias))
+            # what this data needs: the volume cells within reach of an
+            # occupied site, and one product per non-zero neighbour value
+            # and output channel (the kernel skips the zeros)
             esz = vol.element_size()
-            nbytes = (vol.numel() * esz + coords.numel() * 4 + mask.numel()
+            nbytes = (n_reach * cin * esz + coords.numel() * 4 + mask.numel()
                       + wts.numel() * esz + bias.numel() * esz
                       + got.numel() * esz)
-            flops = 2.0 * n_sites * 343 * cin * cout
+            flops = 2.0 * n_nonzero * cout
             t_bytes = nbytes / PEAK_BYTES * 1e3
             t_ops = flops / PEAK_FLOPS[dtname] * 1e3
             rows.append({
@@ -231,7 +266,11 @@ def phase_kernels(bundles: dict, batch, smi: str) -> list:
                 "library_ms": None,
                 "shape": {"vol": list(vol.shape), "coords": list(coords.shape),
                           "weights": list(wts.shape),
-                          "occupied_sites": n_sites},
+                          "occupied_sites": n_sites,
+                          "cells_in_reach": n_reach,
+                          "nonzero_neighbour_values": n_nonzero,
+                          "dense_flops": 2.0 * n_sites * 343 * cin * cout,
+                          "needed_flops": flops, "needed_bytes": nbytes},
                 "card": smi})
 
             # the pool input: the stem rows through BN + act, scattered to
@@ -252,10 +291,15 @@ def phase_kernels(bundles: dict, batch, smi: str) -> list:
             del filled
             lib_ms = time_ms(lambda: F.max_pool3d(ncdhw, 3, 2, 1))
             del ncdhw
+            # what this data needs: the occupancy, x at the occupied cells
+            # (the rest counts as -inf), all of y; one max per occupied
+            # input value in each window that holds it
+            n_occ, in_windows = pool_work(occ)
             esz = x.element_size()
-            nbytes = (x.numel() + occ.numel() + got_p.numel()) * esz
+            nbytes = (occ.numel() + n_occ * x.shape[-1] + got_p.numel()) * esz
             t_bytes = nbytes / PEAK_BYTES * 1e3
-            t_ops = 27.0 * got_p.numel() / PEAK_FLOPS["float32"] * 1e3
+            t_ops = (float(in_windows) * x.shape[-1]
+                     / PEAK_FLOPS["float32"] * 1e3)
             rows.append({
                 "name": "max_pool_k3s2", "dtype": dtname, "route": "cuda",
                 "source": POOL_SRC, "replaces": POOL_REPLACES,
@@ -264,7 +308,10 @@ def phase_kernels(bundles: dict, batch, smi: str) -> list:
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes > t_ops else "operations",
                 "library_ms": lib_ms,
-                "shape": {"x": list(x.shape), "y": list(got_p.shape)},
+                "shape": {"x": list(x.shape), "y": list(got_p.shape),
+                          "occupied_cells": n_occ,
+                          "occupied_inputs_in_windows": in_windows,
+                          "needed_bytes": nbytes},
                 "card": smi})
             del x, occ, got_p, want_p, vol, got, want, h_rows
             torch.cuda.empty_cache()

@@ -35,9 +35,8 @@ def _require(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int,
 
 def _check_rc(rc: int, name: str) -> None:
     if rc != 0:
-        why = {-1: "unsupported dtype", -2: "unsupported shape",
-               -3: "needs more shared memory than a block has"}.get(
-                   rc, f"CUDA error {rc}")
+        why = {-1: "unsupported dtype", -2: "unsupported shape"}.get(
+            rc, f"CUDA error {rc}")
         raise RuntimeError(f"{name} kernel launch failed: {why}")
 
 
@@ -63,11 +62,13 @@ def stem_sites(vol: torch.Tensor, coords: torch.Tensor, mask: torch.Tensor,
     _require(mask, "mask", torch.bool, 2, dev)
     _require(weights, "weights", dt, 3, dev)
     if coords.shape != (b, v, 3) or mask.shape != (b, v) \
-            or weights.shape[:2] != (343, cin) or weights.shape[2] % 8:
+            or weights.shape[:2] != (343, cin) \
+            or weights.shape[2] not in (32, 64, 128, 256):
         raise ValueError(
             f"stem_sites: shapes vol {tuple(vol.shape)}, coords "
             f"{tuple(coords.shape)}, mask {tuple(mask.shape)}, weights "
-            f"{tuple(weights.shape)} (need [343,Cin,Cout], Cout % 8 == 0)")
+            f"{tuple(weights.shape)} (need [343,Cin,Cout], Cout in 32, 64, "
+            f"128, 256)")
     cout = weights.shape[2]
     if bias is not None:
         _require(bias, "bias", dt, 1, dev)
@@ -100,6 +101,8 @@ def max_pool_k3s2(x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
     if occ.shape != (b, d, h, w, 1):
         raise ValueError(f"max_pool_k3s2: occ {tuple(occ.shape)} for x "
                          f"{tuple(x.shape)}")
+    if x.data_ptr() % 16:
+        raise ValueError("max_pool_k3s2: x must be 16-byte aligned")
     y = torch.empty((b, -(-d // 2), -(-h // 2), -(-w // 2), c), dtype=dt,
                     device=dev)
     with torch.cuda.device(dev):

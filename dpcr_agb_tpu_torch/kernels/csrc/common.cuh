@@ -12,7 +12,7 @@ namespace dpcr {
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
 // error codes for arguments the kernels do not take (CUDA's own codes are > 0)
-enum ArgError : int { kBadDType = -1, kBadShape = -2, kTooMuchShared = -3 };
+enum ArgError : int { kBadDType = -1, kBadShape = -2 };
 
 template <typename T> __device__ __forceinline__ float to_float(T v);
 template <> __device__ __forceinline__ float to_float<float>(float v) {

@@ -8,169 +8,107 @@
 //   y[b,v,:] = sum_{o in 7^3} vol[b, c_v + o - 3, :] @ W[o]     (+ bias)
 // with out-of-volume neighbours reading 0 and masked rows written as 0.
 //
-// What bounds it on an H100: operations. Each site needs 343*Cin*Cout
-// multiply-adds (65,856 at Cin 3, Cout 64) against ~1 KB of input, so the
-// card's float32 rate (67 TFLOP/s outside the tensor cores) is the limit,
-// not its 3.35 TB/s of memory.
+// What bounds it on an H100: neither the card's memory rate nor its
+// arithmetic rate. The level-0 volume is ~2% occupied, so of a site's
+// 343*Cin neighbour values only ~16% are non-zero (169 of 1029 on the
+// synthetic NFI batch), and the products that the data needs (2*169*64
+// flops a site) take well under 0.1 ms at bs16. What is left is the latency
+// of gathering each site's neighbourhood from the volume (which fits in the
+// 50 MB L2) and of reading one weight row per non-zero value.
 //
-// Design: one block per tile of 32 sites, one thread per (site, group of 8
-// output channels). The 343 offsets are walked one dx-plane (49 taps) at a
-// time: the block stages that plane's weights (49*Cin*Cout, 37.6 KB in f32
-// at Cin 3) and its sites' 49*Cin neighbour values in shared memory, then
-// every thread runs a 147-deep dot product for its 8 channels from shared
-// memory, accumulating in f32. Staging per plane keeps shared memory under
-// the per-block limit (the whole f32 weight is 263 KB). Tiles that hold no
-// occupied site write zeros and leave. The fold table of the TPU version
-// is not rebuilt: it exists only because row gathers are costly there. A
-// tensor-core (wgmma) version is later work.
+// Design: one warp per site, each lane owning Cout/32 output channels. The
+// warp walks the site's 343*Cin neighbour values 32 at a time (one per
+// lane, z-contiguous runs in memory), takes a ballot of the non-zero ones,
+// and for each of them broadcasts the value and reads its weight row
+// (Cout consecutive values, one coalesced load per warp), accumulating in
+// f32 in offset order. Empty cells cost one load and no arithmetic; masked
+// rows cost nothing. No shared memory and no block barrier. The fold table
+// of the TPU version is not rebuilt: it exists only because row gathers are
+// costly there. A tensor-core (wgmma) version over compacted neighbour
+// lists is later work.
 #include "common.cuh"
 
 namespace dpcr {
 
 constexpr int kK = 7;         // kernel size
 constexpr int kR = kK / 2;    // radius
-constexpr int kPlane = kK * kK;
-constexpr int kTile = 32;     // sites per block
-constexpr int kGroup = 8;     // output channels per thread
+constexpr int kTaps = kK * kK * kK;
+constexpr int kWarps = 8;     // sites per block of 256 threads
 
-template <typename T>
-__global__ void stem_sites_kernel(const T* __restrict__ vol,
-                                  const int32_t* __restrict__ coords,
-                                  const uint8_t* __restrict__ mask,
-                                  const T* __restrict__ weights,
-                                  const T* __restrict__ bias,
-                                  T* __restrict__ out, int B, int D, int H,
-                                  int W, int V, int cin, int cout) {
-  extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);  // [49*cin][cout]
-  const int kc = kPlane * cin;
-  float* p_s = w_s + kc * cout;                  // [kTile][49*cin]
-  __shared__ int sx[kTile], sy[kTile], sz[kTile], sb[kTile];
-  __shared__ int live[kTile];
-  __shared__ int any_live;
-
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int ngroups = cout / kGroup;
-  const long long nsites = (long long)B * V;
-  const long long site0 = (long long)blockIdx.x * kTile;
-
-  if (tid == 0) any_live = 0;
-  __syncthreads();
-  if (tid < kTile) {
-    const long long s = site0 + tid;
-    int ok = 0, x = 0, y = 0, z = 0, b = 0;
-    if (s < nsites && mask[s]) {
-      ok = 1;
-      b = (int)(s / V);
-      // rows past the volume read at the clipped site, like the reference
-      x = min(max(coords[s * 3 + 0], 0), D - 1);
-      y = min(max(coords[s * 3 + 1], 0), H - 1);
-      z = min(max(coords[s * 3 + 2], 0), W - 1);
-      atomicOr(&any_live, 1);
-    }
-    sx[tid] = x; sy[tid] = y; sz[tid] = z; sb[tid] = b; live[tid] = ok;
-  }
-  __syncthreads();
-
-  const int sl = tid / ngroups;   // this thread's site within the tile
-  const int g = tid % ngroups;    // this thread's channel group
-  const long long site = site0 + sl;
-
-  if (!any_live) {
-    if (sl < kTile && site < nsites) {
-      T* o = out + site * cout + g * kGroup;
+template <typename T, int CPL>
+__global__ void __launch_bounds__(kWarps * 32)
+stem_sites_kernel(const T* __restrict__ vol, const int32_t* __restrict__ coords,
+                  const uint8_t* __restrict__ mask,
+                  const T* __restrict__ weights, const T* __restrict__ bias,
+                  T* __restrict__ out, int B, int D, int H, int W, int V,
+                  int cin, int cout) {
+  const int lane = threadIdx.x & 31;
+  const long long site = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (site >= (long long)B * V) return;          // uniform within the warp
+  T* o = out + site * cout + lane * CPL;
+  if (!mask[site]) {
 #pragma unroll
-      for (int j = 0; j < kGroup; ++j) o[j] = from_float<T>(0.f);
-    }
+    for (int j = 0; j < CPL; ++j) o[j] = from_float<T>(0.f);
     return;
   }
+  const long long b = site / V;
+  // rows past the volume read at the clipped site, like the reference
+  const int cx = min(max(coords[site * 3 + 0], 0), D - 1);
+  const int cy = min(max(coords[site * 3 + 1], 0), H - 1);
+  const int cz = min(max(coords[site * 3 + 2], 0), W - 1);
+  const T* vb = vol + (size_t)b * D * H * W * cin;
 
-  float acc[kGroup];
+  float acc[CPL];
 #pragma unroll
-  for (int j = 0; j < kGroup; ++j) acc[j] = 0.f;
+  for (int j = 0; j < CPL; ++j) acc[j] = 0.f;
 
-  for (int dx = 0; dx < kK; ++dx) {
-    // this plane's weights: offsets dx*49 .. dx*49+48 are contiguous rows
-    const T* wp = weights + (size_t)dx * kc * cout;
-    for (int i = tid; i < kc * cout; i += nthreads) w_s[i] = to_float(wp[i]);
-    // this plane's neighbour values, (dy, dz, ci) with ci fastest
-    for (int i = tid; i < kTile * kc; i += nthreads) {
-      const int s = i / kc;
-      const int r = i - s * kc;
+  const int kc = kTaps * cin;
+  for (int r0 = 0; r0 < kc; r0 += 32) {
+    const int r = r0 + lane;
+    float v = 0.f;
+    if (r < kc) {
       const int tap = r / cin;
       const int ci = r - tap * cin;
-      const int dy = tap / kK;
-      const int dz = tap - dy * kK;
-      float v = 0.f;
-      if (live[s]) {
-        const int x = sx[s] + dx - kR, y = sy[s] + dy - kR,
-                  z = sz[s] + dz - kR;
-        if (x >= 0 && x < D && y >= 0 && y < H && z >= 0 && z < W) {
-          const size_t cell = (((size_t)sb[s] * D + x) * H + y) * W + z;
-          v = to_float(vol[cell * cin + ci]);
-        }
-      }
-      p_s[i] = v;
+      const int dx = tap / (kK * kK);
+      const int rem = tap - dx * (kK * kK);
+      const int dy = rem / kK;
+      const int dz = rem - dy * kK;
+      const int x = cx + dx - kR, y = cy + dy - kR, z = cz + dz - kR;
+      if (x >= 0 && x < D && y >= 0 && y < H && z >= 0 && z < W)
+        v = to_float(vb[(((size_t)x * H + y) * W + z) * cin + ci]);
     }
-    __syncthreads();
-    if (sl < kTile) {
-      const float* pr = p_s + sl * kc;
-      const float* wr = w_s + g * kGroup;
-      for (int r = 0; r < kc; ++r) {
-        const float pv = pr[r];
-        const float4 w0 = *reinterpret_cast<const float4*>(wr + r * cout);
-        const float4 w1 = *reinterpret_cast<const float4*>(wr + r * cout + 4);
-        acc[0] = fmaf(pv, w0.x, acc[0]);
-        acc[1] = fmaf(pv, w0.y, acc[1]);
-        acc[2] = fmaf(pv, w0.z, acc[2]);
-        acc[3] = fmaf(pv, w0.w, acc[3]);
-        acc[4] = fmaf(pv, w1.x, acc[4]);
-        acc[5] = fmaf(pv, w1.y, acc[5]);
-        acc[6] = fmaf(pv, w1.z, acc[6]);
-        acc[7] = fmaf(pv, w1.w, acc[7]);
-      }
+    unsigned nz = __ballot_sync(0xffffffffu, v != 0.f);
+    while (nz) {
+      const int src = __ffs(nz) - 1;
+      nz &= nz - 1;
+      const float pv = __shfl_sync(0xffffffffu, v, src);
+      const T* w = weights + (size_t)(r0 + src) * cout + lane * CPL;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) acc[j] = fmaf(pv, to_float(w[j]), acc[j]);
     }
-    __syncthreads();
   }
 
-  if (sl < kTile && site < nsites) {
-    T* o = out + site * cout + g * kGroup;
-    const bool ok = live[sl] != 0;
 #pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      // round to the output type first, then add the bias in that type:
-      // the reference casts the f32 product and adds the bias afterwards
-      T yv = from_float<T>(acc[j]);
-      if (bias != nullptr)
-        yv = from_float<T>(to_float(yv) + to_float(bias[g * kGroup + j]));
-      o[j] = ok ? yv : from_float<T>(0.f);
-    }
+  for (int j = 0; j < CPL; ++j) {
+    // round to the output type first, then add the bias in that type:
+    // the reference casts the f32 product and adds the bias afterwards
+    T yv = from_float<T>(acc[j]);
+    if (bias != nullptr)
+      yv = from_float<T>(to_float(yv) + to_float(bias[lane * CPL + j]));
+    o[j] = yv;
   }
 }
 
-template <typename T>
-static int launch(const void* vol, const void* coords, const void* mask,
-                  const void* weights, const void* bias, void* out, int B,
-                  int D, int H, int W, int V, int cin, int cout,
-                  cudaStream_t stream) {
-  const int ngroups = cout / kGroup;
-  const int threads = kTile * ngroups;
-  const size_t shared =
-      sizeof(float) * ((size_t)kPlane * cin * cout + (size_t)kTile * kPlane * cin);
-  int device = 0, limit = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         device);
-  if (shared > (size_t)limit) return kTooMuchShared;
-  cudaError_t err = cudaFuncSetAttribute(
-      stem_sites_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)shared);
-  if (err != cudaSuccess) return (int)err;
+template <typename T, int CPL>
+static int launch_cpl(const void* vol, const void* coords, const void* mask,
+                      const void* weights, const void* bias, void* out, int B,
+                      int D, int H, int W, int V, int cin, int cout,
+                      cudaStream_t stream) {
   const long long nsites = (long long)B * V;
-  const unsigned blocks = (unsigned)((nsites + kTile - 1) / kTile);
+  const long long blocks = (nsites + kWarps - 1) / kWarps;
   if (blocks == 0) return 0;
-  stem_sites_kernel<T><<<blocks, threads, shared, stream>>>(
+  if (blocks > 0x7fffffffLL) return kBadShape;
+  stem_sites_kernel<T, CPL><<<(unsigned)blocks, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(vol), static_cast<const int32_t*>(coords),
       static_cast<const uint8_t*>(mask), static_cast<const T*>(weights),
       static_cast<const T*>(bias), static_cast<T*>(out), B, D, H, W, V, cin,
@@ -178,18 +116,36 @@ static int launch(const void* vol, const void* coords, const void* mask,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+static int launch(const void* vol, const void* coords, const void* mask,
+                  const void* weights, const void* bias, void* out, int B,
+                  int D, int H, int W, int V, int cin, int cout,
+                  cudaStream_t stream) {
+  switch (cout) {
+    case 32: return launch_cpl<T, 1>(vol, coords, mask, weights, bias, out,
+                                     B, D, H, W, V, cin, cout, stream);
+    case 64: return launch_cpl<T, 2>(vol, coords, mask, weights, bias, out,
+                                     B, D, H, W, V, cin, cout, stream);
+    case 128: return launch_cpl<T, 4>(vol, coords, mask, weights, bias, out,
+                                      B, D, H, W, V, cin, cout, stream);
+    case 256: return launch_cpl<T, 8>(vol, coords, mask, weights, bias, out,
+                                      B, D, H, W, V, cin, cout, stream);
+    default: return kBadShape;
+  }
+}
+
 }  // namespace dpcr
 
 // vol [B,D,H,W,cin], coords [B,V,3] int32, mask [B,V] uint8,
 // weights [343,cin,cout], bias [cout] or null, out [B,V,cout]; all
-// contiguous, vol/weights/bias/out of one dtype. Returns 0 on success, a
-// CUDA error code, or a negative dpcr::ArgError.
+// contiguous, vol/weights/bias/out of one dtype; cout in {32,64,128,256}.
+// Returns 0 on success, a CUDA error code, or a negative dpcr::ArgError.
 extern "C" int stem_sites_launch(int dtype, const void* vol,
                                  const void* coords, const void* mask,
                                  const void* weights, const void* bias,
                                  void* out, int B, int D, int H, int W, int V,
                                  int cin, int cout, void* stream) {
-  if (cout % dpcr::kGroup != 0 || cin < 1 || cout * dpcr::kTile / dpcr::kGroup > 1024)
+  if (cin < 1 || D < 1 || H < 1 || W < 1 || V < 0 || B < 0)
     return dpcr::kBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dpcr::kFloat32)

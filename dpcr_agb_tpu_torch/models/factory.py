@@ -4,7 +4,7 @@ the dense-path `post_collate` and the SPARSE `_collate_spec` of
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -12,38 +12,23 @@ import torch
 from ..data.batch import Batch, CollateSpec, normalize_sparse_rows
 from .minkowski import SparseResNet, build_resnet
 
-_BUILDERS: Dict[str, Callable] = {}
-
-
-def register_builder(class_str: str):
-    def wrap(fn):
-        _BUILDERS[class_str] = fn
-        return fn
-    return wrap
-
-
-@register_builder("minkowski.MinkowskiBaselineModel")
-def _build_minkowski(option: dict, num_reg_targets: int, in_channels: int,
-                     generator: Optional[torch.Generator]):
-    name = option["model_name"]
-    if name == "MinkowskiPointNet":
-        raise NotImplementedError("MPointNet is left for a later slice of "
-                                  "the port")
-    return build_resnet(name, option, num_reg_targets, in_channels,
-                        generator), "SPARSE"
+_MINKOWSKI = "minkowski.MinkowskiBaselineModel"
 
 
 def build_model(option: dict, num_reg_targets: int, in_channels: int,
                 generator: Optional[torch.Generator] = None):
-    """(module, conv_type) for one `conf/models` entry."""
-    class_str = option["class"]
-    if class_str not in _BUILDERS:
+    """(module, conv_type) for one `conf/models` entry; only the Minkowski
+    sparse-voxel ResNets are ported."""
+    if option["class"] != _MINKOWSKI:
         raise NotImplementedError(
-            f"model class {class_str!r} is not ported yet (ported: "
-            f"{sorted(_BUILDERS)})")
-    net, conv_type = _BUILDERS[class_str](option, num_reg_targets,
-                                          in_channels, generator)
-    return net, option.get("conv_type", conv_type)
+            f"model class {option['class']!r} is not ported yet (ported: "
+            f"{_MINKOWSKI})")
+    name = option["model_name"]
+    if name == "MinkowskiPointNet":
+        raise NotImplementedError("MPointNet is left for a later slice of "
+                                  "the port")
+    net = build_resnet(name, option, num_reg_targets, in_channels, generator)
+    return net, option.get("conv_type", "SPARSE")
 
 
 def make_post_collate(net) -> Optional[Callable[[Batch], Batch]]:

@@ -7,7 +7,7 @@ is a callable `t(rng, sample) -> sample` with an explicit
 `np.random.Generator`, so a pipeline is a pure function of (seed, sample)."""
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Sequence
 
 import numpy as np
 
@@ -16,14 +16,13 @@ Sample = Dict[str, Any]
 TRANSFORM_REGISTRY: Dict[str, type] = {}
 
 
-def register(cls=None, *, name: Optional[str] = None):
-    def wrap(c):
-        key = name or c.__name__
-        if key in TRANSFORM_REGISTRY and TRANSFORM_REGISTRY[key] is not c:
-            raise ValueError(f"Duplicate transform registration: {key}")
-        TRANSFORM_REGISTRY[key] = c
-        return c
-    return wrap(cls) if cls is not None else wrap
+def register(cls: type) -> type:
+    """Class decorator: make a transform instantiable by its class name."""
+    key = cls.__name__
+    if key in TRANSFORM_REGISTRY and TRANSFORM_REGISTRY[key] is not cls:
+        raise ValueError(f"Duplicate transform registration: {key}")
+    TRANSFORM_REGISTRY[key] = cls
+    return cls
 
 
 def num_points(sample: Sample) -> int:

@@ -1,73 +1,38 @@
 """Voxel-grid sampling (counterpart of `GridSampling3D` in
-`dpcr_agb_tpu/transforms/grid.py`):
+`dpcr_agb_tpu/transforms/grid.py`), in the sparse_xy chain's mode "last":
   * coords = round(pos / size)
-  * mode "last": shuffle all per-point arrays, then keep the last point of
-    each voxel (a uniform random representative)
-  * mode "mean": mean of float arrays per voxel, majority vote for integer
-    label keys
-  * quantize_coords stores int32 voxel coords in sample['coords']"""
+  * shuffle all per-point arrays, then keep the last point of each voxel (a
+    uniform random representative)
+  * quantize_coords stores int32 voxel coords in sample['coords']
+The reference's mode "mean" is not used by the ported chains."""
 from __future__ import annotations
 
 import numpy as np
 
-from .core import (Sample, Transform, num_points, register, shuffle_sample,
-                   unique_int_rows)
-
-_INTEGER_LABEL_KEYS = ["y", "y_cls", "instance_labels"]
-
-
-def group_data(sample: Sample, inverse: np.ndarray, last_indices: np.ndarray,
-               n_clusters: int, mode: str = "last") -> Sample:
-    """Aggregate per-point arrays by voxel cluster."""
-    n = num_points(sample)
-    out = dict(sample)
-    for key, item in sample.items():
-        if not (isinstance(item, np.ndarray) and item.ndim >= 1
-                and item.shape[0] == n):
-            continue
-        if mode == "last" or key in ("batch", "origin_id"):
-            out[key] = item[last_indices]
-        elif key in _INTEGER_LABEL_KEYS and np.issubdtype(item.dtype,
-                                                          np.integer):
-            item_min = item.min()
-            shifted = item - item_min
-            votes = np.zeros((n_clusters, int(shifted.max()) + 1), np.int64)
-            np.add.at(votes, (inverse, shifted), 1)
-            out[key] = (votes.argmax(axis=1) + item_min).astype(item.dtype)
-        else:
-            is_bool = item.dtype == np.bool_
-            sums = np.zeros((n_clusters,) + item.shape[1:], dtype=np.float64)
-            np.add.at(sums, inverse, item.astype(np.float64))
-            counts = np.bincount(inverse, minlength=n_clusters).astype(
-                np.float64).reshape((-1,) + (1,) * (item.ndim - 1))
-            mean = sums / np.maximum(counts, 1)
-            out[key] = mean.astype(bool if is_bool else np.float32)
-    return out
+from .core import Transform, num_points, register, shuffle_sample, \
+    unique_int_rows
 
 
 @register
 class GridSampling3D(Transform):
     def __init__(self, size, quantize_coords=False, mode="mean"):
-        if mode not in ("mean", "last"):
-            raise ValueError(f"GridSampling3D mode {mode!r} (mean, last)")
+        if mode != "last":
+            raise NotImplementedError(
+                f"GridSampling3D mode {mode!r} is not ported (ported: last)")
         self.size = size
         self.quantize_coords = quantize_coords
-        self.mode = mode
 
     def __call__(self, rng, sample):
-        if self.mode == "last":
-            sample = shuffle_sample(rng, sample)
+        sample = shuffle_sample(rng, sample)
+        n = num_points(sample)
         coords = np.round(sample["pos"] / self.size)
         uniq, inverse = unique_int_rows(coords)
-        n_clusters = len(uniq)
-        last_indices = np.zeros(n_clusters, dtype=np.int64)
+        last_indices = np.zeros(len(uniq), dtype=np.int64)
         last_indices[inverse] = np.arange(len(inverse))
-        sample = group_data(sample, inverse, last_indices, n_clusters,
-                            mode=self.mode)
+        out = {k: (v[last_indices] if isinstance(v, np.ndarray)
+                   and v.ndim >= 1 and v.shape[0] == n else v)
+               for k, v in sample.items()}
         if self.quantize_coords:
-            sample["coords"] = (uniq if self.mode == "mean"
-                                else coords[last_indices]).astype(np.int32)
-        if self.mode == "mean":
-            sample["pos"] = sample["pos"].astype(np.float32)
-        sample["grid_size"] = np.array([self.size], dtype=np.float32)
-        return sample
+            out["coords"] = coords[last_indices].astype(np.int32)
+        out["grid_size"] = np.array([self.size], dtype=np.float32)
+        return out

@@ -53,30 +53,23 @@ class StartZFromZero(Transform):
         return sample
 
 
-def _fixed_points_choice(rng, num_nodes: int, num: int, replace: bool,
-                         allow_duplicates: bool) -> np.ndarray:
-    if replace:
-        return rng.integers(0, num_nodes, size=num)
-    if not allow_duplicates:
-        return rng.permutation(num_nodes)[:num]
-    reps = math.ceil(num / num_nodes)
-    return np.concatenate([rng.permutation(num_nodes)
-                           for _ in range(reps)])[:num]
-
-
 class FixedPointsOwn(Transform):
-    """Sample exactly `num` points (minimal duplication when fewer)."""
+    """Sample exactly `num` points without replacement (minimal duplication
+    when fewer and `allow_duplicates`)."""
 
-    def __init__(self, num, replace=False, allow_duplicates=True,
-                 skip_list=None):
+    def __init__(self, num, allow_duplicates=True, skip_list=None):
         self.num = num
-        self.replace = replace
         self.allow_duplicates = allow_duplicates
         self.skip_list = list(skip_list or [])
 
     def __call__(self, rng, sample):
-        idx = _fixed_points_choice(rng, num_points(sample), self.num,
-                                   self.replace, self.allow_duplicates)
+        n = num_points(sample)
+        if self.allow_duplicates:
+            reps = math.ceil(self.num / n)
+            idx = np.concatenate([rng.permutation(n)
+                                  for _ in range(reps)])[:self.num]
+        else:
+            idx = rng.permutation(n)[:self.num]
         return apply_index(sample, idx, self.skip_list)
 
 
@@ -86,7 +79,7 @@ class MaxPoints(Transform):
 
     def __init__(self, num, skip_list=None):
         self.num = num
-        self.inner = FixedPointsOwn(num, replace=False, allow_duplicates=False,
+        self.inner = FixedPointsOwn(num, allow_duplicates=False,
                                     skip_list=skip_list)
 
     def __call__(self, rng, sample):
@@ -102,7 +95,7 @@ class MinPoints(Transform):
 
     def __init__(self, num, skip_list=None):
         self.num = num
-        self.inner = FixedPointsOwn(num, replace=False, allow_duplicates=True,
+        self.inner = FixedPointsOwn(num, allow_duplicates=True,
                                     skip_list=skip_list)
 
     def __call__(self, rng, sample):
