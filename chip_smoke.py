@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (dpcr_agb_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--plots 16] [--quick] [--profile]
-                          [--out FILE]
+    python3 chip_smoke.py [--seed 0] [--profile] [--out FILE]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   device   the card's name and power limit; builds the CUDA kernels from
@@ -22,8 +21,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
            (f32: rtol 1e-3 with TF32 off); prints plots/s of the forward
 Then the kernels summary line, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`. Without CUDA (or without the rest of
-the repository) it exits non-zero before printing any result.
---quick stops after the kernels phase."""
+the repository) it exits non-zero before printing any result."""
 from __future__ import annotations
 
 import argparse
@@ -54,6 +52,8 @@ STEM_SRC = "dpcr_agb_tpu_torch/kernels/csrc/stem_sites.cu"
 POOL_SRC = "dpcr_agb_tpu_torch/kernels/csrc/max_pool.cu"
 STEM_REPLACES = "dpcr_agb_tpu/ops/pallas_stem.py:216"
 POOL_REPLACES = "dpcr_agb_tpu/ops/pallas_pool.py:213"
+N_PLOTS = 16     # one serving batch of bench.py's size
+DENSITY = 60.0   # points per m^2: MaxPoints 16000 binds, V bucket 16384
 
 RECORD = []
 
@@ -98,15 +98,21 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
 @contextlib.contextmanager
 def plain_ops():
     """Route the model's two kernel ops to their plain PyTorch versions
-    (the reference run of the serve phase)."""
+    (the reference run of the serve phase); raises if a kernel launched
+    inside, i.e. if the reference did not really take the plain path."""
+    from dpcr_agb_tpu_torch import kernels
     from dpcr_agb_tpu_torch.ops import pool, sparse_stem
     saved = (sparse_stem.stem_conv_sites, pool.masked_max_pool)
     sparse_stem.stem_conv_sites = sparse_stem.stem_conv_sites_plain
     pool.masked_max_pool = pool.masked_max_pool_plain
+    before = dict(kernels.LAUNCHES)
     try:
         yield
     finally:
         sparse_stem.stem_conv_sites, pool.masked_max_pool = saved
+    if kernels.LAUNCHES != before:
+        raise AssertionError(f"the plain reference run launched kernels: "
+                             f"{before} -> {kernels.LAUNCHES}")
 
 
 def write_plots(root: str, n: int, seed: int, density: float) -> list:
@@ -145,7 +151,7 @@ def make_checkpoint(root: str, name: str, option: dict, seed: int) -> str:
     return ckpt
 
 
-def phase_device(args) -> dict:
+def phase_device() -> dict:
     import torch
     from dpcr_agb_tpu_torch.kernels import build
     smi = nvidia_smi_line()
@@ -321,13 +327,13 @@ def phase_kernels(bundles: dict, batch, smi: str) -> list:
 
 
 def phase_serve(dtname: str, ckpt: str, plot_dir: str, out_dir: str,
-                smi: str, n_plots: int, with_profile: bool = False) -> dict:
+                smi: str, with_profile: bool = False) -> dict:
     import torch
     from dpcr_agb_tpu_torch import kernels, predict
     out_csv = os.path.join(out_dir, f"preds_{dtname}.csv")
     args = [f"checkpoint_dir={ckpt}", "model_name=SENet14",
             f"input={plot_dir}/*.npz", f"output={out_csv}",
-            f"batch_size={n_plots}"]
+            f"batch_size={N_PLOTS}"]
     kernels.reset_launches()
     t0 = time.perf_counter()
     predict.main(args)
@@ -340,7 +346,7 @@ def phase_serve(dtname: str, ckpt: str, plot_dir: str, out_dir: str,
     with open(out_csv) as f:
         rows = list(csv.reader(f))[1:]
     preds = np.array([[float(v) for v in r[1:]] for r in rows])
-    if preds.shape != (n_plots, 2) or not np.isfinite(preds).all():
+    if preds.shape != (N_PLOTS, 2) or not np.isfinite(preds).all():
         raise AssertionError(f"serve {dtname}: predictions {preds.shape}, "
                              f"finite={np.isfinite(preds).all()}")
 
@@ -348,7 +354,7 @@ def phase_serve(dtname: str, ckpt: str, plot_dir: str, out_dir: str,
     bundle = predict.load_serving_bundle(ckpt, "SENet14")
     files = sorted(glob.glob(os.path.join(plot_dir, "*.npz")))
     samples, _ = predict.load_samples(bundle, files)
-    (batch, n), = predict.make_batches(bundle, samples, n_plots)
+    (batch, _), = predict.make_batches(bundle, samples, N_PLOTS)
     raw = predict.forward_raw(bundle, batch).float()
     with plain_ops():
         raw_plain = predict.forward_raw(bundle, batch).float()
@@ -377,14 +383,14 @@ def phase_serve(dtname: str, ckpt: str, plot_dir: str, out_dir: str,
     torch.cuda.reset_peak_memory_stats()
     predict.forward_raw(bundle, batch)
     torch.cuda.synchronize()
-    out = {"phase": "serve", "dtype": dtname, "plots": n_plots,
+    out = {"phase": "serve", "dtype": dtname, "plots": N_PLOTS,
            "v_bucket": int(batch.coords.shape[1]),
            "zb": int(len(batch.aux["zcells"])),
            "dims": list(bundle.net.level0_dims(batch)),
            "occupied_voxels": int(np.asarray(batch.mask).sum()),
            "launches": launches, "predict_main_seconds": main_seconds,
            "raw_max_abs_err_vs_plain": err, "tolerance": tol,
-           "forward_ms": fwd * 1e3, "plots_per_s": n_plots / fwd,
+           "forward_ms": fwd * 1e3, "plots_per_s": N_PLOTS / fwd,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                     "matmul": torch.backends.cuda.matmul.allow_tf32},
@@ -425,11 +431,6 @@ def device_profile(fn, reps: int = 3) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--plots", type=int, default=16)
-    ap.add_argument("--density", type=float, default=60.0,
-                    help="points per m^2 of the synthetic plots")
-    ap.add_argument("--quick", action="store_true",
-                    help="stop after the kernels phase")
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of the forward")
     ap.add_argument("--out", default=None,
@@ -451,11 +452,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t_start = time.perf_counter()
-    dev = phase_device(args)
+    dev = phase_device()
     smi = dev["nvidia_smi"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         plot_dir = os.path.join(tmp, "plots")
-        write_plots(plot_dir, args.plots, args.seed, args.density)
+        write_plots(plot_dir, N_PLOTS, args.seed, DENSITY)
         ckpts = {k: make_checkpoint(tmp, f"ckpt_{k}", o, args.seed)
                  for k, o in model_options().items()}
         bundles = {k: predict.load_serving_bundle(c, "SENet14")
@@ -463,8 +464,8 @@ def main(argv=None) -> int:
         files = sorted(glob.glob(os.path.join(plot_dir, "*.npz")))
         samples, _ = predict.load_samples(bundles["float32"], files)
         (batch, _), = predict.make_batches(bundles["float32"], samples,
-                                           args.plots)
-        emit({"phase": "data", "plots": args.plots,
+                                           N_PLOTS)
+        emit({"phase": "data", "plots": N_PLOTS,
               "v_bucket": int(batch.coords.shape[1]),
               "zb": int(len(batch.aux["zcells"])),
               "raw_points_per_plot": [int(np.load(f)["pos"].shape[0])
@@ -474,14 +475,12 @@ def main(argv=None) -> int:
         krows = phase_kernels(bundles, batch, smi)
         del bundles
         torch.cuda.empty_cache()
-        if not args.quick:
-            for dtname, ckpt in ckpts.items():
-                s = phase_serve(dtname, ckpt, plot_dir, tmp, smi, args.plots,
-                                args.profile)
-                for r in krows:
-                    if r["dtype"] == dtname:
-                        r["launches"] = s["launches"][r["name"]]
-                torch.cuda.empty_cache()
+        for dtname, ckpt in ckpts.items():
+            s = phase_serve(dtname, ckpt, plot_dir, tmp, smi, args.profile)
+            for r in krows:
+                if r["dtype"] == dtname:
+                    r["launches"] = s["launches"][r["name"]]
+            torch.cuda.empty_cache()
     summary = {"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dtype")}

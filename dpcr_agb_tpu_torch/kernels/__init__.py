@@ -63,12 +63,11 @@ def stem_sites(vol: torch.Tensor, coords: torch.Tensor, mask: torch.Tensor,
     _require(weights, "weights", dt, 3, dev)
     if coords.shape != (b, v, 3) or mask.shape != (b, v) \
             or weights.shape[:2] != (343, cin) \
-            or weights.shape[2] not in (32, 64, 128, 256):
+            or weights.shape[2] != 64:
         raise ValueError(
             f"stem_sites: shapes vol {tuple(vol.shape)}, coords "
             f"{tuple(coords.shape)}, mask {tuple(mask.shape)}, weights "
-            f"{tuple(weights.shape)} (need [343,Cin,Cout], Cout in 32, 64, "
-            f"128, 256)")
+            f"{tuple(weights.shape)} (need [343,Cin,64])")
     cout = weights.shape[2]
     if bias is not None:
         _require(bias, "bias", dt, 1, dev)
@@ -101,8 +100,9 @@ def max_pool_k3s2(x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
     if occ.shape != (b, d, h, w, 1):
         raise ValueError(f"max_pool_k3s2: occ {tuple(occ.shape)} for x "
                          f"{tuple(x.shape)}")
-    if x.data_ptr() % 16:
-        raise ValueError("max_pool_k3s2: x must be 16-byte aligned")
+    if x.data_ptr() % 16 or (c * x.element_size()) % 16:
+        raise ValueError("max_pool_k3s2: x must be 16-byte aligned with C a "
+                         "whole number of 16-byte channel groups")
     y = torch.empty((b, -(-d // 2), -(-h // 2), -(-w // 2), c), dtype=dt,
                     device=dev)
     with torch.cuda.device(dev):

@@ -4,8 +4,8 @@ Each `csrc/*.cu` file has a plain C entry point and is compiled by `nvcc`
 for `sm_90a` into its own shared library under `build/torch_ext/` at the
 repository root (listed in .gitignore). All missing libraries are compiled
 at once, one `nvcc` process per source. A library's file name carries a
-hash of its sources and flags, so an edited source is rebuilt and an
-unchanged one is reused. Nothing is compiled at import time: the first
+hash of its sources, flags and `nvcc --version`, so an edited source or
+another toolkit rebuilds it and an unchanged one is reused. Nothing is compiled at import time: the first
 kernel call (or an explicit `build()`) does it.
 
 Binding through ctypes instead of `torch.utils.cpp_extension.load` keeps
@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import time
+from functools import lru_cache
 from pathlib import Path
 from typing import Dict
 
@@ -41,6 +42,7 @@ LIBRARIES = {
 _ENTRY: Dict[str, object] = {}
 
 
+@lru_cache(maxsize=None)
 def nvcc() -> str:
     """Path of nvcc: $CUDA_HOME/bin, then /usr/local/cuda/bin, then PATH."""
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
@@ -53,9 +55,16 @@ def nvcc() -> str:
     return found
 
 
+@lru_cache(maxsize=None)
+def nvcc_version() -> str:
+    return subprocess.run([nvcc(), "--version"], check=True,
+                          capture_output=True, text=True, timeout=60).stdout
+
+
 def library_path(name: str) -> Path:
     source = LIBRARIES[name][0]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc_version().encode())
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -105,8 +114,25 @@ def entry(name: str):
         if not path.exists():
             build()
         _, symbol, argtypes = LIBRARIES[name]
-        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        lib = ctypes.CDLL(str(path))
+        _check_runtime(lib, name, torch.version.cuda)
+        fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _ENTRY[name] = fn
     return _ENTRY[name]
+
+
+def _check_runtime(lib, name: str, torch_cuda: str) -> None:
+    """Raise unless the library's CUDA runtime has PyTorch's major version:
+    with another major, the process would hold two runtimes."""
+    got = lib.dpcr_cuda_runtime_version()
+    if got <= 0:
+        raise RuntimeError(f"{name}: the library's CUDA runtime does not "
+                           f"start (CUDA error {-got})")
+    if got // 1000 != int(torch_cuda.split(".")[0]):
+        raise RuntimeError(
+            f"{name}: the library links CUDA runtime {got // 1000}."
+            f"{got % 1000 // 10}, PyTorch was built for CUDA {torch_cuda}; "
+            f"point CUDA_HOME at a toolkit of major version "
+            f"{torch_cuda.split('.')[0]}")

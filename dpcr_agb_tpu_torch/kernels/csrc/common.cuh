@@ -1,5 +1,6 @@
 // Shared helpers for the port's hand-written Hopper kernels: float <-> storage
-// conversions for the two supported element types (float, __nv_bfloat16).
+// conversions for the two supported element types (float, __nv_bfloat16),
+// and the runtime-version probe each library exports.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,3 +34,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(
 }
 
 }  // namespace dpcr
+
+// The CUDA runtime version the library runs on (e.g. 12080 for 12.8), or a
+// negative CUDA error code; the loader holds it against PyTorch's. Each
+// library compiles exactly one source that includes this header.
+extern "C" int dpcr_cuda_runtime_version() {
+  int v = 0;
+  const cudaError_t e = cudaRuntimeGetVersion(&v);
+  return e == cudaSuccess ? v : -(int)e;
+}

@@ -80,9 +80,11 @@ __global__ void max_pool_k3s2_kernel(const T* __restrict__ x,
   }
 }
 
-template <typename T, int VEC>
-static int launch_vec(const void* x, const void* occ, void* y, int B, int D,
-                      int H, int W, int C, cudaStream_t stream) {
+template <typename T>
+static int launch(const void* x, const void* occ, void* y, int B, int D,
+                  int H, int W, int C, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);  // 16-byte channel groups
+  if (C % VEC != 0) return kBadShape;
   const int D1 = (D + 1) / 2, H1 = (H + 1) / 2, W1 = (W + 1) / 2;
   const long long total = (long long)B * D1 * H1 * W1 * (C / VEC);
   if (total == 0) return 0;
@@ -95,19 +97,11 @@ static int launch_vec(const void* x, const void* occ, void* y, int B, int D,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int launch(const void* x, const void* occ, void* y, int B, int D,
-                  int H, int W, int C, cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(T);  // 16-byte channel groups
-  if (C % kVec == 0)
-    return launch_vec<T, kVec>(x, occ, y, B, D, H, W, C, stream);
-  return launch_vec<T, 1>(x, occ, y, B, D, H, W, C, stream);
-}
-
 }  // namespace dpcr
 
 // x [B,D,H,W,C], occ [B,D,H,W] (>0 = occupied), y [B,ceil(D/2),ceil(H/2),
-// ceil(W/2),C]; all contiguous and of one dtype, x and y 16-byte aligned.
+// ceil(W/2),C]; all contiguous and of one dtype, x and y 16-byte aligned,
+// C a whole number of 16-byte groups (4 f32 or 8 bf16 values).
 // Returns 0 on success, a CUDA error code, or a negative dpcr::ArgError.
 extern "C" int max_pool_k3s2_launch(int dtype, const void* x, const void* occ,
                                     void* y, int B, int D, int H, int W, int C,

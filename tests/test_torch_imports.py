@@ -75,6 +75,25 @@ def test_kernel_launchers_refuse_cpu_tensors():
         kernels.max_pool_k3s2(x, occ)
 
 
+@pytest.mark.parametrize("runtime,torch_cuda,ok", [
+    (12080, "12.8", True), (12040, "12.6", True), (13000, "12.8", False),
+    (12080, "13.0", False), (-35, "12.8", False)])
+def test_kernel_library_must_share_pytorchs_cuda_major(runtime, torch_cuda,
+                                                       ok):
+    from dpcr_agb_tpu_torch.kernels import build
+
+    class Lib:
+        @staticmethod
+        def dpcr_cuda_runtime_version():
+            return runtime
+
+    if ok:
+        build._check_runtime(Lib(), "stem_sites", torch_cuda)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA runtime"):
+            build._check_runtime(Lib(), "stem_sites", torch_cuda)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card():
     if not torch.cuda.is_available():
