@@ -7,13 +7,14 @@ tensors only; the CPU path of each op is its plain PyTorch version in
 `dpcr_agb_tpu_torch.ops`."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from . import build
 
-LAUNCHES = {"stem_sites": 0, "max_pool_k3s2": 0}
+LAUNCHES = {"stem_sites": 0, "max_pool_k3s2": 0, "stem_sites_dw": 0,
+            "max_pool_k3s2_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -112,3 +113,84 @@ def max_pool_k3s2(x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
     _check_rc(rc, "max_pool_k3s2")
     LAUNCHES["max_pool_k3s2"] += 1
     return y
+
+
+def stem_sites_dw(vol: torch.Tensor, coords: torch.Tensor, mask: torch.Tensor,
+                  ct: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of `stem_sites`: vol [B,D,H,W,Cin], coords [B,V,3]
+    int32, mask [B,V] bool, ct [B,V,64] of vol's dtype -> dW [343,Cin,64]
+    float32, the sum over the masked-in sites of patch x ct (f32
+    accumulation, f32 atomics: the order of the additions varies)."""
+    if not vol.is_cuda:
+        raise ValueError("stem_sites_dw takes CUDA tensors")
+    dev, dt = vol.device, vol.dtype
+    if dt not in _DTYPE_CODE:
+        raise ValueError(f"stem_sites_dw: unsupported dtype {dt}")
+    b, d, h, w, cin = vol.shape
+    v = coords.shape[1]
+    _require(vol, "vol", dt, 5, dev)
+    _require(coords, "coords", torch.int32, 3, dev)
+    _require(mask, "mask", torch.bool, 2, dev)
+    _require(ct, "ct", dt, 3, dev)
+    if coords.shape != (b, v, 3) or mask.shape != (b, v) \
+            or ct.shape != (b, v, 64) or not 1 <= cin <= 18:
+        raise ValueError(
+            f"stem_sites_dw: shapes vol {tuple(vol.shape)}, coords "
+            f"{tuple(coords.shape)}, mask {tuple(mask.shape)}, ct "
+            f"{tuple(ct.shape)} (need ct [B,V,64] and 1 <= Cin <= 18)")
+    dw = torch.zeros((343, cin, 64), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = build.entry("stem_dw")(
+            _DTYPE_CODE[dt], vol.data_ptr(), coords.data_ptr(),
+            mask.data_ptr(), ct.data_ptr(), dw.data_ptr(), b, d, h, w, v, cin,
+            _stream(dev))
+    _check_rc(rc, "stem_sites_dw")
+    LAUNCHES["stem_sites_dw"] += 1
+    return dw
+
+
+def max_pool_k3s2_bwd(coords: torch.Tensor, mask: torch.Tensor,
+                      h_rows: torch.Tensor, y: torch.Tensor,
+                      occ_l: torch.Tensor, ct: torch.Tensor,
+                      dims: Sequence[int]) -> torch.Tensor:
+    """Row-form backward of the masked k3/s2 max pool: coords [B,V,3]
+    int32, mask [B,V] bool, rows h_rows [B,V,C] scattered into the volume
+    of `dims`, the pooled y, its occupancy occ_l [B,d1,h1,w1,1] and the
+    cotangent ct [B,d1,h1,w1,C] (masked by occ_l inside the kernel) -> dx
+    [B,V,C] in h_rows' dtype: each row gets the sum of ct over the parent
+    cells whose y equals its value."""
+    if not h_rows.is_cuda:
+        raise ValueError("max_pool_k3s2_bwd takes CUDA tensors")
+    dev, dt = h_rows.device, h_rows.dtype
+    if dt not in _DTYPE_CODE:
+        raise ValueError(f"max_pool_k3s2_bwd: unsupported dtype {dt}")
+    b, v, c = h_rows.shape
+    d, h, w = (int(n) for n in dims)
+    l1 = (b, -(-d // 2), -(-h // 2), -(-w // 2))
+    _require(coords, "coords", torch.int32, 3, dev)
+    _require(mask, "mask", torch.bool, 2, dev)
+    _require(h_rows, "h_rows", dt, 3, dev)
+    for t, what in ((y, "y"), (occ_l, "occ_l"), (ct, "ct")):
+        _require(t, what, dt, 5, dev)
+    if coords.shape != (b, v, 3) or mask.shape != (b, v) \
+            or y.shape != (*l1, c) or ct.shape != (*l1, c) \
+            or occ_l.shape != (*l1, 1):
+        raise ValueError(
+            f"max_pool_k3s2_bwd: shapes coords {tuple(coords.shape)}, mask "
+            f"{tuple(mask.shape)}, h_rows {tuple(h_rows.shape)}, y "
+            f"{tuple(y.shape)}, occ_l {tuple(occ_l.shape)}, ct "
+            f"{tuple(ct.shape)} for dims {tuple(dims)}")
+    if any(t.data_ptr() % 16 for t in (h_rows, y, ct)) \
+            or (c * h_rows.element_size()) % 16:
+        raise ValueError("max_pool_k3s2_bwd: h_rows, y and ct must be "
+                         "16-byte aligned with C a whole number of 16-byte "
+                         "channel groups")
+    dx = torch.empty_like(h_rows)
+    with torch.cuda.device(dev):
+        rc = build.entry("max_pool_bwd")(
+            _DTYPE_CODE[dt], coords.data_ptr(), mask.data_ptr(),
+            h_rows.data_ptr(), y.data_ptr(), occ_l.data_ptr(), ct.data_ptr(),
+            dx.data_ptr(), b, v, d, h, w, c, _stream(dev))
+    _check_rc(rc, "max_pool_k3s2_bwd")
+    LAUNCHES["max_pool_k3s2_bwd"] += 1
+    return dx

@@ -37,6 +37,11 @@ LIBRARIES = {
                     _P]),
     "max_pool": ("max_pool.cu", "max_pool_k3s2_launch",
                  [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "max_pool_bwd": ("max_pool_bwd.cu", "max_pool_k3s2_bwd_launch",
+                     [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _P]),
+    "stem_dw": ("stem_dw.cu", "stem_sites_dw_launch",
+                [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 _ENTRY: Dict[str, object] = {}

@@ -15,6 +15,13 @@ enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 // error codes for arguments the kernels do not take (CUDA's own codes are > 0)
 enum ArgError : int { kBadDType = -1, kBadShape = -2 };
 
+// VEC consecutive values moved as one aligned load or store (16 bytes for
+// the 16-byte channel groups of the pool kernels)
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
 template <typename T> __device__ __forceinline__ float to_float(T v);
 template <> __device__ __forceinline__ float to_float<float>(float v) {
   return v;

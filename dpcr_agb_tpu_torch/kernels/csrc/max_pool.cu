@@ -28,11 +28,6 @@
 namespace dpcr {
 
 template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
-
-template <typename T, int VEC>
 __global__ void max_pool_k3s2_kernel(const T* __restrict__ x,
                                      const T* __restrict__ occ,
                                      T* __restrict__ y, int B, int D, int H,

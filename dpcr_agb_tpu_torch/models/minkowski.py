@@ -9,6 +9,10 @@ Forward: the k=7 stem conv, BN and activation on the occupied rows only
 SeparateLinear head. Submodule and parameter names are the flax ones, and
 conv kernels keep the JAX layout [K^3, Cin, Cout] with z-fastest offsets.
 
+Training runs the same path with train-mode BN and live DropPath; the
+JAX package's `nn.remat` around the blocks has no numeric effect and is not
+ported (bs16 and bs32 fit on one 80 GB card without it).
+
 Not ported yet: map mode (`dense_dims=None`), the dense level 0
 (`DPCR_L0=dense`, `first_stride` 2), the other sparse-pool modes and the
 bottleneck blocks (ResNet50/101, SENet50/101)."""
@@ -114,9 +118,11 @@ class ResBlock(nn.Module):
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor, occ_in: torch.Tensor,
-                occ_out: torch.Tensor) -> torch.Tensor:
+                occ_out: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B,D,H,W,Cin]; occ_in/occ_out occupancy volumes [...,1] of the
-        input and output level (occ_in is read by bottleneck blocks only)."""
+        input and output level (occ_in is read by bottleneck blocks only);
+        `generator` feeds DropPath in training."""
         m_out = occ_out[..., 0] > 0
         out = self.conv1.forward_dense(x, occ_out, self.stride)
         out = self.act(self.norm1(out, m_out))
@@ -131,7 +137,7 @@ class ResBlock(nn.Module):
             residual = self.downsample_conv.forward_dense(x, occ_out,
                                                           self.stride)
             residual = self.downsample_norm(residual, m_out)
-        out = self.act(self.drop_path(out) + residual)
+        out = self.act(self.drop_path(out, generator) + residual)
         return torch.where(occ_out > 0, out, torch.zeros_like(out))
 
 
@@ -195,9 +201,12 @@ class SparseResNet(nn.Module):
             w = min(int(batch.aux["zcells"].shape[-1]), w)
         return d, h, w
 
-    def forward(self, batch) -> torch.Tensor:
+    def forward(self, batch,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """batch: a `Batch` of tensors on one device -> raw head output
-        [B, num_reg_targets] in f32."""
+        [B, num_reg_targets] in f32. In training mode BN takes the batch
+        moments over occupied cells and updates its running stats, and
+        DropPath/Dropout draw from `generator` (on the batch's device)."""
         if batch.coords is None:
             raise ValueError("SparseResNet requires quantized coords "
                              "(use a sparse transform preset)")
@@ -212,12 +221,12 @@ class SparseResNet(nn.Module):
             occ_in = occ_l
             if s != 1:
                 occ_l = occupancy_pool(occ_l)
-            h = getattr(self, name)(h, occ_in, occ_l)
+            h = getattr(self, name)(h, occ_in, occ_l, generator)
         hf = h.float()
         b = hf.shape[0]
         g = GLOBAL_POOL[self.global_pool](hf.reshape(b, -1, hf.shape[-1]),
                                           occ_l.reshape(b, -1) > 0)
-        return self.final(self.dropout(g))
+        return self.final(self.dropout(g, generator))
 
 
 _ARCHS = {

@@ -101,33 +101,47 @@ class SELayer(nn.Module):
         return (xf * y.unsqueeze(-2)).to(x.dtype)
 
 
+def _keep_mask(shape, keep: float, generator: Optional[torch.Generator],
+               device: torch.device) -> torch.Tensor:
+    """Bernoulli(keep) coins drawn from the caller's generator."""
+    if generator is None:
+        raise ValueError("a training-mode dropout needs the caller's "
+                         "torch.Generator (forward(..., generator=g))")
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth: drops a sample's whole residual branch
-    with prob `rate` in training and rescales survivors; identity in eval."""
+    with prob `rate` in training and rescales survivors by 1/keep; identity
+    in eval. The coins come from the generator the caller passes."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        coin = torch.rand(shape, device=x.device) < keep
+        coin = _keep_mask(shape, keep, generator, x.device)
         return torch.where(coin, x / keep, torch.zeros_like(x))
 
 
 class Dropout(nn.Module):
-    """Elementwise dropout in training; identity in eval."""
+    """Elementwise dropout in training, survivors rescaled by 1/keep;
+    identity in eval. The coins come from the generator the caller
+    passes."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        coin = torch.rand(x.shape, device=x.device) < keep
+        coin = _keep_mask(x.shape, keep, generator, x.device)
         return torch.where(coin, x / keep, torch.zeros_like(x))

@@ -9,11 +9,14 @@ A port checkpoint is `<checkpoint_dir>/<model_name>.pt`, written with
   option        that model entry (class, model_name, activation, ...)
   in_channels   the model's input feature width
   data          features, scales, centers, first_subsampling and the
-                pre_transform / test_transform lists as plain dicts
+                pre_transform / train_transform / test_transform lists as
+                plain dicts
   target_stats  {"scale", "center", "weights"} per regression target
   reg_targets   target names
   weights       {weight_name: state_dict}
-Reading the JAX package's `.ckpt` files (flax msgpack) is not ported."""
+A checkpoint written by training also holds `train_state` (optimizer
+state and counters, `training/state.py`), which serving ignores. Reading
+the JAX package's `.ckpt` files (flax msgpack) is not ported."""
 from __future__ import annotations
 
 import copy
@@ -33,12 +36,32 @@ from .transforms import Compose, instantiate_transforms
 CHECKPOINT_FORMAT = "dpcr_agb_tpu_torch.checkpoint/1"
 
 # The NFI dataset's pre_transform (conf/data/instance/NFI/default.yaml) and
-# the deterministic sparse_xy test chain (conf/data/instance/NFI/transforms/
-# sparse-xy.yaml), with the ${data.*} values substituted: the machine that
-# serves has no YAML reader.
+# the sparse_xy train and test chains (conf/data/instance/NFI/transforms/
+# sparse-xy.yaml), with the ${data.*} values substituted: the machines that
+# train and serve have no YAML reader.
 _SKIP = ["y_mol", "y_mol_mask", "y_cls", "y_cls_mask", "y_reg", "y_reg_mask"]
 _HEXAGON = [[0., 0.5], [0.25, 0.9330127], [0.75, 0.9330127], [1., 0.5],
             [0.75, 0.0669873], [0.25, 0.0669873]]
+_SCALE_POS = {"transform": "ScalePos", "params": {
+    "scale_x": 30, "scale_y": 30, "scale_z": 40, "op": "div"}}
+_CENTER = {"transform": "MoveCenterPosPerSample",
+           "params": {"center_x": 0.5, "center_y": 0.5}}
+_FEATS = [
+    {"transform": "MaxPoints", "params": {"num": 16000, "skip_list": _SKIP}},
+    {"transform": "MinPoints", "params": {"num": 500, "skip_list": _SKIP}},
+    {"transform": "XYZFeature",
+     "params": {"add_x": False, "add_y": False, "add_z": True}},
+    {"transform": "AddOnes"},
+    {"transform": "AddXYDistanceToCenter",
+     "params": {"center_x": 0.5, "center_y": 0.5}},
+    {"transform": "AddFeatsByKeys", "params": {
+        "list_add_to_x": [True, True, True],
+        "feat_names": ["ones", "pos_z", "xy_distance"],
+        "delete_feats": [True, True, True],
+        "input_nc_feats": [1, 1, 1]}},
+]
+_QUANTIZE = {"transform": "GridSampling3D", "params": {
+    "size": 0.0125, "quantize_coords": True, "mode": "last"}}
 NFI_SPARSE_XY = {
     "transform_type": "sparse_xy",
     "features": [],
@@ -52,30 +75,44 @@ NFI_SPARSE_XY = {
         {"transform": "ZFilter",
          "params": {"z_min": -1.0e-5, "z_max": 50, "skip_keys": _SKIP}},
     ],
+    "train_transform": [
+        {"transform": "RandomGroundRemoval", "params": {
+            "min_v": 0.05, "max_v": 0.5, "p": 0.1, "min_points": 500,
+            "skip_list": _SKIP}},
+        {"transform": "RandomDropout", "params": {
+            "dropout_ratio": 0.2, "dropout_application_ratio": 0.5,
+            "min_points": 500, "skip_list": _SKIP}},
+        _SCALE_POS,
+        {"transform": "RandomNoise", "params": {"sigma": 0.0025}},
+        {"transform": "Random3AxisRotation", "params": {
+            "apply_rotation": True, "rot_x": 0, "rot_y": 0, "rot_z": 180}},
+        {"transform": "RandomShiftPos", "params": {
+            "p": 0.5, "max_x": 0.01, "max_y": 0.01, "max_z": 0.0}},
+        _CENTER,
+        {"transform": "StartZFromZero"},
+        {"transform": "AddRandomPoints", "params": {
+            "n_max_points": 12000, "add_ratio_min": 0.01,
+            "add_ratio_max": 0.2, "p": 0.25}},
+        {"transform": "CopyJitterRandomPoints", "params": {
+            "n_max_points": 12000, "add_ratio_min": 0.01,
+            "add_ratio_max": 0.2, "p": 0.25, "sigma": 0.005,
+            "clip": 0.015}},
+        {"transform": "RandomPolygon2dExtend", "params": {
+            "polygons": [_HEXAGON], "rotate": 180, "skip_list": _SKIP}},
+        *_FEATS,
+        _QUANTIZE,
+        {"transform": "RandomCoordsFlip",
+         "params": {"ignored_axis": "z", "p": 0.5}},
+        {"transform": "ShiftVoxels"},
+    ],
     "test_transform": [
-        {"transform": "ScalePos", "params": {
-            "scale_x": 30, "scale_y": 30, "scale_z": 40, "op": "div"}},
-        {"transform": "MoveCenterPosPerSample",
-         "params": {"center_x": 0.5, "center_y": 0.5}},
+        _SCALE_POS,
+        _CENTER,
         {"transform": "StartZFromZero"},
         {"transform": "Polygon2dExtend",
          "params": {"polygon": _HEXAGON, "skip_list": _SKIP}},
-        {"transform": "MaxPoints", "params": {"num": 16000,
-                                              "skip_list": _SKIP}},
-        {"transform": "MinPoints", "params": {"num": 500,
-                                              "skip_list": _SKIP}},
-        {"transform": "XYZFeature",
-         "params": {"add_x": False, "add_y": False, "add_z": True}},
-        {"transform": "AddOnes"},
-        {"transform": "AddXYDistanceToCenter",
-         "params": {"center_x": 0.5, "center_y": 0.5}},
-        {"transform": "AddFeatsByKeys", "params": {
-            "list_add_to_x": [True, True, True],
-            "feat_names": ["ones", "pos_z", "xy_distance"],
-            "delete_feats": [True, True, True],
-            "input_nc_feats": [1, 1, 1]}},
-        {"transform": "GridSampling3D", "params": {
-            "size": 0.0125, "quantize_coords": True, "mode": "last"}},
+        *_FEATS,
+        _QUANTIZE,
     ],
 }
 
@@ -105,8 +142,10 @@ def save_checkpoint(checkpoint_dir: str, model_name: str,
                     net: torch.nn.Module, option: dict, in_channels: int,
                     data_cfg: dict, target_stats: Dict[str, List[float]],
                     reg_targets: List[str],
-                    weight_name: str = "latest") -> str:
-    """Write `<checkpoint_dir>/<model_name>.pt`; returns its path."""
+                    weight_name: str = "latest",
+                    extra: Optional[dict] = None) -> str:
+    """Write `<checkpoint_dir>/<model_name>.pt` (with the keys of `extra`
+    beside the serving ones); returns its path."""
     os.makedirs(checkpoint_dir, exist_ok=True)
     path = os.path.join(checkpoint_dir, f"{model_name}.pt")
     state = {k: v.detach().cpu() for k, v in net.state_dict().items()}
@@ -118,6 +157,7 @@ def save_checkpoint(checkpoint_dir: str, model_name: str,
                          for k, v in target_stats.items()},
         "reg_targets": list(reg_targets),
         "weights": {weight_name: state},
+        **(extra or {}),
     }, path)
     return path
 

@@ -5,6 +5,40 @@ from __future__ import annotations
 import numpy as np
 
 
+def euler_angles_to_rotation_matrix(theta: np.ndarray,
+                                    order=(0, 1, 2)) -> np.ndarray:
+    """Rotation matrix from per-axis Euler angles, the axis matrices
+    composed in the given order."""
+    cx, sx = np.cos(theta[0]), np.sin(theta[0])
+    cy, sy = np.cos(theta[1]), np.sin(theta[1])
+    cz, sz = np.cos(theta[2]), np.sin(theta[2])
+    r_x = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    r_y = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    r_z = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    ms = [[r_x, r_y, r_z][i] for i in order]
+    return (ms[2] @ ms[1] @ ms[0]).astype(np.float32)
+
+
+def affine2d(scale: float = 1.0, translate=(0.0, 0.0),
+             rotate_deg: float = 0.0, rotate_about=(0.5, 0.5)) -> np.ndarray:
+    """3x3 homogeneous 2D affine: scale, then translate, then rotate about
+    a point."""
+    s_m = np.diag([scale, scale, 1.0])
+    t_m = np.array([[1, 0, translate[0]], [0, 1, translate[1]], [0, 0, 1.0]])
+    th = np.deg2rad(rotate_deg)
+    c, s = np.cos(th), np.sin(th)
+    cx, cy = rotate_about
+    to_c = np.array([[1, 0, -cx], [0, 1, -cy], [0, 0, 1.0]])
+    r_m = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]])
+    back = np.array([[1, 0, cx], [0, 1, cy], [0, 0, 1.0]])
+    return back @ r_m @ to_c @ t_m @ s_m
+
+
+def transform_points2d(a: np.ndarray, pts: np.ndarray) -> np.ndarray:
+    pts_h = np.concatenate([pts, np.ones((len(pts), 1))], axis=1)
+    return (pts_h @ a.T)[:, :2]
+
+
 def points_in_polygon(points: np.ndarray, polygon: np.ndarray) -> np.ndarray:
     """Vectorized even-odd-rule point-in-polygon test: points [N,2],
     polygon [V,2] (closed implicitly)."""

@@ -7,7 +7,9 @@ kernels [in, out]), so the bridge is a rename: the nested path
 ("stage0_block0", "se", "fc1", "kernel") is the key
 "stage0_block0.se.fc1.kernel". BN running stats (`mean`, `var`) live in
 `batch_stats` on the flax side and are buffers in the port. Plain nested
-dicts of numpy arrays in, no flax needed."""
+dicts of numpy arrays in, no flax needed. `opt_state_from_optax` carries
+the optax state of the JAX recipe (clip, then AdaBelief) across with the
+same names."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -49,3 +51,16 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
             node = node.setdefault(p, {})
         node[path[-1]] = t.detach().cpu().numpy()
     return params, stats
+
+
+def opt_state_from_optax(opt_state) -> dict:
+    """The JAX recipe's optimizer state, `(clip state, AdaBeliefState(count,
+    exp_avg, exp_avg_var))` (optax.chain(optax.clip, adabelief)), as
+    {"count": int, "exp_avg": {name: tensor}, "exp_avg_var": {name:
+    tensor}} with the state_dict names of the parameters. Any object with
+    `count`, `exp_avg` and `exp_avg_var` attributes (a NamedTuple) works;
+    the clip state carries nothing."""
+    ada = next(s for s in opt_state if hasattr(s, "exp_avg_var"))
+    return {"count": int(np.asarray(ada.count)),
+            "exp_avg": from_flax(ada.exp_avg, None),
+            "exp_avg_var": from_flax(ada.exp_avg_var, None)}

@@ -1,8 +1,9 @@
 """Import rules of the port: no module of dpcr_agb_tpu_torch, and not
 chip_smoke.py, imports JAX, flax, optax, the JAX package dpcr_agb_tpu, or a
 package the GPU machine lacks (pandas, yaml, msgpack). The kernel wrappers
-take their plain versions on CPU tensors; a test marked `cuda` holds the
-kernels against them where a card is present."""
+take their plain versions on CPU tensors; tests marked `cuda` hold the
+kernels against them where a card is present (this file imports no JAX,
+so they run on the GPU machine, which has none)."""
 import ast
 import pathlib
 import subprocess
@@ -121,3 +122,39 @@ def test_kernels_match_plain_versions_on_the_card():
     torch.testing.assert_close(stem_conv_sites(vol, coords, mask, wts),
                                stem_conv_sites_plain(vol, coords, mask, wts),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_match_plain_versions_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py checks the kernels "
+                    "at the main path's shapes")
+    from dpcr_agb_tpu_torch.ops.dense_grid import scatter_to_dense
+    from dpcr_agb_tpu_torch.ops.pool import (masked_max_pool_bwd_rows,
+                                             masked_max_pool_bwd_rows_plain,
+                                             pooled_rows)
+    from dpcr_agb_tpu_torch.ops.sparse_stem import (stem_conv_sites_dw,
+                                                    stem_conv_sites_dw_plain)
+    rng = np.random.default_rng(2)
+    dims = (9, 8, 7)
+    flat = np.stack([rng.choice(9 * 8 * 7, 40, replace=False)
+                     for _ in range(2)])
+    coords = torch.from_numpy(np.stack(
+        [flat // 56, flat // 7 % 8, flat % 7], -1).astype(np.int32)).cuda()
+    mask = torch.from_numpy(rng.random((2, 40)) < 0.8).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        h = torch.from_numpy(rng.normal(size=(2, 40, 16)).astype(
+            np.float32)).cuda().to(dtype)
+        y, occ_l = pooled_rows(coords, mask, h, dims)
+        ct = torch.randn(y.shape, device="cuda").to(dtype)
+        torch.testing.assert_close(
+            masked_max_pool_bwd_rows(coords, mask, h, y, occ_l, ct, dims),
+            masked_max_pool_bwd_rows_plain(coords, mask, h, y, occ_l, ct,
+                                           dims), rtol=0, atol=0)
+        feats = torch.randn((2, 40, 3), device="cuda").to(dtype)
+        vol, _ = scatter_to_dense(coords, mask, feats, dims)
+        ct = torch.randn((2, 40, 64), device="cuda").to(dtype)
+        want = stem_conv_sites_dw_plain(vol, coords, mask, ct)
+        torch.testing.assert_close(stem_conv_sites_dw(vol, coords, mask, ct),
+                                   want, rtol=1e-4,
+                                   atol=1e-5 * want.abs().max().item())
