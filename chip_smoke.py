@@ -2,32 +2,40 @@
 """Smoke test of the PyTorch port (dpcr_agb_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--profile] [--out FILE]
+                          [--only SENet14|KPConv]
 
 Phases, each printing one JSON line; any failure exits non-zero:
-  device   the card's name and power limit; builds the CUDA kernels from
-           dpcr_agb_tpu_torch/kernels/csrc for sm_90a (build seconds)
-  kernels  in f32 and bf16: stem_sites and max_pool_k3s2 at the first
-           serving batch's shapes, stem_sites_dw and max_pool_k3s2_bwd at
-           the first train batch's shapes; each held against its plain
-           PyTorch version (stated tolerances), timed with CUDA events
-           (median of 20 after warm-up) beside the plain version and one
-           PyTorch call of the same function where there is one (cuDNN
-           conv3d, its weight gradient, max_pool3d and its backward: time
-           yardsticks the port never calls), and the least time the card
-           could take (bound_ms, from what this run's data needs)
-  serve    full-width SENet14 (f32, then the bf16 flagship): 16 synthetic
-           plots dense enough that MaxPoints 16000 binds (V bucket 16384)
-           served by `dpcr_agb_tpu_torch.predict.main` from a port
-           checkpoint with seeded random weights; checks 16 finite
-           prediction rows, that both forward kernels launched during that
-           run, and that the raw outputs equal a run through the plain
-           versions (f32: rtol 1e-3 with TF32 off); prints plots/s
-  train    full-width SENet14 (f32 with TF32 off, then bf16) trained by
+  device   the card's name and power limit; builds the six CUDA kernels
+           from dpcr_agb_tpu_torch/kernels/csrc for sm_90a (build seconds)
+Then for SENet14 and for KPConv (`--only` keeps one of them):
+  kernels  in f32 and bf16, each kernel of the model held against its plain
+           PyTorch version (stated tolerances; max|plain| beside each
+           error), timed with CUDA events (median after warm-up) beside
+           the plain version and one PyTorch call of the same function
+           where there is one (time yardsticks the port never calls), and
+           the least time the card could take (bound_ms, from what this
+           run's data needs). SENet14: stem_sites and max_pool_k3s2 at the
+           first serving batch's shapes, stem_sites_dw and
+           max_pool_k3s2_bwd at the first train batch's. KPConv:
+           kpconv_fused and kpconv_fused_bwd on the inputs that the first
+           serving batch gives the first layer (C 3 -> 32), a level-0 layer
+           (C 16 -> 16) and the last level-4 layer (C 256 -> 256)
+  serve    the full-width model (f32, then bf16): 16 synthetic plots dense
+           enough that MaxPoints binds (SENet14: V bucket 16384; KPConv: N
+           bucket 8192) served by `dpcr_agb_tpu_torch.predict.main` from a
+           port checkpoint with seeded random weights; checks 16 finite
+           prediction rows, that the model's forward kernels launched
+           during that run (KPConv: 14 kpconv_fused), and that the raw
+           outputs equal a run through the plain versions; prints plots/s
+           (KPConv: and the neighbour search's share of the forward, after
+           checking that two pyramids of the batch are bit-identical)
+  train    the full-width model (f32 with TF32 off, then bf16) trained by
            `dpcr_agb_tpu_torch.train.main` for 6 steps at bs16 on the same
-           plots and their targets: 6 finite losses, all four kernels
-           launched in every step; one step from one state through the
-           kernels and through the plain versions (loss, every gradient,
-           the updated parameters and BN running stats within stated
+           plots and their targets: 6 finite losses, every kernel of the
+           model launched in every step (KPConv: 14 kpconv_fused and 14
+           kpconv_fused_bwd); one step from one state through the kernels
+           and through the plain versions (loss, every gradient, the
+           updated parameters and BN running stats within stated
            tolerances); train_step_ms (median of 5 steps on a device-
            resident batch), plots/s and peak memory; then `predict.main`
            serves the trained checkpoint (16 finite rows)
@@ -55,11 +63,6 @@ import numpy as np
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 
-SENET14 = {  # conf/models/instance/minkowski_baseline.yaml: SENet14
-    "class": "minkowski.MinkowskiBaselineModel", "conv_type": "SPARSE",
-    "model_name": "SENet14", "D": 3, "activation": "gelu",
-    "first_stride": 1, "dropout": 0.0, "drop_path": 0.01,
-    "global_pool": "sum"}
 STEM_SRC = "dpcr_agb_tpu_torch/kernels/csrc/stem_sites.cu"
 POOL_SRC = "dpcr_agb_tpu_torch/kernels/csrc/max_pool.cu"
 DW_SRC = "dpcr_agb_tpu_torch/kernels/csrc/stem_dw.cu"
@@ -70,12 +73,26 @@ POOL_REPLACES = "dpcr_agb_tpu/ops/pallas_pool.py:213"
 # autodiff of the row stem's patch matmul
 DW_REPLACES = "dpcr_agb_tpu/ops/sparse_stem.py:413"
 POOL_BWD_REPLACES = "dpcr_agb_tpu/ops/pallas_pool.py:251"
+KP_FWD_SRC = "dpcr_agb_tpu_torch/kernels/csrc/kpconv_fwd.cu"
+KP_BWD_SRC = "dpcr_agb_tpu_torch/kernels/csrc/kpconv_bwd.cu"
+KP_FWD_REPLACES = "dpcr_agb_tpu/ops/pallas_kpconv.py:222"
+KP_BWD_REPLACES = "dpcr_agb_tpu/ops/pallas_kpconv.py:249"
 N_PLOTS = 16     # one serving batch of bench.py's size, the train batch
-DENSITY = 60.0   # points per m^2: MaxPoints 16000 binds, V bucket 16384
+DENSITY = 60.0   # points per m^2: MaxPoints binds (16000 and 6144)
 TRAIN_STEPS = 6
-# the kernels serving launches; training launches these and the backward
-# kernels
-FORWARD_KERNELS = ("stem_sites", "max_pool_k3s2")
+# per model: the kernels serving launches, the ones training adds, and
+# where the count is fixed, the launches of each in one forward (or one
+# backward): KPCNN's 14 blocks hold one KPConv each
+MODELS = {
+    "SENet14": {"forward": ("stem_sites", "max_pool_k3s2"),
+                "backward": ("stem_sites_dw", "max_pool_k3s2_bwd"),
+                "per_pass": None},
+    "KPConv": {"forward": ("kpconv_fused",),
+               "backward": ("kpconv_fused_bwd",), "per_pass": 14},
+}
+# the KPConv layers whose inputs the kernels phase takes from the first
+# serving batch: (block, case)
+KP_CASES = ((0, "level 0, first layer"), (1, "level 0"), (13, "level 4"))
 # kernel path against plain path after one train step: loss (relative),
 # all gradients as one vector (relative L2), each gradient (relative L2,
 # floored at 1e-3 of the global gradient norm for the ones that vanish up
@@ -89,14 +106,23 @@ STEP_TOL = {"float32": {"loss": 1e-5, "grads": 1e-4, "grad": 1e-3,
                         "params": 1e-5, "update": 1e-3, "stat": 1e-5},
             "bfloat16": {"loss": 1e-2, "grads": 5e-2, "grad": 5e-2,
                          "params": 1e-2, "update": 5e-2, "stat": 1e-2}}
+# KPConv is held to the same tolerances, widened by its conditioning: the
+# gradient of the freshly initialised 14-block net moves by ~1e-3 (f32)
+# and ~1e-1 (bf16, where any change flips roundings in every layer) when
+# one f32 rounding is applied to its input features, on the plain path
+# alone. `compare_train_steps(conditioning=True)` measures that in the run
+# and allows each quantity 4 times what one rounding does to it.
 
 RECORD = []
 
 
-def model_options() -> dict:
-    """SENet14 at f32 and the bf16 flagship (extra_options.bf16)."""
-    return {"float32": dict(SENET14),
-            "bfloat16": {**SENET14, "extra_options": {"bf16": True}}}
+def model_options(model_name: str) -> dict:
+    """The model's `conf/models` entry at f32 and with extra_options.bf16
+    (SENet14: the bf16 flagship; KPConv: bf16 inside the fused convolution
+    only)."""
+    from dpcr_agb_tpu_torch import train
+    return {"float32": train.model_option(model_name, bf16=False),
+            "bfloat16": train.model_option(model_name, bf16=True)}
 
 
 def emit(obj: dict) -> None:
@@ -132,24 +158,28 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
 
 @contextlib.contextmanager
 def plain_ops():
-    """Route the model's four kernel ops (two forward, two backward) to
+    """Route the models' six kernel ops (three forward, three backward) to
     their plain PyTorch versions (the reference runs of the serve and
     train phases); raises if a kernel launched inside, i.e. if the
     reference did not really take the plain path."""
     from dpcr_agb_tpu_torch import kernels
-    from dpcr_agb_tpu_torch.ops import pool, sparse_stem
+    from dpcr_agb_tpu_torch.ops import kpconv, pool, sparse_stem
     saved = (sparse_stem.stem_conv_sites, sparse_stem.stem_conv_sites_dw,
-             pool.masked_max_pool, pool.masked_max_pool_bwd_rows)
+             pool.masked_max_pool, pool.masked_max_pool_bwd_rows,
+             kpconv.kpconv_forward, kpconv.kpconv_backward)
     sparse_stem.stem_conv_sites = sparse_stem.stem_conv_sites_plain
     sparse_stem.stem_conv_sites_dw = sparse_stem.stem_conv_sites_dw_plain
     pool.masked_max_pool = pool.masked_max_pool_plain
     pool.masked_max_pool_bwd_rows = pool.masked_max_pool_bwd_rows_plain
+    kpconv.kpconv_forward = kpconv.kpconv_fused_plain
+    kpconv.kpconv_backward = kpconv.kpconv_fused_bwd_plain
     before = dict(kernels.LAUNCHES)
     try:
         yield
     finally:
         (sparse_stem.stem_conv_sites, sparse_stem.stem_conv_sites_dw,
-         pool.masked_max_pool, pool.masked_max_pool_bwd_rows) = saved
+         pool.masked_max_pool, pool.masked_max_pool_bwd_rows,
+         kpconv.kpconv_forward, kpconv.kpconv_backward) = saved
     if kernels.LAUNCHES != before:
         raise AssertionError(f"the plain reference run launched kernels: "
                              f"{before} -> {kernels.LAUNCHES}")
@@ -171,13 +201,14 @@ def write_plots(root: str, n: int, seed: int, density: float) -> list:
     return files
 
 
-def make_checkpoint(root: str, name: str, option: dict, seed: int) -> str:
-    """A port checkpoint of SENet14 with seeded random weights and BN
+def make_checkpoint(root: str, name: str, model_name: str, option: dict,
+                    seed: int) -> str:
+    """A port checkpoint of the model with seeded random weights and BN
     running stats drawn from the same generator."""
     import torch
+    from dpcr_agb_tpu_torch import train
     from dpcr_agb_tpu_torch.models.factory import build_model
-    from dpcr_agb_tpu_torch.serving import (nfi_sparse_xy_data_cfg,
-                                            save_checkpoint)
+    from dpcr_agb_tpu_torch.serving import save_checkpoint
     g = torch.Generator().manual_seed(seed)
     net, _ = build_model(option, 2, 3, generator=g)
     with torch.no_grad():
@@ -187,7 +218,8 @@ def make_checkpoint(root: str, name: str, option: dict, seed: int) -> str:
             else:
                 buf.uniform_(0.5, 1.5, generator=g)
     ckpt = os.path.join(root, name)
-    save_checkpoint(ckpt, "SENet14", net, option, 3, nfi_sparse_xy_data_cfg(),
+    save_checkpoint(ckpt, model_name, net, option, 3,
+                    train.MODELS[model_name][1](),
                     {"scale": [60.0, 120.0], "center": [150.0, 300.0],
                      "weights": [0.5, 0.5]}, ["BMag_ha", "V_ha"])
     return ckpt
@@ -222,6 +254,10 @@ def _check_close(name, got, want, rtol, atol):
             f"{err.max().item()} (rtol {rtol}, atol {atol}), "
             f"{int(bad.sum())} elements out of tolerance")
     return err.max().item()
+
+
+def _amax(t) -> float:
+    return t.float().abs().max().item()
 
 
 def stem_work(vol, coords, mask) -> tuple:
@@ -320,7 +356,8 @@ def phase_kernels(bundles: dict, batch, train_batch, smi: str,
             rows.append({
                 "name": "stem_sites", "dtype": dtname, "route": "cuda",
                 "source": STEM_SRC, "replaces": STEM_REPLACES,
-                "launches": None, "max_abs_err": err, "tolerance": tol,
+                "launches": None, "max_abs_err": err,
+                "max_abs_plain": _amax(want), "tolerance": tol,
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes > t_ops else "operations",
@@ -366,7 +403,8 @@ def phase_kernels(bundles: dict, batch, train_batch, smi: str,
             rows.append({
                 "name": "max_pool_k3s2", "dtype": dtname, "route": "cuda",
                 "source": POOL_SRC, "replaces": POOL_REPLACES,
-                "launches": None, "max_abs_err": err_p, "tolerance": "exact",
+                "launches": None, "max_abs_err": err_p,
+                "max_abs_plain": _amax(want_p), "tolerance": "exact",
                 "ms": ms_p, "plain_ms": plain_ms_p,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes > t_ops else "operations",
@@ -456,7 +494,7 @@ def backward_kernel_rows(net, tb, dtname: str, smi: str, seed: int) -> list:
         rows.append({
             "name": "stem_sites_dw", "dtype": dtname, "route": "cuda",
             "source": DW_SRC, "replaces": DW_REPLACES, "launches": None,
-            "max_abs_err": err,
+            "max_abs_err": err, "max_abs_plain": scale,
             "tolerance": "rtol 1e-4, atol 2e-5 * max|plain| (f32 atomics)",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
@@ -520,7 +558,8 @@ def backward_kernel_rows(net, tb, dtname: str, smi: str, seed: int) -> list:
         rows.append({
             "name": "max_pool_k3s2_bwd", "dtype": dtname, "route": "cuda",
             "source": POOL_BWD_SRC, "replaces": POOL_BWD_REPLACES,
-            "launches": None, "max_abs_err": err_p, "tolerance": "exact",
+            "launches": None, "max_abs_err": err_p,
+            "max_abs_plain": _amax(want), "tolerance": "exact",
             "ms": ms_p, "plain_ms": plain_ms_p,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
@@ -535,27 +574,198 @@ def backward_kernel_rows(net, tb, dtname: str, smi: str, seed: int) -> list:
     return rows
 
 
-def phase_serve(dtname: str, ckpt: str, plot_dir: str, out_dir: str,
-                smi: str, with_profile: bool = False) -> dict:
+def kpconv_work(nbr, rel, kernel_points, extent: float, influence: str,
+                aggregation: str, ns: int) -> dict:
+    """What a fused KPConv's data needs: the non-shadow edges, the (edge,
+    kernel point) pairs with a non-zero influence, the query rows with any
+    neighbour, and the distinct rows of x that are read."""
+    import torch
+    from dpcr_agb_tpu_torch.ops.kpconv import influence_weights
+    valid = nbr < ns
+    w = influence_weights(rel, kernel_points, extent, influence, aggregation)
+    pairs = int(((w != 0) & valid[..., None]).sum())
+    del w
+    b = nbr.shape[0]
+    flat = (nbr.long() + torch.arange(b, device=nbr.device)[:, None, None]
+            * ns)[valid]
+    return {"edges": int(valid.sum()), "weighted_pairs": pairs,
+            "active_rows": int(valid.any(-1).sum()),
+            "rows_of_x_read": int(torch.unique(flat).numel())}
+
+
+def phase_kpconv_kernels(bundle, batch, smi: str, seed: int) -> list:
+    """kpconv_fused and kpconv_fused_bwd in f32 and bf16 on the inputs that
+    the first serving batch gives the layers of KP_CASES (captured by
+    hooks during one forward), cotangents drawn from `seed`."""
+    import torch
+    from dpcr_agb_tpu_torch.ops import kpconv
+    net, dev = bundle.net, bundle.device
+    tb = batch.to(dev)
+    captured = {}
+    hooks = [getattr(net, f"block{bi}_kpconv").register_forward_pre_hook(
+        lambda mod, args, bi=bi: captured.__setitem__(
+            bi, tuple(a.detach() for a in args))) for bi, _ in KP_CASES]
+    with torch.no_grad():
+        net(tb)
+    for h in hooks:
+        h.remove()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    for bi, case in KP_CASES:
+        op = getattr(net, f"block{bi}_kpconv")
+        nbr, x, rel = captured.pop(bi)
+        w = op.weights.detach().contiguous()
+        kp = op.kernel_points
+        tail = (op.extent, op.influence, op.aggregation)
+        (b, ns, c), (n_kp, _, cout) = x.shape, w.shape
+        nq, k = nbr.shape[1:]
+        work = kpconv_work(nbr, rel, kp, *tail, ns)
+        ct = torch.randn((b, nq, cout), generator=g, device=dev)
+        shape = {"x": list(x.shape), "nbr": list(nbr.shape),
+                 "weights": list(w.shape), "extent": op.extent, **work}
+        for dtname, dt in (("float32", torch.float32),
+                           ("bfloat16", torch.bfloat16)):
+            args = (x.to(dt).contiguous(), nbr, rel, w, kp)
+            esz = args[0].element_size()
+            # f32: sums in another order, dx and dW through f32 atomics.
+            # bf16: kernel and plain version round at the same places, but
+            # a sum taken in another order can land on the other side of a
+            # bf16 rounding (2^-8 of one term).
+            rtol, atol = (1e-4, 1e-4) if dt == torch.float32 else (0.0, 1e-2)
+            tol = f"rtol {rtol}, atol {atol} * max|plain|"
+            with torch.no_grad():
+                got = kpconv.kpconv_forward(*args, *tail)
+                want = kpconv.kpconv_fused_plain(*args, *tail)
+                torch.cuda.synchronize()
+                scale = _amax(want)
+                err = _check_close(f"kpconv_fused {case} {dtname}", got, want,
+                                   rtol, atol * scale)
+                del got, want
+                ms = time_ms(lambda: kpconv.kpconv_forward(*args, *tail))
+                plain_ms = time_ms(lambda: kpconv.kpconv_fused_plain(
+                    *args, *tail), n=5, warmup=1)
+                # each input read once (of x the distinct rows that some
+                # neighbour list names), the output written once; a
+                # multiply-add per weighted pair and channel, then per
+                # active row, kernel point, channel and output channel
+                nbytes = (work["rows_of_x_read"] * c * esz + nbr.numel() * 4
+                          + rel.numel() * 4 + w.numel() * 4 + kp.numel() * 4
+                          + b * nq * cout * 4)
+                flops = 2.0 * c * (work["weighted_pairs"]
+                                   + work["active_rows"] * n_kp * cout)
+                t_bytes = nbytes / PEAK_BYTES * 1e3
+                t_ops = flops / PEAK_FLOPS[dtname] * 1e3
+                rows.append({
+                    "name": "kpconv_fused", "dtype": dtname, "case": case,
+                    "route": "cuda", "source": KP_FWD_SRC,
+                    "replaces": KP_FWD_REPLACES, "launches": None,
+                    "max_abs_err": err, "max_abs_plain": scale,
+                    "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                    "library_ms": None,
+                    "library": "none: no one PyTorch call computes it",
+                    "shape": {**shape, "needed_flops": flops,
+                              "needed_bytes": nbytes}, "card": smi})
+
+                dx, dw = kpconv.kpconv_backward(*args, ct, *tail)
+                dx_w, dw_w = kpconv.kpconv_fused_bwd_plain(*args, ct, *tail)
+                torch.cuda.synchronize()
+                scales = {"dx": _amax(dx_w), "dw": _amax(dw_w)}
+                errs = {
+                    "dx": _check_close(f"kpconv_fused_bwd dx {case} {dtname}",
+                                       dx, dx_w, rtol, atol * scales["dx"]),
+                    "dw": _check_close(f"kpconv_fused_bwd dW {case} {dtname}",
+                                       dw, dw_w, rtol, atol * scales["dw"])}
+                del dx, dw, dx_w, dw_w
+                ms = time_ms(lambda: kpconv.kpconv_backward(*args, ct, *tail))
+                plain_ms = time_ms(lambda: kpconv.kpconv_fused_bwd_plain(
+                    *args, ct, *tail), n=5, warmup=1)
+                # the forward's inputs and g read once, dx and dW written
+                # once; g @ W^T and part^T g per active row, the weighted
+                # sums for part and for dx per weighted pair
+                nbytes = (work["rows_of_x_read"] * c * esz + nbr.numel() * 4
+                          + rel.numel() * 4 + w.numel() * 4 + kp.numel() * 4
+                          + ct.numel() * 4 + b * ns * c * 4 + w.numel() * 4)
+                flops = 4.0 * c * (work["weighted_pairs"]
+                                   + work["active_rows"] * n_kp * cout)
+                t_bytes = nbytes / PEAK_BYTES * 1e3
+                t_ops = flops / PEAK_FLOPS[dtname] * 1e3
+                worst = max(errs, key=lambda k: errs[k] / max(scales[k],
+                                                              1e-30))
+                rows.append({
+                    "name": "kpconv_fused_bwd", "dtype": dtname, "case": case,
+                    "route": "cuda", "source": KP_BWD_SRC,
+                    "replaces": KP_BWD_REPLACES, "launches": None,
+                    "max_abs_err": errs[worst],
+                    "max_abs_plain": scales[worst], "errors": errs,
+                    "max_abs_plains": scales,
+                    "tolerance": tol + " (f32 atomics)", "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                    "library_ms": None,
+                    "library": "none: no one PyTorch call computes it",
+                    "shape": {**shape, "g": list(ct.shape),
+                              "needed_flops": flops, "needed_bytes": nbytes},
+                    "card": smi})
+            del args
+            torch.cuda.empty_cache()
+        del nbr, x, rel, ct
+    for r in rows:
+        emit({"phase": "kernels", **r})
+    return rows
+
+
+def batch_facts(net, batch) -> dict:
+    """The padded sizes of a host batch and what fills them."""
+    n_valid = int(np.asarray(batch.mask).sum())
+    if hasattr(net, "level0_dims"):          # the sparse-voxel nets
+        return {"v_bucket": int(batch.coords.shape[1]),
+                "zb": int(len(batch.aux["zcells"])),
+                "dims": list(net.level0_dims(batch)),
+                "occupied_voxels": n_valid}
+    return {"n_bucket": int(batch.mask.shape[1]), "valid_points": n_valid,
+            "level_caps": net.level_caps(int(batch.mask.shape[1]))}
+
+
+def check_launches(what: str, model_name: str, launches: dict, names: tuple,
+                   passes: int) -> None:
+    """Every kernel in `names` launched; where the model fixes the count,
+    exactly `per_pass` times in each of the `passes` passes."""
+    per_pass = MODELS[model_name]["per_pass"]
+    for k in names:
+        ok = launches[k] >= 1 if per_pass is None \
+            else launches[k] == per_pass * passes
+        if not ok:
+            raise AssertionError(
+                f"{what}: kernel {k} launched {launches[k]} times on the "
+                f"main path (expected "
+                f"{'at least 1' if per_pass is None else per_pass * passes})"
+                f": {launches}")
+
+
+def phase_serve(model_name: str, dtname: str, ckpt: str, plot_dir: str,
+                out_dir: str, smi: str, with_profile: bool = False) -> dict:
     import torch
     from dpcr_agb_tpu_torch import kernels, predict
-    out_csv = os.path.join(out_dir, f"preds_{dtname}.csv")
-    args = [f"checkpoint_dir={ckpt}", "model_name=SENet14",
+    out_csv = os.path.join(out_dir, f"preds_{model_name}_{dtname}.csv")
+    args = [f"checkpoint_dir={ckpt}", f"model_name={model_name}",
             f"input={plot_dir}/*.npz", f"output={out_csv}",
             f"batch_size={N_PLOTS}"]
+    what = f"serve {model_name} {dtname}"
     kernels.reset_launches()
     t0 = time.perf_counter()
     predict.main(args)
     torch.cuda.synchronize()
     main_seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    if min(launches["stem_sites"], launches["max_pool_k3s2"]) < 1:
-        raise AssertionError(f"serve {dtname}: a kernel was not launched on "
-                             f"the main path: {launches}")
-    check_predictions(out_csv, f"serve {dtname}")
+    # N_PLOTS plots at batch_size N_PLOTS: one forward
+    check_launches(what, model_name, launches, MODELS[model_name]["forward"],
+                   passes=1)
+    check_predictions(out_csv, what)
 
     # the same batch through the kernels and through the plain versions
-    bundle = predict.load_serving_bundle(ckpt, "SENet14")
+    bundle = predict.load_serving_bundle(ckpt, model_name)
     files = sorted(glob.glob(os.path.join(plot_dir, "*.npz")))
     samples, _ = predict.load_samples(bundle, files)
     (batch, _), = predict.make_batches(bundle, samples, N_PLOTS)
@@ -564,12 +774,12 @@ def phase_serve(dtname: str, ckpt: str, plot_dir: str, out_dir: str,
         raw_plain = predict.forward_raw(bundle, batch).float()
     torch.cuda.synchronize()
     if dtname == "float32":
-        err = _check_close("serve f32 raw output", raw, raw_plain, 1e-3,
-                           1e-3 * raw_plain.abs().max().item())
+        err = _check_close(f"{what} raw output", raw, raw_plain, 1e-3,
+                           1e-3 * _amax(raw_plain))
         tol = "rtol 1e-3, atol 1e-3 * max|plain| (TF32 off)"
     else:
-        err = _check_close("serve bf16 raw output", raw, raw_plain, 0.0,
-                           5e-2 * raw_plain.abs().max().item())
+        err = _check_close(f"{what} raw output", raw, raw_plain, 0.0,
+                           5e-2 * _amax(raw_plain))
         tol = "atol 5e-2 * max|plain| (bf16)"
 
     # forward time of the batch (host batch -> device -> raw output)
@@ -582,19 +792,35 @@ def phase_serve(dtname: str, ckpt: str, plot_dir: str, out_dir: str,
         if i:
             times.append(time.perf_counter() - t)
     fwd = statistics.median(times)
+    extra = {}
+    if hasattr(bundle.net, "device_pyramid"):
+        # the neighbour search runs in every forward: its share of it,
+        # and that one cloud always gives one pyramid (no atomics in it)
+        tb = batch.to(bundle.device)
+        one, two = (bundle.net.device_pyramid(tb.pos, tb.mask)
+                    for _ in range(2))
+        moved = [k for k in one if not torch.equal(one[k], two[k])]
+        if moved:
+            raise AssertionError(f"{what}: two pyramids of one batch "
+                                 f"differ in {moved}")
+        del one, two
+        pyramid_ms = time_ms(lambda: bundle.net.device_pyramid(
+            tb.pos, tb.mask), n=5, warmup=1)
+        extra = {"pyramid_ms": pyramid_ms,
+                 "pyramid_share_of_forward": pyramid_ms / (fwd * 1e3),
+                 "pyramid_reproducible": True}
+        del tb
     profile = device_profile(lambda: predict.forward_raw(bundle, batch)) \
         if with_profile else None
     torch.cuda.reset_peak_memory_stats()
     predict.forward_raw(bundle, batch)
     torch.cuda.synchronize()
-    out = {"phase": "serve", "dtype": dtname, "plots": N_PLOTS,
-           "v_bucket": int(batch.coords.shape[1]),
-           "zb": int(len(batch.aux["zcells"])),
-           "dims": list(bundle.net.level0_dims(batch)),
-           "occupied_voxels": int(np.asarray(batch.mask).sum()),
+    out = {"phase": "serve", "model": model_name, "dtype": dtname,
+           "plots": N_PLOTS, **batch_facts(bundle.net, batch),
            "launches": launches, "predict_main_seconds": main_seconds,
-           "raw_max_abs_err_vs_plain": err, "tolerance": tol,
-           "forward_ms": fwd * 1e3, "plots_per_s": N_PLOTS / fwd,
+           "raw_max_abs_err_vs_plain": err,
+           "raw_max_abs_plain": _amax(raw_plain), "tolerance": tol,
+           "forward_ms": fwd * 1e3, "plots_per_s": N_PLOTS / fwd, **extra,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                     "matmul": torch.backends.cuda.matmul.allow_tf32},
@@ -620,25 +846,13 @@ def _rel(a, b, floor: float = 0.0) -> float:
             / max(torch.linalg.vector_norm(b).item(), floor, 1e-30)).item()
 
 
-def compare_train_steps(run, batch, dtname: str) -> dict:
-    """One train step on one device batch from one state, through the
-    kernels (run.runner) and through the plain versions (a copy of the
-    runner); the errors of the kernel path against the plain one."""
-    import copy
+def _step_errors(got, want, before: dict, loss_got: float,
+                 loss_want: float) -> tuple:
+    """The errors of one stepped runner against another that started from
+    the same state `before`: (errs, each gradient's error by name)."""
     import torch
-    from dpcr_agb_tpu_torch import train
-    plain = train.build_runner(copy.deepcopy(run.runner.net), run.stats,
-                               seed=0)
-    plain.generator.set_state(run.runner.generator.get_state())
-    before = {n: p.detach().clone()
-              for n, p in plain.net.named_parameters()}
-    out_k = run.runner.train(batch)
-    with plain_ops():
-        out_p = plain.train(batch)
-    torch.cuda.synchronize()
-    lk, lp = float(out_k["loss"]), float(out_p["loss"])
-    pk = dict(run.runner.net.named_parameters())
-    pp = dict(plain.net.named_parameters())
+    pk = dict(got.net.named_parameters())
+    pp = dict(want.net.named_parameters())
     names = sorted(pp)
 
     def flat(tensors):
@@ -653,44 +867,91 @@ def compare_train_steps(run, batch, dtname: str) -> dict:
     upd_p = {n: pp[n].detach().double() - before[n].double() for n in names}
     norm_u = torch.linalg.vector_norm(flat(upd_p.values())).item()
     update = {n: _rel(upd_k[n], upd_p[n], 1e-3 * norm_u) for n in names}
-    bk = dict(run.runner.net.named_buffers())
-    stat = {n: _rel(bk[n], b) for n, b in plain.net.named_buffers()}
-    errs = {"loss": abs(lk - lp) / max(abs(lp), 1e-30),
+    bk = dict(got.net.named_buffers())
+    stat = {n: _rel(bk[n], b) for n, b in want.net.named_buffers()}
+    errs = {"loss": abs(loss_got - loss_want) / max(abs(loss_want), 1e-30),
             "grads": _rel(flat(pk[n].grad for n in names), flat_p),
             "grad": max(grad.values()),
             "params": _rel(flat(pk[n].detach() for n in names),
                            flat(pp[n].detach() for n in names)),
             "update": max(update.values()), "stat": max(stat.values())}
-    tol = STEP_TOL[dtname]
+    return errs, grad
+
+
+def compare_train_steps(run, batch, dtname: str, tols: dict,
+                        conditioning: bool = False) -> dict:
+    """One train step on one device batch from one state, through the
+    kernels (run.runner) and through the plain versions (a copy of the
+    runner); the errors of the kernel path against the plain one, each held
+    to its tolerance. With `conditioning`, a third copy takes the plain
+    step on the batch with its features moved by one f32 rounding
+    (x * (1 + 6e-8 * normal noise)): its errors against the plain step say
+    how far one rounding of the input moves each quantity, and a quantity
+    may then miss its tolerance by up to 4 times that."""
+    import copy
+    import dataclasses
+    import torch
+    from dpcr_agb_tpu_torch import train
+
+    def plain_copy():
+        r = train.build_runner(copy.deepcopy(run.runner.net), run.stats,
+                               seed=0)
+        r.generator.set_state(run.runner.generator.get_state())
+        return r
+
+    plain = plain_copy()
+    moved = plain_copy() if conditioning else None
+    before = {n: p.detach().clone()
+              for n, p in plain.net.named_parameters()}
+    out_k = run.runner.train(batch)
+    with plain_ops():
+        out_p = plain.train(batch)
+    torch.cuda.synchronize()
+    lk, lp = float(out_k["loss"]), float(out_p["loss"])
+    errs, grad = _step_errors(run.runner, plain, before, lk, lp)
+    tol = dict(tols[dtname])
+    out = {"loss_kernel": lk, "loss_plain": lp, "errors": errs,
+           "worst_grads": sorted(grad.items(), key=lambda kv: -kv[1])[:3],
+           "tolerance": tol}
+    if moved is not None:
+        g = torch.Generator(device=batch.x.device).manual_seed(1)
+        noise = torch.randn(batch.x.shape, generator=g, device=batch.x.device)
+        with plain_ops():
+            out_m = moved.train(dataclasses.replace(
+                batch, x=batch.x * (1 + 6e-8 * noise)))
+        torch.cuda.synchronize()
+        sens, _ = _step_errors(moved, plain, before, float(out_m["loss"]), lp)
+        out["one_rounding_of_x_moves_the_plain_step_by"] = sens
+        tol = {k: max(v, 4 * sens[k]) for k, v in tol.items()}
+        out["tolerance_with_conditioning"] = tol
     bad = {k: v for k, v in errs.items() if not v <= tol[k]}
     if bad or not np.isfinite(lk):
-        worst = sorted(grad.items(), key=lambda kv: -kv[1])[:3]
         raise AssertionError(f"train {dtname}: kernel step vs plain step "
                              f"out of tolerance {tol}: {errs}; loss {lk} vs "
-                             f"{lp}; worst gradients {worst}")
-    return {"loss_kernel": lk, "loss_plain": lp, "errors": errs,
-            "worst_grads": sorted(grad.items(), key=lambda kv: -kv[1])[:3],
-            "tolerance": tol}
+                             f"{lp}; worst gradients {out['worst_grads']}")
+    return out
 
 
-def phase_train(dtname: str, plot_dir: str, out_dir: str, smi: str,
-                seed: int, with_profile: bool = False) -> dict:
+def phase_train(model_name: str, dtname: str, plot_dir: str, out_dir: str,
+                smi: str, seed: int, with_profile: bool = False) -> dict:
     import torch
     from dpcr_agb_tpu_torch import kernels, predict, train
     from dpcr_agb_tpu_torch.training.step import StepRunner
     bf16 = dtname == "bfloat16"
-    ckpt = os.path.join(out_dir, f"trained_{dtname}")
+    what = f"train {model_name} {dtname}"
+    ckpt = os.path.join(out_dir, f"trained_{model_name}_{dtname}")
     args = [f"input={plot_dir}/*.npz", f"checkpoint_dir={ckpt}",
-            f"steps={TRAIN_STEPS}", f"batch_size={N_PLOTS}", f"seed={seed}",
+            f"model_name={model_name}", f"steps={TRAIN_STEPS}",
+            f"batch_size={N_PLOTS}", f"seed={seed}",
             f"bf16={str(bf16).lower()}"]
+    mine = MODELS[model_name]["forward"] + MODELS[model_name]["backward"]
     # each step's launches, read around StepRunner.train
     per_step, unwrapped = [], StepRunner.train
 
     def counted(self, batch):
         before = dict(kernels.LAUNCHES)
         out = unwrapped(self, batch)
-        per_step.append({k: n - before[k]
-                         for k, n in kernels.LAUNCHES.items()})
+        per_step.append({k: kernels.LAUNCHES[k] - before[k] for k in mine})
         return out
 
     kernels.reset_launches()
@@ -705,17 +966,20 @@ def phase_train(dtname: str, plot_dir: str, out_dir: str, smi: str,
     launches = dict(kernels.LAUNCHES)
     losses = result["losses"]
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
-        raise AssertionError(f"train {dtname}: losses {losses}")
-    if len(per_step) != TRAIN_STEPS \
-            or min(min(s.values()) for s in per_step) < 1:
-        raise AssertionError(f"train {dtname}: a kernel was not launched in "
-                             f"every step: {per_step}")
+        raise AssertionError(f"{what}: losses {losses}")
+    if len(per_step) != TRAIN_STEPS:
+        raise AssertionError(f"{what}: {len(per_step)} steps counted")
+    for i, step in enumerate(per_step):
+        check_launches(f"{what} step {i}", model_name, step, mine, passes=1)
 
     # one step from one state through the kernels and the plain versions
     files = sorted(glob.glob(os.path.join(plot_dir, "*.npz")))
-    run = train.setup(files, bf16=bf16, batch_size=N_PLOTS, seed=seed)
-    batch = run.stream.next().to(run.runner.device)
-    compared = compare_train_steps(run, batch, dtname)
+    run = train.setup(files, model_name, bf16=bf16, batch_size=N_PLOTS,
+                      seed=seed)
+    host_batch = run.stream.next()
+    batch = host_batch.to(run.runner.device)
+    compared = compare_train_steps(
+        run, batch, dtname, STEP_TOL, conditioning=model_name == "KPConv")
 
     # step time on the device-resident batch
     runner = run.runner
@@ -734,21 +998,19 @@ def phase_train(dtname: str, plot_dir: str, out_dir: str, smi: str,
     peak = torch.cuda.max_memory_allocated() / 1e9
     profile = device_profile(lambda: runner.train(batch)) \
         if with_profile else None
+    facts = batch_facts(runner.net, host_batch)
     del run, runner
     torch.cuda.empty_cache()
 
-    out_csv = os.path.join(out_dir, f"preds_trained_{dtname}.csv")
-    predict.main([f"checkpoint_dir={ckpt}", "model_name=SENet14",
+    out_csv = os.path.join(out_dir, f"preds_trained_{model_name}_{dtname}.csv")
+    predict.main([f"checkpoint_dir={ckpt}", f"model_name={model_name}",
                   f"input={plot_dir}/*.npz", f"output={out_csv}",
                   f"batch_size={N_PLOTS}"])
-    check_predictions(out_csv, f"train {dtname}: serving the checkpoint")
-    out = {"phase": "train", "dtype": dtname, "plots": N_PLOTS,
-           "steps": TRAIN_STEPS, "losses": losses, "launches": launches,
-           "launches_per_step": per_step,
-           "train_main_seconds": main_seconds,
-           "v_bucket": int(batch.coords.shape[1]),
-           "zb": int(len(batch.aux["zcells"])),
-           "occupied_voxels": int(batch.mask.sum()),
+    check_predictions(out_csv, f"{what}: serving the checkpoint")
+    out = {"phase": "train", "model": model_name, "dtype": dtname,
+           "plots": N_PLOTS, "steps": TRAIN_STEPS, "losses": losses,
+           "launches": launches, "launches_per_step": per_step,
+           "train_main_seconds": main_seconds, **facts,
            "kernel_vs_plain_step": compared,
            "train_step_ms": step_s * 1e3, "plots_per_s": N_PLOTS / step_s,
            "peak_mem_gb": peak, "served_trained_checkpoint": N_PLOTS,
@@ -760,8 +1022,9 @@ def phase_train(dtname: str, plot_dir: str, out_dir: str, smi: str,
 
 
 def device_profile(fn, reps: int = 3) -> dict:
-    """torch.profiler over `reps` calls: device time by kernel (top 12) and
-    the device's busy share of the wall time."""
+    """torch.profiler over `reps` calls: device time by kernel (top 12, and
+    every kernel of the port), and the device's busy share of the wall
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -785,12 +1048,67 @@ def device_profile(fn, reps: int = 3) -> dict:
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:12]
+    def row(e):
+        return {"name": e.key[:90],
+                "ms_per_rep": e.self_device_time_total / reps / 1e3,
+                "calls_per_rep": e.count / reps}
+
+    # the port's own kernels (namespace dpcr), whatever their rank
+    own = [row(e) for e in events if "dpcr::" in e.key]
     return {"reps": reps, "wall_ms_per_rep": wall_us / reps / 1e3,
             "device_busy_ms_per_rep": busy_us / reps / 1e3,
             "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
-            "top": [{"name": e.key[:90],
-                     "ms_per_rep": e.self_device_time_total / reps / 1e3,
-                     "calls_per_rep": e.count / reps} for e in top]}
+            "top": [row(e) for e in top], "port_kernels": own,
+            "port_kernels_ms_per_rep": sum(r["ms_per_rep"] for r in own)}
+
+
+def run_model(model_name: str, tmp: str, plot_dir: str, smi: str, seed: int,
+              with_profile: bool) -> list:
+    """The kernels, serve and train phases of one model; returns its kernel
+    rows with the launches each read from the path it serves."""
+    import torch
+    from dpcr_agb_tpu_torch import predict, train
+    ckpts = {k: make_checkpoint(tmp, f"ckpt_{model_name}_{k}", model_name, o,
+                                seed)
+             for k, o in model_options(model_name).items()}
+    bundles = {k: predict.load_serving_bundle(c, model_name)
+               for k, c in ckpts.items()}
+    files = sorted(glob.glob(os.path.join(plot_dir, "*.npz")))
+    samples, _ = predict.load_samples(bundles["float32"], files)
+    (batch, _), = predict.make_batches(bundles["float32"], samples, N_PLOTS)
+    emit({"phase": "data", "model": model_name, "plots": N_PLOTS,
+          "raw_points_per_plot": [int(np.load(f)["pos"].shape[0])
+                                  for f in files],
+          "rows_per_plot": [int(s["pos"].shape[0]) for s in samples],
+          **batch_facts(bundles["float32"].net, batch)})
+    if model_name == "SENet14":
+        # the first batch that train.main draws from these plots
+        train_batch = train.setup(files, batch_size=N_PLOTS,
+                                  seed=seed).stream.next()
+        emit({"phase": "data", "model": model_name, "train_batch": True,
+              **batch_facts(bundles["float32"].net, train_batch)})
+        krows = phase_kernels(bundles, batch, train_batch, smi, seed)
+    else:
+        krows = phase_kpconv_kernels(bundles["float32"], batch, smi, seed)
+    del bundles
+    torch.cuda.empty_cache()
+    for dtname, ckpt in ckpts.items():
+        s = phase_serve(model_name, dtname, ckpt, plot_dir, tmp, smi,
+                        with_profile)
+        for r in krows:
+            if r["dtype"] == dtname \
+                    and r["name"] in MODELS[model_name]["forward"]:
+                r["launches"] = s["launches"][r["name"]]
+        torch.cuda.empty_cache()
+    for dtname in ckpts:
+        t = phase_train(model_name, dtname, plot_dir, tmp, smi, seed,
+                        with_profile)
+        for r in krows:
+            if r["dtype"] == dtname \
+                    and r["name"] in MODELS[model_name]["backward"]:
+                r["launches"] = t["launches"][r["name"]]
+        torch.cuda.empty_cache()
+    return krows
 
 
 def main(argv=None) -> int:
@@ -801,6 +1119,9 @@ def main(argv=None) -> int:
                          "forward and of the train step")
     ap.add_argument("--out", default=None,
                     help="also write every phase's JSON to this file")
+    ap.add_argument("--only", choices=sorted(MODELS), default=None,
+                    help="run the phases of one model only (all six kernels "
+                         "are built either way)")
     args = ap.parse_args(argv)
 
     import torch
@@ -808,7 +1129,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from dpcr_agb_tpu_torch import predict, train
+        from dpcr_agb_tpu_torch import predict, train  # noqa: F401
         from dpcr_agb_tpu_torch.kernels import LAUNCHES  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the dpcr_agb_tpu_torch package is missing: {e}",
@@ -820,52 +1141,21 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     dev = phase_device()
     smi = dev["nvidia_smi"]
+    krows = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         plot_dir = os.path.join(tmp, "plots")
         write_plots(plot_dir, N_PLOTS, args.seed, DENSITY)
-        ckpts = {k: make_checkpoint(tmp, f"ckpt_{k}", o, args.seed)
-                 for k, o in model_options().items()}
-        bundles = {k: predict.load_serving_bundle(c, "SENet14")
-                   for k, c in ckpts.items()}
-        files = sorted(glob.glob(os.path.join(plot_dir, "*.npz")))
-        samples, _ = predict.load_samples(bundles["float32"], files)
-        (batch, _), = predict.make_batches(bundles["float32"], samples,
-                                           N_PLOTS)
-        emit({"phase": "data", "plots": N_PLOTS,
-              "v_bucket": int(batch.coords.shape[1]),
-              "zb": int(len(batch.aux["zcells"])),
-              "raw_points_per_plot": [int(np.load(f)["pos"].shape[0])
-                                      for f in files],
-              "voxels_per_plot": [int(s["pos"].shape[0]) for s in samples],
-              "occupied_voxels": int(np.asarray(batch.mask).sum())})
-        # the first batch that train.main draws from these plots
-        train_batch = train.setup(files, batch_size=N_PLOTS,
-                                  seed=args.seed).stream.next()
-        emit({"phase": "data", "train_batch": True,
-              "v_bucket": int(train_batch.coords.shape[1]),
-              "zb": int(len(train_batch.aux["zcells"])),
-              "occupied_voxels": int(np.asarray(train_batch.mask).sum())})
-        krows = phase_kernels(bundles, batch, train_batch, smi, args.seed)
-        del bundles
-        torch.cuda.empty_cache()
-        # each kernel row reads its launches from the path it serves
-        for dtname, ckpt in ckpts.items():
-            s = phase_serve(dtname, ckpt, plot_dir, tmp, smi, args.profile)
-            for r in krows:
-                if r["dtype"] == dtname and r["name"] in FORWARD_KERNELS:
-                    r["launches"] = s["launches"][r["name"]]
-            torch.cuda.empty_cache()
-        for dtname in ckpts:
-            t = phase_train(dtname, plot_dir, tmp, smi, args.seed,
-                            args.profile)
-            for r in krows:
-                if r["dtype"] == dtname and r["name"] not in FORWARD_KERNELS:
-                    r["launches"] = t["launches"][r["name"]]
-            torch.cuda.empty_cache()
-    summary = {"kernels": [{k: r[k] for k in (
+        for model_name in MODELS:
+            if args.only in (None, model_name):
+                t_model = time.perf_counter()
+                krows += run_model(model_name, tmp, plot_dir, smi, args.seed,
+                                   args.profile)
+                emit({"phase": "model", "model": model_name,
+                      "seconds": time.perf_counter() - t_model})
+    summary = {"kernels": [{k: r.get(k) for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dtype")}
-        for r in krows]}
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dtype",
+        "case", "max_abs_plain")} for r in krows]}
     RECORD.append({"total_seconds": time.perf_counter() - t_start})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

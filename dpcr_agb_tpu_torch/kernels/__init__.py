@@ -7,16 +7,17 @@ tensors only; the CPU path of each op is its plain PyTorch version in
 `dpcr_agb_tpu_torch.ops`."""
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import build
 
 LAUNCHES = {"stem_sites": 0, "max_pool_k3s2": 0, "stem_sites_dw": 0,
-            "max_pool_k3s2_bwd": 0}
+            "max_pool_k3s2_bwd": 0, "kpconv_fused": 0, "kpconv_fused_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_INFLUENCE_CODE = {"linear": 0, "gaussian": 1, "constant": 2}
 
 
 def reset_launches() -> None:
@@ -194,3 +195,89 @@ def max_pool_k3s2_bwd(coords: torch.Tensor, mask: torch.Tensor,
     _check_rc(rc, "max_pool_k3s2_bwd")
     LAUNCHES["max_pool_k3s2_bwd"] += 1
     return dx
+
+
+def _kpconv_args(name: str, x, nbr, rel, weights, kernel_points,
+                 influence: str, aggregation: str) -> tuple:
+    """Checks the operands the two KPConv launchers share; returns
+    (B, Nq, Ns, K, C, Cout, Kp)."""
+    if not x.is_cuda:
+        raise ValueError(f"{name} takes CUDA tensors")
+    dev, dt = x.device, x.dtype
+    if dt not in _DTYPE_CODE:
+        raise ValueError(f"{name}: unsupported dtype {dt}")
+    if influence not in _INFLUENCE_CODE \
+            or aggregation not in ("sum", "closest"):
+        raise ValueError(f"{name}: influence {influence!r}, aggregation "
+                         f"{aggregation!r}")
+    _require(x, "x", dt, 3, dev)
+    _require(nbr, "nbr", torch.int32, 3, dev)
+    _require(rel, "rel", torch.float32, 4, dev)
+    _require(weights, "weights", torch.float32, 3, dev)
+    _require(kernel_points, "kernel_points", torch.float32, 2, dev)
+    b, ns, c = x.shape
+    nq, k = nbr.shape[1:]
+    n_kp, cout = weights.shape[0], weights.shape[2]
+    if nbr.shape[0] != b or rel.shape != (b, nq, k, 3) \
+            or weights.shape[1] != c or kernel_points.shape != (n_kp, 3) \
+            or not 1 <= cout <= 256 or ns < 1 or k < 1:
+        raise ValueError(
+            f"{name}: shapes x {tuple(x.shape)}, nbr {tuple(nbr.shape)}, rel "
+            f"{tuple(rel.shape)}, weights {tuple(weights.shape)}, "
+            f"kernel_points {tuple(kernel_points.shape)} (need Cout <= 256)")
+    return b, nq, ns, k, c, cout, n_kp
+
+
+def kpconv_fused(x: torch.Tensor, nbr: torch.Tensor, rel: torch.Tensor,
+                 weights: torch.Tensor, kernel_points: torch.Tensor,
+                 extent: float, influence: str = "linear",
+                 aggregation: str = "sum") -> torch.Tensor:
+    """Fused rigid KPConv forward: x [B,Ns,C] f32 or bf16 (the compute
+    dtype), nbr [B,Nq,K] int32 (Ns = shadow), rel [B,Nq,K,3] f32, weights
+    [Kp,C,Cout] f32, kernel_points [Kp,3] f32 -> [B,Nq,Cout] f32. The
+    kernel gathers the rows of x itself and skips the shadow."""
+    b, nq, ns, k, c, cout, n_kp = _kpconv_args(
+        "kpconv_fused", x, nbr, rel, weights, kernel_points, influence,
+        aggregation)
+    out = torch.empty((b, nq, cout), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = build.entry("kpconv_fwd")(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), nbr.data_ptr(),
+            rel.data_ptr(), weights.data_ptr(), kernel_points.data_ptr(),
+            out.data_ptr(), b, nq, ns, k, c, cout, n_kp, float(extent),
+            _INFLUENCE_CODE[influence], int(aggregation == "closest"),
+            _stream(x.device))
+    _check_rc(rc, "kpconv_fused")
+    LAUNCHES["kpconv_fused"] += 1
+    return out
+
+
+def kpconv_fused_bwd(x: torch.Tensor, nbr: torch.Tensor, rel: torch.Tensor,
+                     weights: torch.Tensor, kernel_points: torch.Tensor,
+                     g: torch.Tensor, extent: float,
+                     influence: str = "linear", aggregation: str = "sum"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward of `kpconv_fused` for the cotangent g [B,Nq,Cout] f32 ->
+    (dx [B,Ns,C] f32, dW [Kp,C,Cout] f32), both summed with f32 atomics
+    (the order of the additions varies). The shadow gets nothing."""
+    b, nq, ns, k, c, cout, n_kp = _kpconv_args(
+        "kpconv_fused_bwd", x, nbr, rel, weights, kernel_points, influence,
+        aggregation)
+    dev = x.device
+    _require(g, "g", torch.float32, 3, dev)
+    if g.shape != (b, nq, cout):
+        raise ValueError(f"kpconv_fused_bwd: g {tuple(g.shape)} for an "
+                         f"output {(b, nq, cout)}")
+    dx = torch.zeros((b, ns, c), dtype=torch.float32, device=dev)
+    dw = torch.zeros((n_kp, c, cout), dtype=torch.float32, device=dev)
+    wt = torch.empty((n_kp, cout, c), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = build.entry("kpconv_bwd")(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), nbr.data_ptr(),
+            rel.data_ptr(), weights.data_ptr(), kernel_points.data_ptr(),
+            g.data_ptr(), wt.data_ptr(), dx.data_ptr(), dw.data_ptr(), b, nq,
+            ns, k, c, cout, n_kp, float(extent), _INFLUENCE_CODE[influence],
+            int(aggregation == "closest"), _stream(dev))
+    _check_rc(rc, "kpconv_fused_bwd")
+    LAUNCHES["kpconv_fused_bwd"] += 1
+    return dx, dw

@@ -29,7 +29,7 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared",
               "-lineinfo"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library -> (source, C entry point, argtypes)
 LIBRARIES = {
     "stem_sites": ("stem_sites.cu", "stem_sites_launch",
@@ -42,6 +42,12 @@ LIBRARIES = {
                       _P]),
     "stem_dw": ("stem_dw.cu", "stem_sites_dw_launch",
                 [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "kpconv_fwd": ("kpconv_fwd.cu", "kpconv_fused_launch",
+                   [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                    _F, _I, _I, _P]),
+    "kpconv_bwd": ("kpconv_bwd.cu", "kpconv_fused_bwd_launch",
+                   [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                    _I, _I, _I, _F, _I, _I, _P]),
 }
 
 _ENTRY: Dict[str, object] = {}

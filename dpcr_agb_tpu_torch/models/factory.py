@@ -1,5 +1,5 @@
-"""Model building and collate policy (counterpart of the Minkowski builder,
-the dense-path `post_collate` and the SPARSE `_collate_spec` of
+"""Model building and collate policy (counterpart of `_build_minkowski`,
+`_build_kpconv`, the dense-path `post_collate` and `_collate_spec` of
 `dpcr_agb_tpu/models/factory.py`)."""
 from __future__ import annotations
 
@@ -10,19 +10,24 @@ import numpy as np
 import torch
 
 from ..data.batch import Batch, CollateSpec, normalize_sparse_rows
+from .kpconv import build_kpconv
 from .minkowski import SparseResNet, build_resnet
 
 _MINKOWSKI = "minkowski.MinkowskiBaselineModel"
+_KPCONV = "kpconv.KPConv"
 
 
 def build_model(option: dict, num_reg_targets: int, in_channels: int,
                 generator: Optional[torch.Generator] = None):
-    """(module, conv_type) for one `conf/models` entry; only the Minkowski
-    sparse-voxel ResNets are ported."""
+    """(module, conv_type) for one `conf/models` entry; the Minkowski
+    sparse-voxel ResNets and the rigid KPConv net are ported."""
+    if option["class"] == _KPCONV:
+        net = build_kpconv(option, num_reg_targets, in_channels, generator)
+        return net, option.get("conv_type", "PARTIAL_DENSE")
     if option["class"] != _MINKOWSKI:
         raise NotImplementedError(
             f"model class {option['class']!r} is not ported yet (ported: "
-            f"{_MINKOWSKI})")
+            f"{_MINKOWSKI}, {_KPCONV})")
     name = option["model_name"]
     if name == "MinkowskiPointNet":
         raise NotImplementedError("MPointNet is left for a later slice of "
@@ -34,7 +39,8 @@ def build_model(option: dict, num_reg_targets: int, in_channels: int,
 def make_post_collate(net) -> Optional[Callable[[Batch], Batch]]:
     """Dense-grid SparseResNet: pick the batch's z bucket (the smallest of
     {48, 64, 80, z_max} that holds its max z + 1), normalize the rows to
-    (D, H, zb) and tag the bucket as aux['zcells'] (length zb)."""
+    (D, H, zb) and tag the bucket as aux['zcells'] (length zb). KPCNN has
+    none: its pyramid is built on the device inside the forward."""
     if not isinstance(net, SparseResNet):
         return None
     z_max_dim = net.dense_dims[2]
@@ -54,11 +60,19 @@ def make_post_collate(net) -> Optional[Callable[[Batch], Batch]]:
 
 
 def collate_spec(conv_type: str, data_cfg: dict) -> CollateSpec:
-    """The SPARSE collate: voxel counts padded to the bucket ladder."""
-    if conv_type != "SPARSE":
-        raise NotImplementedError(f"conv_type {conv_type!r} collate is left "
-                                  "for a later slice of the port")
-    return CollateSpec(conv_type="sparse", use_coords=True,
-                       buckets=tuple(data_cfg.get("buckets",
-                                                  (4096, 8192, 16384))),
-                       min_bucket=int(data_cfg.get("min_bucket", 1024)))
+    """SPARSE: voxel counts padded to the bucket ladder. Anything else
+    (PARTIAL_DENSE, DENSE): point counts padded to the preset's fixed
+    `num_points`, or without one to the next power of two from
+    `min_bucket`."""
+    min_bucket = int(data_cfg.get("min_bucket", 1024))
+    if conv_type == "SPARSE":
+        return CollateSpec(conv_type="sparse", use_coords=True,
+                           buckets=tuple(data_cfg.get("buckets",
+                                                      (4096, 8192, 16384))),
+                           min_bucket=min_bucket)
+    preset = data_cfg.get(str(data_cfg.get("transform_type"))) or {}
+    num_points = preset.get("num_points")
+    if num_points is None and data_cfg.get("fixed") is not None:
+        num_points = data_cfg["fixed"].get("num_points")
+    return CollateSpec(conv_type="dense", num_points=num_points,
+                       min_bucket=min_bucket)

@@ -5,7 +5,7 @@ input plot file (.npz or .csv, one plot per file) through the model and
 writes de-standardized predictions to csv.
 
     python -m dpcr_agb_tpu_torch.predict checkpoint_dir=outputs/run \\
-        model_name=SENet14 input='plots/*.npz' output=preds.csv \\
+        model_name=SENet14|KPConv input='plots/*.npz' output=preds.csv \\
         [batch_size=16] [weight_name=latest] [centers=centers.csv] \\
         [device=cpu]
 
@@ -119,6 +119,14 @@ def forward_raw(bundle: ServingBundle, batch: Batch) -> torch.Tensor:
     return bundle.net(batch.to(bundle.device))
 
 
+def describe_batch(batch: Batch) -> str:
+    """The padded sizes of a batch, for the logs."""
+    if isinstance(batch.aux, dict) and "zcells" in batch.aux:
+        return (f"V bucket {batch.mask.shape[1]}, z cells "
+                f"{len(batch.aux['zcells'])}")
+    return f"N bucket {batch.mask.shape[1]}"
+
+
 def predictions(bundle: ServingBundle, raw: torch.Tensor) -> np.ndarray:
     """Raw head output -> de-standardized predictions [B, T] (numpy)."""
     out = reg_output(bundle.spec, convert_outputs(bundle.spec, raw.float()))
@@ -152,9 +160,7 @@ def main(overrides=None) -> str:
     rows = []
     for i, (batch, n) in enumerate(make_batches(bundle, samples, bs)):
         preds = predictions(bundle, forward_raw(bundle, batch))[:n]
-        log.info("batch %d: %d plots, V bucket %d, z cells %d", i, n,
-                 batch.coords.shape[1], len(batch.aux["zcells"])
-                 if isinstance(batch.aux, dict) else -1)
+        log.info("batch %d: %d plots, %s", i, n, describe_batch(batch))
         for name, p in zip(names[i * bs:i * bs + n], preds):
             rows.append([name] + [float(v) for v in p])
 

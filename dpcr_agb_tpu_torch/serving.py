@@ -5,7 +5,7 @@ rebuilt from a port checkpoint alone.
 A port checkpoint is `<checkpoint_dir>/<model_name>.pt`, written with
 `torch.save`, holding plain Python objects and tensors only:
   format        CHECKPOINT_FORMAT
-  model_name    the `conf/models` key (e.g. "SENet14")
+  model_name    the `conf/models` key ("SENet14", "KPConv")
   option        that model entry (class, model_name, activation, ...)
   in_channels   the model's input feature width
   data          features, scales, centers, first_subsampling and the
@@ -35,10 +35,10 @@ from .transforms import Compose, instantiate_transforms
 
 CHECKPOINT_FORMAT = "dpcr_agb_tpu_torch.checkpoint/1"
 
-# The NFI dataset's pre_transform (conf/data/instance/NFI/default.yaml) and
-# the sparse_xy train and test chains (conf/data/instance/NFI/transforms/
-# sparse-xy.yaml), with the ${data.*} values substituted: the machines that
-# train and serve have no YAML reader.
+# The NFI dataset's pre_transform (conf/data/instance/NFI/default.yaml), the
+# sparse_xy train and test chains (conf/data/instance/NFI/transforms/
+# sparse-xy.yaml) and the xy ones (xy.yaml), with the ${data.*} values
+# substituted: the machines that train and serve have no YAML reader.
 _SKIP = ["y_mol", "y_mol_mask", "y_cls", "y_cls_mask", "y_reg", "y_reg_mask"]
 _HEXAGON = [[0., 0.5], [0.25, 0.9330127], [0.75, 0.9330127], [1., 0.5],
             [0.75, 0.0669873], [0.25, 0.0669873]]
@@ -46,24 +46,64 @@ _SCALE_POS = {"transform": "ScalePos", "params": {
     "scale_x": 30, "scale_y": 30, "scale_z": 40, "op": "div"}}
 _CENTER = {"transform": "MoveCenterPosPerSample",
            "params": {"center_x": 0.5, "center_y": 0.5}}
-_FEATS = [
-    {"transform": "MaxPoints", "params": {"num": 16000, "skip_list": _SKIP}},
-    {"transform": "MinPoints", "params": {"num": 500, "skip_list": _SKIP}},
-    {"transform": "XYZFeature",
-     "params": {"add_x": False, "add_y": False, "add_z": True}},
-    {"transform": "AddOnes"},
-    {"transform": "AddXYDistanceToCenter",
-     "params": {"center_x": 0.5, "center_y": 0.5}},
-    {"transform": "AddFeatsByKeys", "params": {
-        "list_add_to_x": [True, True, True],
-        "feat_names": ["ones", "pos_z", "xy_distance"],
-        "delete_feats": [True, True, True],
-        "input_nc_feats": [1, 1, 1]}},
-]
+
+
+def _feats(max_points: int) -> list:
+    """The point caps and the [ones, pos_z, xy_distance] features."""
+    return [
+        {"transform": "MaxPoints",
+         "params": {"num": max_points, "skip_list": _SKIP}},
+        {"transform": "MinPoints", "params": {"num": 500, "skip_list": _SKIP}},
+        {"transform": "XYZFeature",
+         "params": {"add_x": False, "add_y": False, "add_z": True}},
+        {"transform": "AddOnes"},
+        {"transform": "AddXYDistanceToCenter",
+         "params": {"center_x": 0.5, "center_y": 0.5}},
+        {"transform": "AddFeatsByKeys", "params": {
+            "list_add_to_x": [True, True, True],
+            "feat_names": ["ones", "pos_z", "xy_distance"],
+            "delete_feats": [True, True, True],
+            "input_nc_feats": [1, 1, 1]}},
+    ]
+
+
 _QUANTIZE = {"transform": "GridSampling3D", "params": {
     "size": 0.0125, "quantize_coords": True, "mode": "last"}}
-NFI_SPARSE_XY = {
-    "transform_type": "sparse_xy",
+# the augmentations both train chains start with, and the deterministic
+# prefix of both test chains
+_AUG_PREFIX = [
+    {"transform": "RandomGroundRemoval", "params": {
+        "min_v": 0.05, "max_v": 0.5, "p": 0.1, "min_points": 500,
+        "skip_list": _SKIP}},
+    {"transform": "RandomDropout", "params": {
+        "dropout_ratio": 0.2, "dropout_application_ratio": 0.5,
+        "min_points": 500, "skip_list": _SKIP}},
+    _SCALE_POS,
+    {"transform": "RandomNoise", "params": {"sigma": 0.0025}},
+    {"transform": "Random3AxisRotation", "params": {
+        "apply_rotation": True, "rot_x": 0, "rot_y": 0, "rot_z": 180}},
+    {"transform": "RandomShiftPos", "params": {
+        "p": 0.5, "max_x": 0.01, "max_y": 0.01, "max_z": 0.0}},
+    _CENTER,
+    {"transform": "StartZFromZero"},
+    {"transform": "AddRandomPoints", "params": {
+        "n_max_points": 12000, "add_ratio_min": 0.01,
+        "add_ratio_max": 0.2, "p": 0.25}},
+    {"transform": "CopyJitterRandomPoints", "params": {
+        "n_max_points": 12000, "add_ratio_min": 0.01,
+        "add_ratio_max": 0.2, "p": 0.25, "sigma": 0.005,
+        "clip": 0.015}},
+    {"transform": "RandomPolygon2dExtend", "params": {
+        "polygons": [_HEXAGON], "rotate": 180, "skip_list": _SKIP}},
+]
+_DET_PREFIX = [
+    _SCALE_POS,
+    _CENTER,
+    {"transform": "StartZFromZero"},
+    {"transform": "Polygon2dExtend",
+     "params": {"polygon": _HEXAGON, "skip_list": _SKIP}},
+]
+_NFI = {
     "features": [],
     "x_scale": 30, "y_scale": 30, "z_scale": 40,
     "x_center": 0.5, "y_center": 0.5,
@@ -75,51 +115,38 @@ NFI_SPARSE_XY = {
         {"transform": "ZFilter",
          "params": {"z_min": -1.0e-5, "z_max": 50, "skip_keys": _SKIP}},
     ],
+}
+NFI_SPARSE_XY = {
+    "transform_type": "sparse_xy",
+    **_NFI,
     "train_transform": [
-        {"transform": "RandomGroundRemoval", "params": {
-            "min_v": 0.05, "max_v": 0.5, "p": 0.1, "min_points": 500,
-            "skip_list": _SKIP}},
-        {"transform": "RandomDropout", "params": {
-            "dropout_ratio": 0.2, "dropout_application_ratio": 0.5,
-            "min_points": 500, "skip_list": _SKIP}},
-        _SCALE_POS,
-        {"transform": "RandomNoise", "params": {"sigma": 0.0025}},
-        {"transform": "Random3AxisRotation", "params": {
-            "apply_rotation": True, "rot_x": 0, "rot_y": 0, "rot_z": 180}},
-        {"transform": "RandomShiftPos", "params": {
-            "p": 0.5, "max_x": 0.01, "max_y": 0.01, "max_z": 0.0}},
-        _CENTER,
-        {"transform": "StartZFromZero"},
-        {"transform": "AddRandomPoints", "params": {
-            "n_max_points": 12000, "add_ratio_min": 0.01,
-            "add_ratio_max": 0.2, "p": 0.25}},
-        {"transform": "CopyJitterRandomPoints", "params": {
-            "n_max_points": 12000, "add_ratio_min": 0.01,
-            "add_ratio_max": 0.2, "p": 0.25, "sigma": 0.005,
-            "clip": 0.015}},
-        {"transform": "RandomPolygon2dExtend", "params": {
-            "polygons": [_HEXAGON], "rotate": 180, "skip_list": _SKIP}},
-        *_FEATS,
+        *_AUG_PREFIX,
+        *_feats(16000),
         _QUANTIZE,
         {"transform": "RandomCoordsFlip",
          "params": {"ignored_axis": "z", "p": 0.5}},
         {"transform": "ShiftVoxels"},
     ],
-    "test_transform": [
-        _SCALE_POS,
-        _CENTER,
-        {"transform": "StartZFromZero"},
-        {"transform": "Polygon2dExtend",
-         "params": {"polygon": _HEXAGON, "skip_list": _SKIP}},
-        *_FEATS,
-        _QUANTIZE,
-    ],
+    "test_transform": [*_DET_PREFIX, *_feats(16000), _QUANTIZE],
+}
+# The xy chains of the KPConv net (conf/data/instance/NFI/transforms/
+# xy.yaml): the same prefixes, capped at 6144 points, no quantization.
+NFI_XY = {
+    "transform_type": "xy",
+    **_NFI,
+    "train_transform": [*_AUG_PREFIX, *_feats(6144)],
+    "test_transform": [*_DET_PREFIX, *_feats(6144)],
 }
 
 
 def nfi_sparse_xy_data_cfg() -> dict:
     """A fresh copy of the NFI + sparse_xy data config."""
     return copy.deepcopy(NFI_SPARSE_XY)
+
+
+def nfi_xy_data_cfg() -> dict:
+    """A fresh copy of the NFI + xy data config (KPConv)."""
+    return copy.deepcopy(NFI_XY)
 
 
 @dataclasses.dataclass

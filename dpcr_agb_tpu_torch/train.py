@@ -1,23 +1,27 @@
-"""Training CLI of the port: a few optimizer steps of a sparse-voxel SENet
-on `.npz` plots, then a port checkpoint that `predict` serves.
+"""Training CLI of the port: a few optimizer steps of the sparse-voxel
+SENet14 or of the KPConv net on `.npz` plots, then a port checkpoint that
+`predict` serves.
 
     python -m dpcr_agb_tpu_torch.train input='plots/*.npz' \\
-        checkpoint_dir=outputs/run [model_name=SENet14] [steps=100] \\
-        [batch_size=16] [seed=0] [bf16=false] [dense_dims=88,88,104] \\
-        [device=cpu]
+        checkpoint_dir=outputs/run [model_name=SENet14|KPConv] \\
+        [steps=100] [batch_size=16] [seed=0] [bf16=false] \\
+        [dense_dims=88,88,104] [device=cpu]
 
 Each `.npz` holds `pos` [N,3] and one scalar per regression target
 (`BMag_ha`, `V_ha`); a missing or NaN target is masked out of the loss.
 Targets are standardized by their mean and standard deviation over the
 training plots (np.nanmean, np.nanstd). Every plot goes through the NFI
 pre_transform once; every step draws `batch_size` plots from a reshuffled
-stream, runs the sparse_xy train chain on each, collates and post-collates
-them, and takes one step of the paper's recipe: AdaBelief (lr 5e-3, weight
+stream, runs the model's train chain on each (sparse_xy for SENet14, xy
+for KPConv), collates and post-collates them, and takes one step of the
+paper's recipe (the same for both models): AdaBelief (lr 5e-3, weight
 decay 1e-2) behind an elementwise gradient clip at 100, with
 CosineAnnealingWarmRestarts (T_0 10, T_mult 2) stepped per batch. It runs
 on CUDA unless `device=cpu` is given, and raises when there is no CUDA
-device and the CPU was not asked for. Epochs, validation, trackers, LAS
-input and the YAML configs are not ported."""
+device and the CPU was not asked for. `bf16=true` is the bf16 compute dtype
+of SENet14's convs, and for KPConv that of the fused kernel-point
+convolution only. `dense_dims` applies to SENet14. Epochs, validation,
+trackers, LAS input and the YAML configs are not ported."""
 from __future__ import annotations
 
 import copy
@@ -35,8 +39,8 @@ from .data.batch import Batch, collate
 from .device import resolve_device
 from .models.base import InstanceSpec
 from .models.factory import build_model, collate_spec, make_post_collate
-from .predict import sample_from_file
-from .serving import nfi_sparse_xy_data_cfg
+from .predict import describe_batch, sample_from_file
+from .serving import nfi_sparse_xy_data_cfg, nfi_xy_data_cfg
 from .training.optim import AdaBelief, make_lr_fn
 from .training.state import save_train_checkpoint
 from .training.step import StepRunner
@@ -50,7 +54,28 @@ SENET14 = {"class": "minkowski.MinkowskiBaselineModel", "conv_type": "SPARSE",
            "model_name": "SENet14", "D": 3, "activation": "gelu",
            "first_stride": 1, "dropout": 0.0, "drop_path": 0.01,
            "global_pool": "sum"}
-# conf/training/nfi/minkowski.yaml, conf/lr_scheduler/cosineawr.yaml
+# conf/models/instance/kpconv.yaml with data.first_subsampling substituted
+KPCONV = {"class": "kpconv.KPConv", "conv_type": "PARTIAL_DENSE",
+          "model_name": "KPConv",
+          "config": {
+              "in_points_dim": 3, "in_features_dim": "FEAT",
+              "in_radius": 1.0,
+              "architecture": [
+                  "simple", "resnetb", "resnetb_strided", "resnetb",
+                  "resnetb", "resnetb_strided", "resnetb", "resnetb",
+                  "resnetb_strided", "resnetb", "resnetb",
+                  "resnetb_strided", "resnetb", "resnetb", "global_sum"],
+              "first_features_dim": 64, "use_batch_norm": True,
+              "batch_norm_momentum": 0.02, "activation": "relu",
+              "num_kernel_points": 15, "first_subsampling_dl": 0.0125,
+              "conv_radius": 2.5, "deform_radius": 5.0, "KP_extent": 1.0,
+              "KP_influence": "linear", "aggregation_mode": "sum",
+              "fixed_kernel_points": "center", "modulated": False},
+          "extra_options": {"kp_disposition": "auto"}}
+MODELS = {"SENet14": (SENET14, nfi_sparse_xy_data_cfg),
+          "KPConv": (KPCONV, nfi_xy_data_cfg)}
+# conf/training/nfi/minkowski.yaml and kpconv.yaml (the same recipe),
+# conf/lr_scheduler/cosineawr.yaml
 RECIPE = {"base_lr": 5e-3, "weight_decay": 1e-2, "grad_clip": 100.0,
           "lr_scheduler": {"class": "CosineAnnealingWarmRestarts",
                            "params": {"T_0": 10, "T_mult": 2}},
@@ -71,12 +96,16 @@ def _parse(overrides: List[str]) -> Dict[str, str]:
 
 
 def model_option(model_name: str, bf16: bool, dense_dims=None) -> dict:
-    if model_name != "SENet14":
-        raise NotImplementedError(f"{model_name}: only SENet14 is trained by "
-                                  "the port yet")
-    option = copy.deepcopy(SENET14)
-    extra = {"bf16": True} if bf16 else {}
+    if model_name not in MODELS:
+        raise NotImplementedError(f"{model_name}: the port trains "
+                                  f"{sorted(MODELS)} yet")
+    option = copy.deepcopy(MODELS[model_name][0])
+    extra = dict(option.get("extra_options", {}))
+    if bf16:
+        extra["bf16"] = True
     if dense_dims is not None:
+        if model_name == "KPConv":
+            raise ValueError("dense_dims applies to the sparse-voxel nets")
         extra["dense_dims"] = [int(n) for n in dense_dims]
     if extra:
         option["extra_options"] = extra
@@ -176,7 +205,7 @@ def setup(files: List[str], model_name: str = "SENet14", bf16: bool = False,
     on `device`, its step runner and the stream of host batches."""
     dev = resolve_device(device)
     option = model_option(model_name, bf16, dense_dims)
-    data_cfg = nfi_sparse_xy_data_cfg()
+    data_cfg = MODELS[model_name][1]()
     samples = load_plots(files, data_cfg, REG_TARGETS)
     if not samples:
         raise ValueError("no usable training plots")
@@ -214,8 +243,8 @@ def main(overrides=None) -> dict:
         batch = run.stream.next()
         loss = float(runner.train(batch)["loss"])
         losses.append(loss)
-        log.info("step %d: loss %.6f, V bucket %d, z cells %d, lr %.6g", i,
-                 loss, batch.coords.shape[1], len(batch.aux["zcells"]),
+        log.info("step %d: loss %.6f, %s, lr %.6g", i, loss,
+                 describe_batch(batch),
                  runner.optimizer.param_groups[0]["lr"])
     path = save_train_checkpoint(args["checkpoint_dir"], model_name, runner,
                                  run.option, IN_CHANNELS, run.data_cfg,

@@ -1,5 +1,7 @@
-"""Host-side numpy transforms: the NFI pre_transform and the deterministic
-sparse_xy test chain. Importing the package registers every transform."""
+"""Host-side numpy transforms: the NFI pre_transform and the train and
+test chains of the sparse_xy and xy presets (the chains themselves are the
+plain dicts of `serving.py`). Importing the package registers every
+transform."""
 from . import features as _features  # noqa: F401 (registration)
 from . import grid as _grid  # noqa: F401
 from . import transforms as _transforms  # noqa: F401

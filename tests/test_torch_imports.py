@@ -42,7 +42,9 @@ def test_no_forbidden_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, dpcr_agb_tpu_torch.predict, dpcr_agb_tpu_torch."
-            "kernels, dpcr_agb_tpu_torch.weights; "
+            "kernels, dpcr_agb_tpu_torch.weights, dpcr_agb_tpu_torch.train, "
+            "dpcr_agb_tpu_torch.models.kpconv, dpcr_agb_tpu_torch.ops."
+            "neighbors, dpcr_agb_tpu_torch.ops.kernel_points; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r} or m.split('.')[0] == 'triton']; "
             "assert not bad, bad")
@@ -158,3 +160,90 @@ def test_backward_kernels_match_plain_versions_on_the_card():
         torch.testing.assert_close(stem_conv_sites_dw(vol, coords, mask, ct),
                                    want, rtol=1e-4,
                                    atol=1e-5 * want.abs().max().item())
+
+
+def _kpconv_case(rng, b, nq, ns, k, n_kp, c, cout, device="cpu"):
+    """Random clouds in the unit cube with neighbour lists that hold
+    shadows (index ns), one query row of shadows only, and kernel points
+    within the extent."""
+    q = rng.uniform(0, 1, (b, nq, 3)).astype(np.float32)
+    s = rng.uniform(0, 1, (b, ns, 3)).astype(np.float32)
+    nbr = rng.integers(0, ns + 1, (b, nq, k)).astype(np.int32)
+    nbr[:, :, -1] = ns
+    nbr[:, nq // 2] = ns
+    x = rng.standard_normal((b, ns, c)).astype(np.float32)
+    kp = (rng.uniform(-1, 1, (n_kp, 3)) * 0.3).astype(np.float32)
+    w = (rng.standard_normal((n_kp, c, cout)) * 0.2).astype(np.float32)
+    g = rng.standard_normal((b, nq, cout)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (q, s, nbr, x, kp, w, g)]
+
+
+def test_kpconv_wrappers_take_plain_versions_on_cpu():
+    from dpcr_agb_tpu_torch import kernels
+    from dpcr_agb_tpu_torch.ops import kpconv
+    q, s, nbr, x, kp, w, g = _kpconv_case(np.random.default_rng(0), 2, 9, 8,
+                                          4, 5, 6, 7)
+    rel = kpconv.shared_rel(q, s, nbr)
+    before = dict(kernels.LAUNCHES)
+    got = kpconv.kpconv_forward(x, nbr, rel, w, kp, 0.4)
+    dx, dw = kpconv.kpconv_backward(x, nbr, rel, w, kp, g, 0.4)
+    assert kernels.LAUNCHES == before
+    np.testing.assert_array_equal(
+        got.numpy(), kpconv.kpconv_fused_plain(x, nbr, rel, w, kp, 0.4))
+    assert dx.shape == x.shape and dw.shape == w.shape
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.kpconv_fused(x, nbr, rel, w, kp, 0.4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.kpconv_fused_bwd(x, nbr, rel, w, kp, g, 0.4)
+
+
+# (B, Nq, Ns, K, Kp, C, Cout): the JAX tests' sizes, odd sizes, the first
+# layer (3 -> 32), every Cout with its own thread mapping, more than one
+# chunk of kernel points (17) and of channels (70), and the widest level
+KPCONV_CARD_CASES = [
+    (2, 24, 20, 7, 5, 6, 8), (1, 13, 9, 3, 4, 5, 3),
+    (2, 50, 40, 40, 15, 3, 32), (2, 37, 64, 40, 15, 16, 16),
+    (1, 33, 30, 20, 15, 64, 64),
+    (1, 20, 25, 9, 17, 70, 24), (1, 17, 20, 5, 15, 32, 128),
+    (1, 18, 30, 40, 15, 256, 256)]
+
+
+@pytest.mark.cuda
+def test_kpconv_kernels_match_plain_versions_on_the_card():
+    """f32: sums in another order, and dx and dW through f32 atomics: rtol
+    1e-4 with atol 1e-4 of max|plain|. bf16: kernel and plain version round
+    at the same places, but a sum taken in another order can land on the
+    other side of a bf16 rounding (2^-8 of one term): atol 1e-2 of
+    max|plain|. A query row of shadows only gives exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py checks the kernels "
+                    "at the main path's shapes")
+    from dpcr_agb_tpu_torch.ops import kpconv
+    rng = np.random.default_rng(3)
+    for case in KPCONV_CARD_CASES:
+        q, s, nbr, x, kp, w, g = _kpconv_case(rng, *case, device="cuda")
+        rel = kpconv.shared_rel(q, s, nbr)
+        modes = [(i, a) for i in kpconv.INFLUENCES
+                 for a in kpconv.AGGREGATIONS] if case[5] <= 16 \
+            else [("linear", "sum")]
+        for dtype, rtol, atol in ((torch.float32, 1e-4, 1e-4),
+                                  (torch.bfloat16, 0.0, 1e-2)):
+            xc = x.to(dtype)
+            for influence, aggregation in modes:
+                args = (xc, nbr, rel, w, kp)
+                tail = (0.4, influence, aggregation)
+                want = kpconv.kpconv_fused_plain(*args, *tail)
+                got = kpconv.kpconv_forward(*args, *tail)
+                what = f"{case} {dtype} {influence} {aggregation}"
+                torch.testing.assert_close(
+                    got, want, rtol=rtol, msg=lambda m: f"{what}: {m}",
+                    atol=atol * want.abs().max().item())
+                assert not got[:, case[1] // 2].any(), what
+                dx_w, dw_w = kpconv.kpconv_fused_bwd_plain(*args, g, *tail)
+                dx, dw = kpconv.kpconv_backward(*args, g, *tail)
+                torch.testing.assert_close(
+                    dx, dx_w, rtol=rtol, msg=lambda m: f"dx {what}: {m}",
+                    atol=atol * dx_w.abs().max().item())
+                torch.testing.assert_close(
+                    dw, dw_w, rtol=rtol, msg=lambda m: f"dW {what}: {m}",
+                    atol=atol * dw_w.abs().max().item())
