@@ -2,13 +2,16 @@
 """Smoke test of the PyTorch port (dpcr_agb_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--profile] [--out FILE]
-                          [--only SENet14|KPConv]
+                          [--only SENet14|KPConv|SENet14-denseL0|SENet50]
 
 Phases, each printing one JSON line; any failure exits non-zero:
-  device   the card's name and power limit; builds the six CUDA kernels
+  device   the card's name and power limit; builds the eight CUDA kernels
            from dpcr_agb_tpu_torch/kernels/csrc for sm_90a (build seconds)
-Then for SENet14 and for KPConv (`--only` keeps one of them):
-  kernels  in f32 and bf16, each kernel of the model held against its plain
+Then for each configuration (`--only` keeps one of them): SENet14 with the
+sparse level 0, KPConv, SENet14 with the dense level 0 (DPCR_L0=dense,
+DPCR_STEM_MODE=zfold2d_firewall, DPCR_POOL_BWD=pallas, set around its entry
+points as a user would) and SENet50 (bottleneck blocks, sparse level 0):
+  kernels  in f32 and bf16, each kernel of the path held against its plain
            PyTorch version (stated tolerances; max|plain| beside each
            error), timed with CUDA events (median after warm-up) beside
            the plain version and one PyTorch call of the same function
@@ -16,29 +19,40 @@ Then for SENet14 and for KPConv (`--only` keeps one of them):
            the least time the card could take (bound_ms, from what this
            run's data needs). SENet14: stem_sites and max_pool_k3s2 at the
            first serving batch's shapes, stem_sites_dw and
-           max_pool_k3s2_bwd at the first train batch's. KPConv:
-           kpconv_fused and kpconv_fused_bwd on the inputs that the first
-           serving batch gives the first layer (C 3 -> 32), a level-0 layer
-           (C 16 -> 16) and the last level-4 layer (C 256 -> 256)
+           max_pool_k3s2_bwd at the first train batch's (SENet50 runs the
+           same four kernels at the same shapes: its rows are SENet14's
+           unless it runs alone). KPConv: kpconv_fused and kpconv_fused_bwd
+           on the inputs that the first serving batch gives the first
+           layer (C 3 -> 32), a level-0 layer (C 16 -> 16) and the last
+           level-4 layer (C 256 -> 256). Dense level 0: firewall_copy at
+           the stem's input and output shapes of the first serving and the
+           first train batch, from a contiguous and from a permuted
+           (NCDHW-strided) source; max_pool_k3s2 on the dense path's pool
+           input of the serving batch and max_pool_k3s2_bwd_vol on that of
+           the train batch
   serve    the full-width model (f32, then bf16): 16 synthetic plots dense
-           enough that MaxPoints binds (SENet14: V bucket 16384; KPConv: N
-           bucket 8192) served by `dpcr_agb_tpu_torch.predict.main` from a
-           port checkpoint with seeded random weights; checks 16 finite
-           prediction rows, that the model's forward kernels launched
-           during that run (KPConv: 14 kpconv_fused), and that the raw
-           outputs equal a run through the plain versions; prints plots/s
-           (KPConv: and the neighbour search's share of the forward, after
-           checking that two pyramids of the batch are bit-identical)
+           enough that MaxPoints binds (sparse-voxel nets: V bucket 16384;
+           KPConv: N bucket 8192) served by
+           `dpcr_agb_tpu_torch.predict.main` from a port checkpoint with
+           seeded random weights; checks 16 finite prediction rows, the
+           launches of that run (KPConv: 14 kpconv_fused; dense level 0:
+           firewall_copy 2, max_pool_k3s2 1, the row kernels 0), and that
+           the raw outputs equal a run through the plain versions; prints
+           plots/s (KPConv: and the neighbour search's share of the
+           forward, after checking that two pyramids of the batch are
+           bit-identical; dense level 0: and that the same checkpoint
+           served through the sparse level 0 agrees)
   train    the full-width model (f32 with TF32 off, then bf16) trained by
            `dpcr_agb_tpu_torch.train.main` for 6 steps at bs16 on the same
-           plots and their targets: 6 finite losses, every kernel of the
-           model launched in every step (KPConv: 14 kpconv_fused and 14
-           kpconv_fused_bwd); one step from one state through the kernels
-           and through the plain versions (loss, every gradient, the
-           updated parameters and BN running stats within stated
-           tolerances); train_step_ms (median of 5 steps on a device-
-           resident batch), plots/s and peak memory; then `predict.main`
-           serves the trained checkpoint (16 finite rows)
+           plots and their targets: 6 finite losses, the launches of every
+           step (KPConv: 14 kpconv_fused and 14 kpconv_fused_bwd; dense
+           level 0: firewall_copy 3, max_pool_k3s2 and
+           max_pool_k3s2_bwd_vol 1, the row kernels 0); one step from one
+           state through the kernels and through the plain versions (loss,
+           every gradient, the updated parameters and BN running stats
+           within stated tolerances); train_step_ms (median of 5 steps on
+           a device-resident batch), plots/s and peak memory; then
+           `predict.main` serves the trained checkpoint (16 finite rows)
 Then the kernels summary line, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`. Without CUDA (or without the rest of
 the repository) it exits non-zero before printing any result."""
@@ -73,6 +87,8 @@ POOL_REPLACES = "dpcr_agb_tpu/ops/pallas_pool.py:213"
 # autodiff of the row stem's patch matmul
 DW_REPLACES = "dpcr_agb_tpu/ops/sparse_stem.py:413"
 POOL_BWD_REPLACES = "dpcr_agb_tpu/ops/pallas_pool.py:251"
+FW_SRC = "dpcr_agb_tpu_torch/kernels/csrc/firewall_copy.cu"
+FW_REPLACES = "dpcr_agb_tpu/ops/dense_stem.py:103"
 KP_FWD_SRC = "dpcr_agb_tpu_torch/kernels/csrc/kpconv_fwd.cu"
 KP_BWD_SRC = "dpcr_agb_tpu_torch/kernels/csrc/kpconv_bwd.cu"
 KP_FWD_REPLACES = "dpcr_agb_tpu/ops/pallas_kpconv.py:222"
@@ -80,15 +96,41 @@ KP_BWD_REPLACES = "dpcr_agb_tpu/ops/pallas_kpconv.py:249"
 N_PLOTS = 16     # one serving batch of bench.py's size, the train batch
 DENSITY = 60.0   # points per m^2: MaxPoints binds (16000 and 6144)
 TRAIN_STEPS = 6
-# per model: the kernels serving launches, the ones training adds, and
-# where the count is fixed, the launches of each in one forward (or one
-# backward): KPCNN's 14 blocks hold one KPConv each
+# The execution modes of the sparse-voxel nets' level 0 (the JAX package's
+# variables; the port reads them when a model is built). Every path runs
+# with all five set or cleared, whatever the caller's environment holds.
+MODE_VARS = ("DPCR_L0", "DPCR_STEM_MODE", "DPCR_POOL_BWD",
+             "DPCR_SPARSE_POOL", "DPCR_POOL_FWD")
+_SPARSE_L0 = {"env": {}, "kernels": "sparse_l0",
+              "forward": ("stem_sites", "max_pool_k3s2"),
+              "backward": ("stem_sites_dw", "max_pool_k3s2_bwd"),
+              "exact": None}
+_ROW_KERNELS = {"stem_sites": 0, "stem_sites_dw": 0, "max_pool_k3s2_bwd": 0}
+# per path: the entry points' model_name, the mode variables, which
+# kernels phase it gets, the kernels serving launches and the ones training
+# adds, and where the count is fixed, the launches of each kernel in one
+# forward and in one train step (KPCNN's 14 blocks hold one KPConv each;
+# the dense level 0 copies the stem's input, its output and the output's
+# cotangent, and pools once each way)
 MODELS = {
-    "SENet14": {"forward": ("stem_sites", "max_pool_k3s2"),
-                "backward": ("stem_sites_dw", "max_pool_k3s2_bwd"),
-                "per_pass": None},
-    "KPConv": {"forward": ("kpconv_fused",),
-               "backward": ("kpconv_fused_bwd",), "per_pass": 14},
+    "SENet14": {"model_name": "SENet14", **_SPARSE_L0},
+    "KPConv": {"model_name": "KPConv", "env": {}, "kernels": "kpconv",
+               "forward": ("kpconv_fused",),
+               "backward": ("kpconv_fused_bwd",),
+               "exact": {"forward": {"kpconv_fused": 14},
+                         "step": {"kpconv_fused": 14,
+                                  "kpconv_fused_bwd": 14}}},
+    "SENet14-denseL0": {
+        "model_name": "SENet14", "kernels": "dense_l0",
+        "env": {"DPCR_L0": "dense", "DPCR_STEM_MODE": "zfold2d_firewall",
+                "DPCR_POOL_BWD": "pallas"},
+        "forward": ("firewall_copy", "max_pool_k3s2"),
+        "backward": ("max_pool_k3s2_bwd_vol",),
+        "exact": {"forward": {"firewall_copy": 2, "max_pool_k3s2": 1,
+                              "max_pool_k3s2_bwd_vol": 0, **_ROW_KERNELS},
+                  "step": {"firewall_copy": 3, "max_pool_k3s2": 1,
+                           "max_pool_k3s2_bwd_vol": 1, **_ROW_KERNELS}}},
+    "SENet50": {"model_name": "SENet50", **_SPARSE_L0},
 }
 # the KPConv layers whose inputs the kernels phase takes from the first
 # serving batch: (block, case)
@@ -116,10 +158,25 @@ STEP_TOL = {"float32": {"loss": 1e-5, "grads": 1e-4, "grad": 1e-3,
 RECORD = []
 
 
+@contextlib.contextmanager
+def mode_env(env: dict):
+    """The five mode variables set to `env` (cleared where it has none)
+    while a path's models are built; the caller's values come back after."""
+    saved = {k: os.environ.pop(k, None) for k in MODE_VARS}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
 def model_options(model_name: str) -> dict:
     """The model's `conf/models` entry at f32 and with extra_options.bf16
-    (SENet14: the bf16 flagship; KPConv: bf16 inside the fused convolution
-    only)."""
+    (the sparse-voxel nets: bf16 convs; KPConv: bf16 inside the fused
+    convolution only)."""
     from dpcr_agb_tpu_torch import train
     return {"float32": train.model_option(model_name, bf16=False),
             "bfloat16": train.model_option(model_name, bf16=True)}
@@ -158,28 +215,31 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
 
 @contextlib.contextmanager
 def plain_ops():
-    """Route the models' six kernel ops (three forward, three backward) to
-    their plain PyTorch versions (the reference runs of the serve and
-    train phases); raises if a kernel launched inside, i.e. if the
-    reference did not really take the plain path."""
+    """Route the models' eight kernel ops to their plain PyTorch versions
+    (the reference runs of the serve and train phases); raises if a kernel
+    launched inside, i.e. if the reference did not really take the plain
+    path."""
     from dpcr_agb_tpu_torch import kernels
-    from dpcr_agb_tpu_torch.ops import kpconv, pool, sparse_stem
-    saved = (sparse_stem.stem_conv_sites, sparse_stem.stem_conv_sites_dw,
-             pool.masked_max_pool, pool.masked_max_pool_bwd_rows,
-             kpconv.kpconv_forward, kpconv.kpconv_backward)
-    sparse_stem.stem_conv_sites = sparse_stem.stem_conv_sites_plain
-    sparse_stem.stem_conv_sites_dw = sparse_stem.stem_conv_sites_dw_plain
-    pool.masked_max_pool = pool.masked_max_pool_plain
-    pool.masked_max_pool_bwd_rows = pool.masked_max_pool_bwd_rows_plain
-    kpconv.kpconv_forward = kpconv.kpconv_fused_plain
-    kpconv.kpconv_backward = kpconv.kpconv_fused_bwd_plain
+    from dpcr_agb_tpu_torch.ops import dense_stem, kpconv, pool, sparse_stem
+    routes = [(sparse_stem, "stem_conv_sites", "stem_conv_sites_plain"),
+              (sparse_stem, "stem_conv_sites_dw", "stem_conv_sites_dw_plain"),
+              (pool, "masked_max_pool", "masked_max_pool_plain"),
+              (pool, "masked_max_pool_bwd_rows",
+               "masked_max_pool_bwd_rows_plain"),
+              (pool, "masked_max_pool_bwd_vol",
+               "masked_max_pool_bwd_vol_plain"),
+              (dense_stem, "firewall_copy", "firewall_copy_plain"),
+              (kpconv, "kpconv_forward", "kpconv_fused_plain"),
+              (kpconv, "kpconv_backward", "kpconv_fused_bwd_plain")]
+    saved = [getattr(mod, name) for mod, name, _ in routes]
+    for mod, name, plain in routes:
+        setattr(mod, name, getattr(mod, plain))
     before = dict(kernels.LAUNCHES)
     try:
         yield
     finally:
-        (sparse_stem.stem_conv_sites, sparse_stem.stem_conv_sites_dw,
-         pool.masked_max_pool, pool.masked_max_pool_bwd_rows,
-         kpconv.kpconv_forward, kpconv.kpconv_backward) = saved
+        for (mod, name, _), fn in zip(routes, saved):
+            setattr(mod, name, fn)
     if kernels.LAUNCHES != before:
         raise AssertionError(f"the plain reference run launched kernels: "
                              f"{before} -> {kernels.LAUNCHES}")
@@ -298,8 +358,6 @@ def phase_kernels(bundles: dict, batch, train_batch, smi: str,
     import torch
     import torch.nn.functional as F
     from dpcr_agb_tpu_torch.ops.dense_grid import scatter_to_dense
-    from dpcr_agb_tpu_torch.ops.pool import (masked_max_pool,
-                                             masked_max_pool_plain)
     from dpcr_agb_tpu_torch.ops.sparse_stem import (stem_conv_sites,
                                                     stem_conv_sites_plain)
     rows = []
@@ -377,49 +435,209 @@ def phase_kernels(bundles: dict, batch, train_batch, smi: str,
             # the full-resolution volume, as on the main path
             h_rows = net.act(net.stem_norm(got, mask)) * mask[..., None].to(dt)
             x, occ = scatter_to_dense(coords, mask, h_rows, dims)
-            got_p = masked_max_pool(x, occ)
-            want_p = masked_max_pool_plain(x, occ)
-            torch.cuda.synchronize()
-            err_p = _check_close(f"max_pool_k3s2 {dtname}", got_p, want_p,
-                                 0.0, 0.0)
-            ms_p = time_ms(lambda: masked_max_pool(x, occ))
-            plain_ms_p = time_ms(lambda: masked_max_pool_plain(x, occ))
-            filled = torch.where(occ > 0, x, torch.full((), float("-inf"),
-                                                        dtype=dt,
-                                                        device=x.device))
-            ncdhw = filled.permute(0, 4, 1, 2, 3).contiguous()
-            del filled
-            lib_ms = time_ms(lambda: F.max_pool3d(ncdhw, 3, 2, 1))
-            del ncdhw
-            # what this data needs: the occupancy, x at the occupied cells
-            # (the rest counts as -inf), all of y; one max per occupied
-            # input value in each window that holds it
-            n_occ, in_windows = pool_work(occ)
-            esz = x.element_size()
-            nbytes = (occ.numel() + n_occ * x.shape[-1] + got_p.numel()) * esz
-            t_bytes = nbytes / PEAK_BYTES * 1e3
-            t_ops = (float(in_windows) * x.shape[-1]
-                     / PEAK_FLOPS["float32"] * 1e3)
-            rows.append({
-                "name": "max_pool_k3s2", "dtype": dtname, "route": "cuda",
-                "source": POOL_SRC, "replaces": POOL_REPLACES,
-                "launches": None, "max_abs_err": err_p,
-                "max_abs_plain": _amax(want_p), "tolerance": "exact",
-                "ms": ms_p, "plain_ms": plain_ms_p,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes > t_ops else "operations",
-                "library_ms": lib_ms,
-                "library": "F.max_pool3d k3 s2 p1 on the -inf-filled NCDHW "
-                           "volume",
-                "shape": {"x": list(x.shape), "y": list(got_p.shape),
-                          "occupied_cells": n_occ,
-                          "occupied_inputs_in_windows": in_windows,
-                          "needed_bytes": nbytes},
-                "card": smi})
-            del x, occ, got_p, want_p, vol, got, want, h_rows
+            rows.append(pool_forward_row(x, occ, dtname, smi))
+            del x, occ, vol, got, want, h_rows
             torch.cuda.empty_cache()
             rows += backward_kernel_rows(net, train_batch.to(bundle.device),
                                          dtname, smi, seed)
+            torch.cuda.empty_cache()
+    for r in rows:
+        emit({"phase": "kernels", **r})
+    return rows
+
+
+def pool_forward_row(x, occ, dtname: str, smi: str, case=None) -> dict:
+    """max_pool_k3s2 on the pool input x [B,D,H,W,C] under occ against its
+    plain version (exact), timed beside `F.max_pool3d`."""
+    import torch
+    import torch.nn.functional as F
+    from dpcr_agb_tpu_torch.ops.pool import (masked_max_pool,
+                                             masked_max_pool_plain)
+    got_p = masked_max_pool(x, occ)
+    want_p = masked_max_pool_plain(x, occ)
+    torch.cuda.synchronize()
+    err_p = _check_close(f"max_pool_k3s2 {dtname}", got_p, want_p, 0.0, 0.0)
+    ms_p = time_ms(lambda: masked_max_pool(x, occ))
+    plain_ms_p = time_ms(lambda: masked_max_pool_plain(x, occ))
+    filled = torch.where(occ > 0, x, torch.full((), float("-inf"),
+                                                dtype=x.dtype,
+                                                device=x.device))
+    ncdhw = filled.permute(0, 4, 1, 2, 3).contiguous()
+    del filled
+    lib_ms = time_ms(lambda: F.max_pool3d(ncdhw, 3, 2, 1))
+    del ncdhw
+    # what this data needs: the occupancy, x at the occupied cells (the
+    # rest counts as -inf), all of y; one max per occupied input value in
+    # each window that holds it
+    n_occ, in_windows = pool_work(occ)
+    esz = x.element_size()
+    nbytes = (occ.numel() + n_occ * x.shape[-1] + got_p.numel()) * esz
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = float(in_windows) * x.shape[-1] / PEAK_FLOPS["float32"] * 1e3
+    return {
+        "name": "max_pool_k3s2", "dtype": dtname, "case": case,
+        "route": "cuda", "source": POOL_SRC, "replaces": POOL_REPLACES,
+        "launches": None, "max_abs_err": err_p,
+        "max_abs_plain": _amax(want_p), "tolerance": "exact",
+        "ms": ms_p, "plain_ms": plain_ms_p, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes > t_ops else "operations",
+        "library_ms": lib_ms,
+        "library": "F.max_pool3d k3 s2 p1 on the -inf-filled NCDHW volume",
+        "shape": {"x": list(x.shape), "y": list(got_p.shape),
+                  "occupied_cells": n_occ,
+                  "occupied_inputs_in_windows": in_windows,
+                  "needed_bytes": nbytes},
+        "card": smi}
+
+
+def _dense_pool_input(net, tb) -> tuple:
+    """The dense level 0 of `net` up to its pool, on the device batch tb:
+    (h [B,D,H,W,64] after stem conv, BN and activation, its occupancy)."""
+    from dpcr_agb_tpu_torch.ops.dense_grid import scatter_to_dense
+    h, occ = scatter_to_dense(tb.coords, tb.mask, tb.x.to(net.dtype),
+                              net.level0_dims(tb))
+    h = net.stem_conv.forward_dense(h, occ, 1, net.stem_mode)
+    b, width = h.shape[0], h.shape[-1]
+    h = net.stem_norm(h.reshape(b, -1, width),
+                      occ.reshape(b, -1) > 0).reshape(h.shape)
+    return net.act(h) * occ.to(h.dtype), occ
+
+
+def dense_l0_kernel_rows(bundles: dict, batch, train_batch, smi: str,
+                         seed: int) -> list:
+    """The dense level 0's kernels, f32 and bf16: firewall_copy at the
+    stem's input and output shapes of the first serving and the first
+    train batch, from a contiguous and from a permuted source (an NCDHW
+    buffer behind the NDHWC view, what a convolution may hand back);
+    max_pool_k3s2 on the dense path's pool input of the serving batch;
+    max_pool_k3s2_bwd_vol on that of the train batch, cotangent drawn from
+    `seed`. All exact."""
+    import torch
+    from dpcr_agb_tpu_torch.ops import dense_stem, pool
+    from dpcr_agb_tpu_torch.ops.dense_grid import occupancy_pool
+    rows = []
+    for dtname, bundle in bundles.items():
+        net, dev, dt = bundle.net, bundle.device, bundle.net.dtype
+        g = torch.Generator(device=dev).manual_seed(seed)
+        esz = torch.empty((), dtype=dt).element_size()
+        for counted_in, hb in (("serve", batch), ("train", train_batch)):
+            b = hb.mask.shape[0]
+            dims = net.level0_dims(hb)
+            for what, c in (("stem input", hb.x.shape[-1]),
+                            ("stem output", net.stem_conv.kernel.shape[-1])):
+                for layout in ("contiguous", "permuted"):
+                    if layout == "contiguous":
+                        src = torch.randn((b, *dims, c), generator=g,
+                                          device=dev).to(dt)
+                    else:
+                        src = torch.randn((b, c, *dims), generator=g,
+                                          device=dev).to(dt).permute(
+                                              0, 2, 3, 4, 1)
+                    got = dense_stem.firewall_copy(src)
+                    want = dense_stem.firewall_copy_plain(src)
+                    torch.cuda.synchronize()
+                    if not got.is_contiguous() \
+                            or got.data_ptr() == src.data_ptr():
+                        raise AssertionError("firewall_copy: not a fresh "
+                                             "contiguous tensor")
+                    err = _check_close(f"firewall_copy {what} {layout} "
+                                       f"{dtname}", got, want, 0.0, 0.0)
+                    amax = _amax(want)
+                    del got, want
+                    ms = time_ms(lambda: dense_stem.firewall_copy(src))
+                    plain_ms = time_ms(
+                        lambda: dense_stem.firewall_copy_plain(src))
+                    lib_ms = time_ms(lambda: src.clone(
+                        memory_format=torch.contiguous_format))
+                    nbytes = 2 * src.numel() * esz   # read once, write once
+                    rows.append({
+                        "name": "firewall_copy", "dtype": dtname,
+                        "case": f"{what}, {counted_in} batch, {layout} "
+                                f"source",
+                        "counted_in": counted_in, "route": "cuda",
+                        "source": FW_SRC, "replaces": FW_REPLACES,
+                        "launches": None, "max_abs_err": err,
+                        "max_abs_plain": amax, "tolerance": "exact",
+                        "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": nbytes / PEAK_BYTES * 1e3,
+                        "bound_by": "bytes", "library_ms": lib_ms,
+                        "library": "Tensor.clone(memory_format="
+                                   "contiguous_format)",
+                        "achieved_gb_per_s": nbytes / ms / 1e6,
+                        "shape": {"x": list(src.shape),
+                                  "strides": list(src.stride()),
+                                  "needed_bytes": nbytes},
+                        "card": smi})
+                    del src
+                    torch.cuda.empty_cache()
+        with torch.no_grad():
+            x, occ = _dense_pool_input(net, batch.to(dev))
+            rows.append(pool_forward_row(
+                x, occ, dtname, smi, "dense level 0, serve batch"))
+            del x, occ
+            torch.cuda.empty_cache()
+            tb = train_batch.to(dev)
+            x, occ = _dense_pool_input(net, tb)
+            occ_l = occupancy_pool(occ)
+            y = pool.pallas_max_pool(x, occ, occ_l)
+            ct = torch.randn(y.shape, generator=g, device=dev).to(dt) * occ_l
+            got = pool.masked_max_pool_bwd_vol(x, occ, y, ct)
+            want = pool.masked_max_pool_bwd_vol_plain(x, occ, y, ct)
+            torch.cuda.synchronize()
+            err = _check_close(f"max_pool_k3s2_bwd_vol {dtname}", got, want,
+                               0.0, 0.0)
+            amax, nonzero = _amax(want), int((got != 0).sum())
+            del want
+            ms = time_ms(lambda: pool.masked_max_pool_bwd_vol(x, occ, y, ct))
+            plain_ms = time_ms(lambda: pool.masked_max_pool_bwd_vol_plain(
+                x, occ, y, ct), n=3, warmup=1)
+            # yardstick (time only: it routes a tie to one cell): aten's
+            # max_pool3d backward on the -inf-filled NCDHW volume
+            filled = torch.where(occ > 0, x, torch.full(
+                (), float("-inf"), dtype=dt, device=dev))
+            x_nc = filled.permute(0, 4, 1, 2, 3).contiguous()
+            del filled, got
+            _, idx = torch.nn.functional.max_pool3d(x_nc, 3, 2, 1,
+                                                    return_indices=True)
+            ct_nc = ct.permute(0, 4, 1, 2, 3).contiguous()
+            aten_bwd = torch.ops.aten.max_pool3d_with_indices_backward
+            lib_ms = time_ms(lambda: aten_bwd(
+                ct_nc, x_nc, [3, 3, 3], [2, 2, 2], [1, 1, 1], [1, 1, 1],
+                False, idx), n=5, warmup=1)
+            del x_nc, ct_nc, idx
+            torch.cuda.empty_cache()
+            # what this data needs: the occupancy of every cell and dx
+            # written once; x at the occupied cells, y and ct at the
+            # distinct outputs that cover them; a compare and an add per
+            # (occupied cell, covering output, channel)
+            c = x.shape[-1]
+            flat, valid = pool._pool_parents(tb.coords, tb.mask,
+                                             net.level0_dims(tb))
+            n_occ = int((occ > 0).sum())
+            n_links = int(valid.sum())
+            n_parents = int(torch.unique(flat[valid]).numel())
+            nbytes = (occ.numel() + n_occ * c + 2 * n_parents * c
+                      + x.numel()) * esz
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            t_ops = 2.0 * n_links * c / PEAK_FLOPS["float32"] * 1e3
+            rows.append({
+                "name": "max_pool_k3s2_bwd_vol", "dtype": dtname,
+                "case": "dense level 0, train batch", "route": "cuda",
+                "source": POOL_BWD_SRC, "replaces": POOL_BWD_REPLACES,
+                "launches": None, "max_abs_err": err, "max_abs_plain": amax,
+                "tolerance": "exact", "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                "library_ms": lib_ms,
+                "library": "aten.max_pool3d_with_indices_backward on the "
+                           "-inf-filled NCDHW volume (one cell per tie)",
+                "shape": {"x": list(x.shape), "y": list(y.shape),
+                          "occupied_cells": n_occ,
+                          "cell_output_links": n_links,
+                          "outputs_read": n_parents, "nonzero_dx": nonzero,
+                          "needed_bytes": nbytes},
+                "card": smi})
+            del x, occ, occ_l, y, ct, tb
             torch.cuda.empty_cache()
     for r in rows:
         emit({"phase": "kernels", **r})
@@ -728,31 +946,35 @@ def batch_facts(net, batch) -> dict:
             "level_caps": net.level_caps(int(batch.mask.shape[1]))}
 
 
-def check_launches(what: str, model_name: str, launches: dict, names: tuple,
-                   passes: int) -> None:
-    """Every kernel in `names` launched; where the model fixes the count,
-    exactly `per_pass` times in each of the `passes` passes."""
-    per_pass = MODELS[model_name]["per_pass"]
-    for k in names:
-        ok = launches[k] >= 1 if per_pass is None \
-            else launches[k] == per_pass * passes
-        if not ok:
-            raise AssertionError(
-                f"{what}: kernel {k} launched {launches[k]} times on the "
-                f"main path (expected "
-                f"{'at least 1' if per_pass is None else per_pass * passes})"
-                f": {launches}")
+def check_launches(what: str, key: str, launches: dict, part: str) -> None:
+    """The launches of one forward (`part` "forward") or one train step
+    ("step") of path `key`: each of its kernels at least once, and where
+    the path fixes the counts, exactly those."""
+    spec = MODELS[key]
+    exact = spec["exact"]
+    names = spec["forward"] + (spec["backward"] if part == "step" else ())
+    if exact is None:
+        bad = {k: launches[k] for k in names if launches[k] < 1}
+        expected = "at least 1 of each"
+    else:
+        bad = {k: launches[k] for k, n in exact[part].items()
+               if launches[k] != n}
+        expected = exact[part]
+    if bad:
+        raise AssertionError(f"{what}: launches {bad} on the main path "
+                             f"(expected {expected}): {launches}")
 
 
-def phase_serve(model_name: str, dtname: str, ckpt: str, plot_dir: str,
+def phase_serve(key: str, dtname: str, ckpt: str, plot_dir: str,
                 out_dir: str, smi: str, with_profile: bool = False) -> dict:
     import torch
     from dpcr_agb_tpu_torch import kernels, predict
-    out_csv = os.path.join(out_dir, f"preds_{model_name}_{dtname}.csv")
+    model_name = MODELS[key]["model_name"]
+    out_csv = os.path.join(out_dir, f"preds_{key}_{dtname}.csv")
     args = [f"checkpoint_dir={ckpt}", f"model_name={model_name}",
             f"input={plot_dir}/*.npz", f"output={out_csv}",
             f"batch_size={N_PLOTS}"]
-    what = f"serve {model_name} {dtname}"
+    what = f"serve {key} {dtname}"
     kernels.reset_launches()
     t0 = time.perf_counter()
     predict.main(args)
@@ -760,8 +982,7 @@ def phase_serve(model_name: str, dtname: str, ckpt: str, plot_dir: str,
     main_seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     # N_PLOTS plots at batch_size N_PLOTS: one forward
-    check_launches(what, model_name, launches, MODELS[model_name]["forward"],
-                   passes=1)
+    check_launches(what, key, launches, "forward")
     check_predictions(out_csv, what)
 
     # the same batch through the kernels and through the plain versions
@@ -793,6 +1014,21 @@ def phase_serve(model_name: str, dtname: str, ckpt: str, plot_dir: str,
             times.append(time.perf_counter() - t)
     fwd = statistics.median(times)
     extra = {}
+    if MODELS[key]["kernels"] == "dense_l0":
+        # the same checkpoint through the sparse level 0 (no mode set)
+        with mode_env({}):
+            sparse = predict.load_serving_bundle(ckpt, model_name)
+        if not sparse.net.sparse_level0 or bundle.net.sparse_level0:
+            raise AssertionError(f"{what}: level-0 forms not as set")
+        raw_sparse = predict.forward_raw(sparse, batch).float()
+        rel = 1e-3 if dtname == "float32" else 5e-2
+        extra = {"sparse_level0_max_abs_err": _check_close(
+                     f"{what} against the sparse level 0", raw, raw_sparse,
+                     0.0, rel * _amax(raw_sparse)),
+                 "sparse_level0_tolerance": f"atol {rel} * max|sparse|",
+                 "modes": {k: getattr(bundle.net, k) for k in (
+                     "l0_mode", "stem_mode", "pool_bwd")}}
+        del sparse, raw_sparse
     if hasattr(bundle.net, "device_pyramid"):
         # the neighbour search runs in every forward: its share of it,
         # and that one cloud always gives one pyramid (no atomics in it)
@@ -815,13 +1051,14 @@ def phase_serve(model_name: str, dtname: str, ckpt: str, plot_dir: str,
     torch.cuda.reset_peak_memory_stats()
     predict.forward_raw(bundle, batch)
     torch.cuda.synchronize()
-    out = {"phase": "serve", "model": model_name, "dtype": dtname,
+    out = {"phase": "serve", "model": key, "dtype": dtname,
            "plots": N_PLOTS, **batch_facts(bundle.net, batch),
            "launches": launches, "predict_main_seconds": main_seconds,
            "raw_max_abs_err_vs_plain": err,
            "raw_max_abs_plain": _amax(raw_plain), "tolerance": tol,
            "forward_ms": fwd * 1e3, "plots_per_s": N_PLOTS / fwd, **extra,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
            "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                     "matmul": torch.backends.cuda.matmul.allow_tf32},
            "profile": profile, "card": smi}
@@ -932,26 +1169,27 @@ def compare_train_steps(run, batch, dtname: str, tols: dict,
     return out
 
 
-def phase_train(model_name: str, dtname: str, plot_dir: str, out_dir: str,
+def phase_train(key: str, dtname: str, plot_dir: str, out_dir: str,
                 smi: str, seed: int, with_profile: bool = False) -> dict:
     import torch
     from dpcr_agb_tpu_torch import kernels, predict, train
     from dpcr_agb_tpu_torch.training.step import StepRunner
+    model_name = MODELS[key]["model_name"]
     bf16 = dtname == "bfloat16"
-    what = f"train {model_name} {dtname}"
-    ckpt = os.path.join(out_dir, f"trained_{model_name}_{dtname}")
+    what = f"train {key} {dtname}"
+    ckpt = os.path.join(out_dir, f"trained_{key}_{dtname}")
     args = [f"input={plot_dir}/*.npz", f"checkpoint_dir={ckpt}",
             f"model_name={model_name}", f"steps={TRAIN_STEPS}",
             f"batch_size={N_PLOTS}", f"seed={seed}",
             f"bf16={str(bf16).lower()}"]
-    mine = MODELS[model_name]["forward"] + MODELS[model_name]["backward"]
     # each step's launches, read around StepRunner.train
     per_step, unwrapped = [], StepRunner.train
 
     def counted(self, batch):
         before = dict(kernels.LAUNCHES)
         out = unwrapped(self, batch)
-        per_step.append({k: kernels.LAUNCHES[k] - before[k] for k in mine})
+        per_step.append({k: n - before[k]
+                         for k, n in kernels.LAUNCHES.items()})
         return out
 
     kernels.reset_launches()
@@ -970,7 +1208,7 @@ def phase_train(model_name: str, dtname: str, plot_dir: str, out_dir: str,
     if len(per_step) != TRAIN_STEPS:
         raise AssertionError(f"{what}: {len(per_step)} steps counted")
     for i, step in enumerate(per_step):
-        check_launches(f"{what} step {i}", model_name, step, mine, passes=1)
+        check_launches(f"{what} step {i}", key, step, "step")
 
     # one step from one state through the kernels and the plain versions
     files = sorted(glob.glob(os.path.join(plot_dir, "*.npz")))
@@ -979,7 +1217,7 @@ def phase_train(model_name: str, dtname: str, plot_dir: str, out_dir: str,
     host_batch = run.stream.next()
     batch = host_batch.to(run.runner.device)
     compared = compare_train_steps(
-        run, batch, dtname, STEP_TOL, conditioning=model_name == "KPConv")
+        run, batch, dtname, STEP_TOL, conditioning=key == "KPConv")
 
     # step time on the device-resident batch
     runner = run.runner
@@ -996,24 +1234,26 @@ def phase_train(model_name: str, dtname: str, plot_dir: str, out_dir: str,
     runner.train(batch)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 1e9
+    reserved = torch.cuda.max_memory_reserved() / 1e9
     profile = device_profile(lambda: runner.train(batch)) \
         if with_profile else None
     facts = batch_facts(runner.net, host_batch)
     del run, runner
     torch.cuda.empty_cache()
 
-    out_csv = os.path.join(out_dir, f"preds_trained_{model_name}_{dtname}.csv")
+    out_csv = os.path.join(out_dir, f"preds_trained_{key}_{dtname}.csv")
     predict.main([f"checkpoint_dir={ckpt}", f"model_name={model_name}",
                   f"input={plot_dir}/*.npz", f"output={out_csv}",
                   f"batch_size={N_PLOTS}"])
     check_predictions(out_csv, f"{what}: serving the checkpoint")
-    out = {"phase": "train", "model": model_name, "dtype": dtname,
+    out = {"phase": "train", "model": key, "dtype": dtname,
            "plots": N_PLOTS, "steps": TRAIN_STEPS, "losses": losses,
            "launches": launches, "launches_per_step": per_step,
            "train_main_seconds": main_seconds, **facts,
            "kernel_vs_plain_step": compared,
            "train_step_ms": step_s * 1e3, "plots_per_s": N_PLOTS / step_s,
-           "peak_mem_gb": peak, "served_trained_checkpoint": N_PLOTS,
+           "peak_mem_gb": peak, "peak_reserved_gb": reserved,
+           "served_trained_checkpoint": N_PLOTS,
            "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                     "matmul": torch.backends.cuda.matmul.allow_tf32},
            "profile": profile, "card": smi}
@@ -1062,51 +1302,68 @@ def device_profile(fn, reps: int = 3) -> dict:
             "port_kernels_ms_per_rep": sum(r["ms_per_rep"] for r in own)}
 
 
-def run_model(model_name: str, tmp: str, plot_dir: str, smi: str, seed: int,
-              with_profile: bool) -> list:
-    """The kernels, serve and train phases of one model; returns its kernel
-    rows with the launches each read from the path it serves."""
+def run_model(key: str, tmp: str, plot_dir: str, smi: str, seed: int,
+              with_profile: bool, have: list) -> list:
+    """The kernels, serve and train phases of one path, with its mode
+    variables set; returns its new kernel rows, and writes the launches it
+    read into them and into the rows of `have` that it shares."""
     import torch
     from dpcr_agb_tpu_torch import predict, train
-    ckpts = {k: make_checkpoint(tmp, f"ckpt_{model_name}_{k}", model_name, o,
-                                seed)
+    spec = MODELS[key]
+    model_name = spec["model_name"]
+    ckpts = {k: make_checkpoint(tmp, f"ckpt_{key}_{k}", model_name, o, seed)
              for k, o in model_options(model_name).items()}
     bundles = {k: predict.load_serving_bundle(c, model_name)
                for k, c in ckpts.items()}
     files = sorted(glob.glob(os.path.join(plot_dir, "*.npz")))
     samples, _ = predict.load_samples(bundles["float32"], files)
     (batch, _), = predict.make_batches(bundles["float32"], samples, N_PLOTS)
-    emit({"phase": "data", "model": model_name, "plots": N_PLOTS,
+    emit({"phase": "data", "model": key, "plots": N_PLOTS,
           "raw_points_per_plot": [int(np.load(f)["pos"].shape[0])
                                   for f in files],
           "rows_per_plot": [int(s["pos"].shape[0]) for s in samples],
           **batch_facts(bundles["float32"].net, batch)})
-    if model_name == "SENet14":
-        # the first batch that train.main draws from these plots
-        train_batch = train.setup(files, batch_size=N_PLOTS,
-                                  seed=seed).stream.next()
-        emit({"phase": "data", "model": model_name, "train_batch": True,
-              **batch_facts(bundles["float32"].net, train_batch)})
-        krows = phase_kernels(bundles, batch, train_batch, smi, seed)
-    else:
+    # rows that an earlier path of the same kind measured at these shapes
+    shared = [r for r in have if r["kernels_phase"] == spec["kernels"]]
+    if spec["kernels"] == "kpconv":
         krows = phase_kpconv_kernels(bundles["float32"], batch, smi, seed)
+    elif shared:
+        krows = []      # the same kernels at the same shapes: timed already
+    else:
+        # the first batch that train.main draws from these plots
+        train_batch = train.setup(files, model_name, batch_size=N_PLOTS,
+                                  seed=seed).stream.next()
+        emit({"phase": "data", "model": key, "train_batch": True,
+              **batch_facts(bundles["float32"].net, train_batch)})
+        phase = dense_l0_kernel_rows if spec["kernels"] == "dense_l0" \
+            else phase_kernels
+        krows = phase(bundles, batch, train_batch, smi, seed)
+    for r in krows:
+        r["kernels_phase"] = spec["kernels"]
     del bundles
     torch.cuda.empty_cache()
+
+    def record(result: dict, counted_in: str) -> None:
+        """The launches that `result`'s run read, into the rows measured
+        at that run's shapes (forward kernels: the serving batch's, unless
+        the row says it was taken at the train batch's)."""
+        for r in krows + shared:
+            default = "serve" if r["name"] in spec["forward"] else "train"
+            if r["dtype"] != result["dtype"] \
+                    or r.get("counted_in", default) != counted_in:
+                continue
+            n = result["launches"][r["name"]]
+            r.setdefault("launches_by_path", {})[key] = n
+            if r["launches"] is None:
+                r["launches"] = n
+
     for dtname, ckpt in ckpts.items():
-        s = phase_serve(model_name, dtname, ckpt, plot_dir, tmp, smi,
-                        with_profile)
-        for r in krows:
-            if r["dtype"] == dtname \
-                    and r["name"] in MODELS[model_name]["forward"]:
-                r["launches"] = s["launches"][r["name"]]
+        record(phase_serve(key, dtname, ckpt, plot_dir, tmp, smi,
+                           with_profile), "serve")
         torch.cuda.empty_cache()
     for dtname in ckpts:
-        t = phase_train(model_name, dtname, plot_dir, tmp, smi, seed,
-                        with_profile)
-        for r in krows:
-            if r["dtype"] == dtname \
-                    and r["name"] in MODELS[model_name]["backward"]:
-                r["launches"] = t["launches"][r["name"]]
+        record(phase_train(key, dtname, plot_dir, tmp, smi, seed,
+                           with_profile), "train")
         torch.cuda.empty_cache()
     return krows
 
@@ -1120,8 +1377,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every phase's JSON to this file")
     ap.add_argument("--only", choices=sorted(MODELS), default=None,
-                    help="run the phases of one model only (all six kernels "
-                         "are built either way)")
+                    help="run the phases of one path only (all eight "
+                         "kernels are built either way)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1145,17 +1402,23 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         plot_dir = os.path.join(tmp, "plots")
         write_plots(plot_dir, N_PLOTS, args.seed, DENSITY)
-        for model_name in MODELS:
-            if args.only in (None, model_name):
+        for key, spec in MODELS.items():
+            if args.only in (None, key):
                 t_model = time.perf_counter()
-                krows += run_model(model_name, tmp, plot_dir, smi, args.seed,
-                                   args.profile)
-                emit({"phase": "model", "model": model_name,
+                with mode_env(spec["env"]):
+                    krows += run_model(key, tmp, plot_dir, smi, args.seed,
+                                       args.profile, krows)
+                emit({"phase": "model", "model": key,
                       "seconds": time.perf_counter() - t_model})
+    missing = [f"{r['name']} {r['dtype']} {r.get('case') or ''}"
+               for r in krows if not r["launches"]]
+    if missing:
+        raise AssertionError(f"kernels never launched on a main path: "
+                             f"{missing}")
     summary = {"kernels": [{k: r.get(k) for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dtype",
-        "case", "max_abs_plain")} for r in krows]}
+        "case", "max_abs_plain", "launches_by_path")} for r in krows]}
     RECORD.append({"total_seconds": time.perf_counter() - t_start})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -14,7 +14,8 @@ import torch
 from . import build
 
 LAUNCHES = {"stem_sites": 0, "max_pool_k3s2": 0, "stem_sites_dw": 0,
-            "max_pool_k3s2_bwd": 0, "kpconv_fused": 0, "kpconv_fused_bwd": 0}
+            "max_pool_k3s2_bwd": 0, "kpconv_fused": 0, "kpconv_fused_bwd": 0,
+            "firewall_copy": 0, "max_pool_k3s2_bwd_vol": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INFLUENCE_CODE = {"linear": 0, "gaussian": 1, "constant": 2}
@@ -195,6 +196,72 @@ def max_pool_k3s2_bwd(coords: torch.Tensor, mask: torch.Tensor,
     _check_rc(rc, "max_pool_k3s2_bwd")
     LAUNCHES["max_pool_k3s2_bwd"] += 1
     return dx
+
+
+def max_pool_k3s2_bwd_vol(x: torch.Tensor, occ_in: torch.Tensor,
+                          y: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+    """Volume-form backward of the masked k3/s2 max pool: x [B,D,H,W,C],
+    its occupancy occ_in [B,D,H,W,1], the pooled y and the cotangent ct
+    [B,d1,h1,w1,C] (zero at unoccupied outputs already), all of x's dtype
+    -> dx [B,D,H,W,C]: each occupied input cell gets the f32 sum of ct over
+    the covering outputs whose y equals its value, every other cell 0."""
+    if not x.is_cuda:
+        raise ValueError("max_pool_k3s2_bwd_vol takes CUDA tensors")
+    dev, dt = x.device, x.dtype
+    if dt not in _DTYPE_CODE:
+        raise ValueError(f"max_pool_k3s2_bwd_vol: unsupported dtype {dt}")
+    for t, what in ((x, "x"), (occ_in, "occ_in"), (y, "y"), (ct, "ct")):
+        _require(t, what, dt, 5, dev)
+    b, d, h, w, c = x.shape
+    l1 = (b, -(-d // 2), -(-h // 2), -(-w // 2), c)
+    if occ_in.shape != (b, d, h, w, 1) or y.shape != l1 or ct.shape != l1:
+        raise ValueError(
+            f"max_pool_k3s2_bwd_vol: shapes x {tuple(x.shape)}, occ_in "
+            f"{tuple(occ_in.shape)}, y {tuple(y.shape)}, ct "
+            f"{tuple(ct.shape)}")
+    if any(t.data_ptr() % 16 for t in (x, y, ct)) \
+            or (c * x.element_size()) % 16:
+        raise ValueError("max_pool_k3s2_bwd_vol: x, y and ct must be 16-byte "
+                         "aligned with C a whole number of 16-byte channel "
+                         "groups")
+    dx = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        rc = build.entry("max_pool_bwd_vol")(
+            _DTYPE_CODE[dt], x.data_ptr(), occ_in.data_ptr(), y.data_ptr(),
+            ct.data_ptr(), dx.data_ptr(), b, d, h, w, c, _stream(dev))
+    _check_rc(rc, "max_pool_k3s2_bwd_vol")
+    LAUNCHES["max_pool_k3s2_bwd_vol"] += 1
+    return dx
+
+
+def firewall_copy(x: torch.Tensor) -> torch.Tensor:
+    """A fresh tensor with x's values, contiguous in x's logical order,
+    whatever x's strides: x of 1 to 5 dimensions and a 2- or 4-byte dtype.
+    The kernel reads through the strides itself; nothing is made contiguous
+    beforehand."""
+    if not x.is_cuda:
+        raise ValueError("firewall_copy takes CUDA tensors")
+    if x.element_size() not in (2, 4) or x.is_complex():
+        raise ValueError(f"firewall_copy: unsupported dtype {x.dtype} (2- "
+                         f"and 4-byte element types)")
+    if not 1 <= x.dim() <= 5:
+        raise ValueError(f"firewall_copy: {x.dim()} dimensions (1 to 5)")
+    if x.data_ptr() % x.element_size():
+        raise ValueError("firewall_copy: x is not aligned to its element "
+                         "size")
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return out
+    pad = 5 - x.dim()
+    sizes = [1] * pad + list(x.shape)
+    strides = [0] * pad + list(x.stride())
+    with torch.cuda.device(x.device):
+        rc = build.entry("firewall_copy")(
+            x.element_size(), x.data_ptr(), out.data_ptr(), *sizes, *strides,
+            _stream(x.device))
+    _check_rc(rc, "firewall_copy")
+    LAUNCHES["firewall_copy"] += 1
+    return out
 
 
 def _kpconv_args(name: str, x, nbr, rel, weights, kernel_points,

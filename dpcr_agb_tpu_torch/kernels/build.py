@@ -1,8 +1,9 @@
 """Builds the port's CUDA kernels and binds them with ctypes.
 
-Each `csrc/*.cu` file has a plain C entry point and is compiled by `nvcc`
-for `sm_90a` into its own shared library under `build/torch_ext/` at the
-repository root (listed in .gitignore). All missing libraries are compiled
+Each `csrc/*.cu` file has plain C entry points (one, or two that share
+their routing code) and is compiled by `nvcc` for `sm_90a` into its own
+shared library under `build/torch_ext/` at the repository root (listed in
+.gitignore). All missing libraries are compiled
 at once, one `nvcc` process per source. A library's file name carries a
 hash of its sources, flags and `nvcc --version`, so an edited source or
 another toolkit rebuilds it and an unchanged one is reused. Nothing is compiled at import time: the first
@@ -30,7 +31,9 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# library -> (source, C entry point, argtypes)
+_L = ctypes.c_longlong
+# entry -> (source, C entry point, argtypes); entries of one source share
+# its library
 LIBRARIES = {
     "stem_sites": ("stem_sites.cu", "stem_sites_launch",
                    [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -48,6 +51,10 @@ LIBRARIES = {
     "kpconv_bwd": ("kpconv_bwd.cu", "kpconv_fused_bwd_launch",
                    [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _I, _I, _I, _F, _I, _I, _P]),
+    "max_pool_bwd_vol": ("max_pool_bwd.cu", "max_pool_k3s2_bwd_vol_launch",
+                         [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "firewall_copy": ("firewall_copy.cu", "firewall_copy_launch",
+                      [_I, _P, _P, *[_L] * 10, _P]),
 }
 
 _ENTRY: Dict[str, object] = {}
@@ -79,41 +86,44 @@ def library_path(name: str) -> Path:
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(ptxas_verbose: bool = False) -> Dict[str, dict]:
     """Compile every library that is not built yet, all in parallel.
-    Returns {name: {"seconds", "cached", "log"}}; raises with nvcc's output
-    when a compile fails."""
+    Returns {entry: {"seconds", "cached", "log"}}; raises with nvcc's
+    output when a compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs, report = {}, {}
+    paths = {name: library_path(name) for name in LIBRARIES}
     for name, (source, _, _) in LIBRARIES.items():
-        path = library_path(name)
+        path = paths[name]
+        if path in procs:
+            continue
         if path.exists():
-            report[name] = {"seconds": 0.0, "cached": True, "log": ""}
+            report[path] = {"seconds": 0.0, "cached": True, "log": ""}
             continue
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if ptxas_verbose
                                       else []),
                "-o", str(tmp), str(CSRC / source)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[path] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
-                       tmp, path)
+                       tmp, source)
     failed = []
-    for name, (proc, tmp, path) in procs.items():
+    for path, (proc, tmp, source) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name} (rc {proc.returncode}):\n"
-                          f"{log}")
+            failed.append(f"nvcc failed for {source} (rc {proc.returncode})"
+                          f":\n{log}")
             continue
         os.replace(tmp, path)
-        report[name] = {"seconds": time.perf_counter() - t0, "cached": False,
+        report[path] = {"seconds": time.perf_counter() - t0, "cached": False,
                         "log": log}
     if failed:
         raise RuntimeError("\n".join(failed))
-    return report
+    return {name: report[path] for name, path in paths.items()}
 
 
 def entry(name: str):

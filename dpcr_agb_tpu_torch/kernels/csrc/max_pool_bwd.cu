@@ -1,5 +1,10 @@
-// max_pool_k3s2_bwd: the equality-routed backward of the masked Minkowski
-// MaxPool (kernel 3, stride 2), in row form.
+// max_pool_k3s2_bwd and max_pool_k3s2_bwd_vol: the equality-routed backward
+// of the masked Minkowski MaxPool (kernel 3, stride 2), in row form and in
+// volume form. Both route alike: an input cell x lies in the window of the
+// level-1 cells u with |x - 2u|_inf <= 1, and gets the full cotangent of
+// each of them whose max it equals.
+//
+// ---- row form ----
 //
 // Replaces: the Pallas backward kernel _bwd_kernel of
 // dpcr_agb_tpu/ops/pallas_pool.py (called through _bwd_call and the VJP of
@@ -107,6 +112,108 @@ static int launch(const void* coords, const void* mask, const void* h,
   return (int)cudaGetLastError();
 }
 
+// ---- volume form ----
+//
+// Replaces: the same Pallas kernel _bwd_kernel as it is called by the VJP
+// of pallas_max_pool (dpcr_agb_tpu/ops/pallas_pool.py _pool_bwd): volume
+// in, volume out. The dense level 0 pools the full-resolution activation
+// x [B,D,H,W,C] under its occupancy; at first_stride 2 that occupancy is a
+// pooled one with no row list, so the row form does not apply. For each
+// input cell and channel,
+//   dx[cell, c] = occ_in[cell] > 0 ?
+//       sum over the covering outputs u with y[u, c] == x[cell, c] of
+//       ct[u, c] : 0
+// with u_a in {x_a/2, and (x_a+1)/2 when x_a is odd and inside the level-1
+// extent}. The sum is taken in f32 in the TPU kernel's order (each first-
+// axis parent's up to four terms summed alone, second axis outside the
+// third, the lower parent first; then the two partial sums added), written
+// in x's dtype. ct arrives masked by the output occupancy, as in the reference;
+// the reference's dx * (occ_in > 0) is folded in here.
+//
+// What bounds it on an H100: bytes, and nearly all of them the write of dx
+// (3.30 GB in f32 at [16,88,88,104,64]): about 1% of the level-0 cells are
+// occupied, and only those read x, y and ct.
+//
+// Design: one thread per (input cell, 16-byte channel group), groups
+// innermost. An unoccupied cell stores zeros without reading x. No atomics
+// and no shared memory: each output value is owned by one thread, so the
+// result equals the plain version exactly.
+template <typename T, int VEC>
+__global__ void max_pool_k3s2_bwd_vol_kernel(
+    const T* __restrict__ x, const T* __restrict__ occ_in,
+    const T* __restrict__ y, const T* __restrict__ ct, T* __restrict__ dx,
+    int B, int D, int H, int W, int C) {
+  using P = Pack<T, VEC>;
+  const int D1 = (D + 1) / 2, H1 = (H + 1) / 2, W1 = (W + 1) / 2;
+  const int groups = C / VEC;
+  const long long total = (long long)B * D * H * W * groups;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < total; idx += step) {
+    const int g = (int)(idx % groups);
+    const long long cell = idx / groups;
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    if (to_float(occ_in[cell]) > 0.f) {
+      long long t = cell;
+      const int cz = (int)(t % W);
+      t /= W;
+      const int cy = (int)(t % H);
+      t /= H;
+      const int cx = (int)(t % D);
+      const long long b = t / D;
+      const P xv = *reinterpret_cast<const P*>(x + cell * C + g * VEC);
+      // per axis: the lower parent always covers; the upper one is another
+      // cell only for an odd coordinate, and exists only inside the extent
+      const int nx = ((cx & 1) && ((cx + 1) >> 1) < D1) ? 2 : 1;
+      const int ny = ((cy & 1) && ((cy + 1) >> 1) < H1) ? 2 : 1;
+      const int nz = ((cz & 1) && ((cz + 1) >> 1) < W1) ? 2 : 1;
+      for (int tx = 0; tx < nx; ++tx) {
+        float part[VEC];  // this first-axis parent's plane, summed alone
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) part[e] = 0.f;
+        for (int ty = 0; ty < ny; ++ty)
+          for (int tz = 0; tz < nz; ++tz) {
+            const size_t u = (((size_t)b * D1 + ((cx + tx) >> 1)) * H1 +
+                              ((cy + ty) >> 1)) * W1 + ((cz + tz) >> 1);
+            const P yv = *reinterpret_cast<const P*>(y + u * C + g * VEC);
+            const P cv = *reinterpret_cast<const P*>(ct + u * C + g * VEC);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              if (to_float(yv.v[e]) == to_float(xv.v[e]))
+                part[e] += to_float(cv.v[e]);
+          }
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] += part[e];
+      }
+    }
+    P out;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) out.v[e] = from_float<T>(acc[e]);
+    *reinterpret_cast<P*>(dx + idx * VEC) = out;
+  }
+}
+
+template <typename T>
+static int launch_vol(const void* x, const void* occ_in, const void* y,
+                      const void* ct, void* dx, int B, int D, int H, int W,
+                      int C, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);  // 16-byte channel groups
+  if (C % VEC != 0) return kBadShape;
+  const long long total = (long long)B * D * H * W * (C / VEC);
+  if (total == 0) return 0;
+  const int threads = 256;
+  long long blocks = (total + threads - 1) / threads;
+  if (blocks > (1LL << 30)) blocks = 1LL << 30;  // grid-stride beyond this
+  max_pool_k3s2_bwd_vol_kernel<T, VEC>
+      <<<(unsigned)blocks, threads, 0, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(occ_in),
+          static_cast<const T*>(y), static_cast<const T*>(ct),
+          static_cast<T*>(dx), B, D, H, W, C);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace dpcr
 
 // coords [B,V,3] int32, mask [B,V] uint8, h [B,V,C], y and ct
@@ -129,5 +236,25 @@ extern "C" int max_pool_k3s2_bwd_launch(int dtype, const void* coords,
   if (dtype == dpcr::kBFloat16)
     return dpcr::launch<__nv_bfloat16>(coords, mask, h, y, occ_l, ct, dx, B,
                                        V, D, H, W, C, s);
+  return dpcr::kBadDType;
+}
+
+// x and dx [B,D,H,W,C], occ_in [B,D,H,W,1] (>0 = occupied), y and ct
+// [B,ceil(D/2),ceil(H/2),ceil(W/2),C] with ct already zero at unoccupied
+// outputs; all contiguous and of one dtype, x/y/ct/dx 16-byte aligned, C a
+// whole number of 16-byte groups (4 f32 or 8 bf16 values).
+// Returns 0 on success, a CUDA error code, or a negative dpcr::ArgError.
+extern "C" int max_pool_k3s2_bwd_vol_launch(int dtype, const void* x,
+                                            const void* occ_in, const void* y,
+                                            const void* ct, void* dx, int B,
+                                            int D, int H, int W, int C,
+                                            void* stream) {
+  if (B < 0 || D < 1 || H < 1 || W < 1 || C < 1) return dpcr::kBadShape;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == dpcr::kFloat32)
+    return dpcr::launch_vol<float>(x, occ_in, y, ct, dx, B, D, H, W, C, s);
+  if (dtype == dpcr::kBFloat16)
+    return dpcr::launch_vol<__nv_bfloat16>(x, occ_in, y, ct, dx, B, D, H, W,
+                                           C, s);
   return dpcr::kBadDType;
 }

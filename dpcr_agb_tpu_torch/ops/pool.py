@@ -1,16 +1,20 @@
-"""The masked Minkowski MaxPool (kernel 3, stride 2) of the stem rows, forward
-and backward (counterpart of `pallas_max_pool` in `dpcr_agb_tpu/ops/
-pallas_pool.py` and of `pooled_rows_fused` in `dpcr_agb_tpu/ops/
-sparse_stem.py`).
+"""The masked Minkowski MaxPool (kernel 3, stride 2), forward and backward,
+of the stem rows and of a whole volume (counterpart of `pallas_max_pool` in
+`dpcr_agb_tpu/ops/pallas_pool.py`, of `pooled_rows_fused` in
+`dpcr_agb_tpu/ops/sparse_stem.py` and of `manual_max_pool` in
+`dpcr_agb_tpu/ops/dense_stem.py`).
 
 Output cell u is the max over the inputs {2u-1, 2u, 2u+1}^3 with empty or
 out-of-range inputs excluded (-inf), zeroed where the pooled occupancy is 0
 (no occupied child in {2u, 2u+1}^3). The backward routes the cotangent of
 each occupied output cell to every input that equals its max (ties get
 the full cotangent each), in row space: each row gathers its 1..8 parent
-cells. On CUDA tensors `masked_max_pool` and `masked_max_pool_bwd_rows`
-launch the hand-written `max_pool_k3s2` and `max_pool_k3s2_bwd` kernels;
-on CPU tensors they run their plain versions."""
+cells. The volume form (`pallas_max_pool`, the dense level 0) routes alike
+for every input cell of the volume. On CUDA tensors `masked_max_pool`,
+`masked_max_pool_bwd_rows` and `masked_max_pool_bwd_vol` launch the
+hand-written `max_pool_k3s2`, `max_pool_k3s2_bwd` and
+`max_pool_k3s2_bwd_vol` kernels; on CPU tensors they run their plain
+versions."""
 from __future__ import annotations
 
 from typing import Sequence, Tuple
@@ -18,7 +22,10 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .dense_grid import occupancy_pool, scatter_to_dense
+from .dense_grid import (NEG_INF, dense_max_pool_xla, occupancy_pool,
+                         scatter_to_dense, windowed_max)
+
+POOL_FWD_FLAVOURS = ("dense", "separable", "scattermax")
 
 
 def masked_max_pool_plain(x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
@@ -119,15 +126,23 @@ def masked_max_pool_bwd_rows(coords: torch.Tensor, mask: torch.Tensor,
 
 
 class _PooledRows(torch.autograd.Function):
-    """Forward: scatter, occupancy_pool, masked_max_pool. Saves only
-    (coords, mask, h_rows, y, occ_l), as the JAX residuals are: the
-    full-resolution volume is freed after the forward."""
+    """Forward: the pooled level-1 volume of the rows, in one of three
+    flavours that give identical values: "dense" (scatter,
+    masked_max_pool), "separable" (scatter, three 1-D library window
+    maxes) or "scattermax" (the rows straight into the level-1 volume).
+    Saves only (coords, mask, h_rows, y, occ_l), as the JAX residuals are:
+    the full-resolution volume is freed after the forward."""
 
     @staticmethod
-    def forward(ctx, coords, mask, h_rows, dims):
-        hv, occ_v = scatter_to_dense(coords, mask, h_rows, dims)
-        y = masked_max_pool(hv, occ_v)
-        occ_l = occupancy_pool(occ_v)
+    def forward(ctx, coords, mask, h_rows, dims, flavour):
+        if flavour == "scattermax":
+            from .sparse_stem import scatter_max_pool_batch
+            y, occ_l = scatter_max_pool_batch(coords, mask, h_rows, dims)
+        else:
+            hv, occ_v = scatter_to_dense(coords, mask, h_rows, dims)
+            occ_l = occupancy_pool(occ_v)
+            y = masked_max_pool(hv, occ_v) if flavour == "dense" \
+                else dense_max_pool_xla(hv, occ_v, occ_l, separable=True)
         ctx.save_for_backward(coords, mask, h_rows, y, occ_l)
         ctx.dims = tuple(dims)
         ctx.mark_non_differentiable(occ_l)
@@ -138,14 +153,172 @@ class _PooledRows(torch.autograd.Function):
         coords, mask, h_rows, y, occ_l = ctx.saved_tensors
         dx = masked_max_pool_bwd_rows(coords, mask, h_rows, y, occ_l,
                                       ct_y.contiguous(), ctx.dims)
-        return None, None, dx, None
+        return None, None, dx, None, None
 
 
 def pooled_rows(coords: torch.Tensor, mask: torch.Tensor,
-                h_rows: torch.Tensor, dims: Sequence[int]
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                h_rows: torch.Tensor, dims: Sequence[int],
+                flavour: str = "dense") -> Tuple[torch.Tensor, torch.Tensor]:
     """Stem rows [B,V,C] -> (pooled level-1 volume [B,d1,h1,w1,C], its
-    occupancy [B,d1,h1,w1,1]), differentiable in h_rows."""
+    occupancy [B,d1,h1,w1,1]), differentiable in h_rows through the
+    row-form equality routing whatever the forward `flavour`."""
+    if flavour not in POOL_FWD_FLAVOURS:
+        raise ValueError(f"pool forward flavour {flavour!r}: one of "
+                         f"{POOL_FWD_FLAVOURS}")
     return _PooledRows.apply(coords.to(torch.int32).contiguous(),
                              mask.contiguous(), h_rows.contiguous(),
-                             tuple(int(n) for n in dims))
+                             tuple(int(n) for n in dims), flavour)
+
+
+def _cover_slots(n: int, n1: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Along one axis of extent n (level-1 extent n1): each cell's two
+    covering outputs [n,2] = (i//2, (i+1)//2), and whether each slot counts
+    [n,2]: the lower always, the upper only for an odd i inside n1."""
+    i = torch.arange(n, device=device)
+    u = torch.stack([i // 2, (i + 1) // 2], -1)
+    ok = torch.stack([torch.ones_like(i, dtype=torch.bool),
+                      (i % 2 == 1) & ((i + 1) // 2 < n1)], -1)
+    return u.clamp(max=n1 - 1), ok
+
+
+def masked_max_pool_bwd_vol_plain(x: torch.Tensor, occ_in: torch.Tensor,
+                                  y: torch.Tensor, ct: torch.Tensor
+                                  ) -> torch.Tensor:
+    """Plain PyTorch version of the `max_pool_k3s2_bwd_vol` kernel, written
+    out (not autograd of a max, which splits or picks among ties): for
+    each input cell and channel the f32 sum, over the up to 8 covering
+    outputs, of the cotangent of every output whose y equals the cell's
+    value, in the TPU kernel's order (the up to four terms of each
+    first-axis parent summed alone, lower parents first, then the two
+    partial sums added); cast to x's dtype and zero at unoccupied cells."""
+    b, d, h, w, c = x.shape
+    d1, h1, w1 = y.shape[1:4]
+    (ud, okd), (uh, okh), (uw, okw) = (
+        _cover_slots(n, n1, x.device) for n, n1 in ((d, d1), (h, h1),
+                                                    (w, w1)))
+    dx = 0.0
+    for td in range(2):
+        part = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        for th in range(2):
+            for tw in range(2):
+                pick = (slice(None), ud[:, td, None, None],
+                        uh[None, :, th, None], uw[None, None, :, tw])
+                ok = (okd[:, td, None, None] & okh[None, :, th, None]
+                      & okw[None, None, :, tw])[None, ..., None]
+                part = part + torch.where((y[pick] == x) & ok,
+                                          ct[pick].float(), 0.0)
+        dx = dx + part
+    return torch.where(occ_in > 0, dx, 0.0).to(x.dtype)
+
+
+def masked_max_pool_bwd_vol(x: torch.Tensor, occ_in: torch.Tensor,
+                            y: torch.Tensor, ct: torch.Tensor
+                            ) -> torch.Tensor:
+    """dx [B,D,H,W,C] of the pooled volume y = pool(x under occ_in) for its
+    cotangent ct [B,d1,h1,w1,C], which is zero at unoccupied outputs
+    already. The `max_pool_k3s2_bwd_vol` kernel on CUDA tensors, the plain
+    version on CPU ones."""
+    if x.is_cuda:
+        from .. import kernels
+        return kernels.max_pool_k3s2_bwd_vol(x, occ_in, y, ct)
+    return masked_max_pool_bwd_vol_plain(x, occ_in, y, ct)
+
+
+class _VolumePool(torch.autograd.Function):
+    """`pallas_max_pool`: forward `masked_max_pool` then the occ_out mask;
+    backward the volume-form equality routing of the occ_out-masked
+    cotangent. Saves (x, occ_in, occ_out, y) as the reference does."""
+
+    @staticmethod
+    def forward(ctx, x, occ_in, occ_out):
+        y = masked_max_pool(x, occ_in)
+        y = torch.where(occ_out > 0, y, torch.zeros_like(y))
+        ctx.save_for_backward(x, occ_in, occ_out, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, occ_in, occ_out, y = ctx.saved_tensors
+        ctm = torch.where(occ_out > 0, ct, torch.zeros_like(ct)).to(x.dtype)
+        return masked_max_pool_bwd_vol(x, occ_in, y, ctm.contiguous()), \
+            None, None
+
+
+def pallas_max_pool(x: torch.Tensor, occ_in: torch.Tensor,
+                    occ_out: torch.Tensor) -> torch.Tensor:
+    """The volume-form pool with the hand-written kernels both ways
+    (`dense_max_pool`'s mode "pallas"): x [B,D,H,W,C], occupancies
+    [B,D,H,W,1] and [B,ceil(D/2),ceil(H/2),ceil(W/2),1] of x's dtype ->
+    the pooled volume, zero at unoccupied outputs; every maximizer of a
+    window gets the window's full cotangent."""
+    return _VolumePool.apply(x.contiguous(), occ_in.contiguous(),
+                             occ_out.contiguous())
+
+
+def manual_max_pool_bwd_plain(x: torch.Tensor, occ_in: torch.Tensor,
+                              occ_out: torch.Tensor, y: torch.Tensor,
+                              ct: torch.Tensor) -> torch.Tensor:
+    """The reference's 27-tap equality routing: y (with -1e30 at unoccupied
+    outputs) and the masked ct dilated back onto the stride-2 grid, padded
+    by one cell and cropped to the input extent + 2; each of the 27 shifts
+    adds the cotangent where x equals the shifted y, in f32; times
+    (occ_in > 0), in x's dtype."""
+    b, d, h, w, c = x.shape
+    d2, h2, w2 = y.shape[1:4]
+    ctm = torch.where(occ_out > 0, ct, torch.zeros_like(ct))
+    yd = torch.zeros((b, 2 * d2, 2 * h2, 2 * w2, c), dtype=y.dtype,
+                     device=y.device)
+    yd[:, ::2, ::2, ::2] = torch.where(
+        occ_out > 0, y, torch.full((), NEG_INF, dtype=y.dtype,
+                                   device=y.device))
+    cd = torch.zeros_like(yd, dtype=ctm.dtype)
+    cd[:, ::2, ::2, ::2] = ctm
+    pad = (0, 0, 1, 1, 1, 1, 1, 1)
+    ydp = F.pad(yd, pad, value=NEG_INF)[:, :d + 2, :h + 2, :w + 2]
+    cdp = F.pad(cd, pad)[:, :d + 2, :h + 2, :w + 2]
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for dd in range(3):
+        for hh in range(3):
+            for ww in range(3):
+                ys = ydp[:, dd:dd + d, hh:hh + h, ww:ww + w]
+                cs = cdp[:, dd:dd + d, hh:hh + h, ww:ww + w]
+                acc = acc + torch.where(x == ys, cs.float(), 0.0)
+    return (acc * (occ_in > 0)).to(x.dtype)
+
+
+class _ManualPool(torch.autograd.Function):
+    """`manual_max_pool`: the library window max forward, the equality
+    routing backward. The 27-tap form and the volume-form kernel route the
+    same set of cotangents (they differ in where the f32 sum of the up to
+    8 terms is split, so by a rounding of that sum at most), so CUDA
+    tensors share the `max_pool_k3s2_bwd_vol` kernel and CPU tensors take
+    the 27-tap form."""
+
+    @staticmethod
+    def forward(ctx, x, occ_in, occ_out, separable):
+        neg = torch.full((), NEG_INF, dtype=x.dtype, device=x.device)
+        y = windowed_max(torch.where(occ_in > 0, x, neg), separable)
+        y = torch.where(occ_out > 0, y, torch.zeros_like(y))
+        ctx.save_for_backward(x, occ_in, occ_out, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, occ_in, occ_out, y = ctx.saved_tensors
+        if x.is_cuda:
+            ctm = torch.where(occ_out > 0, ct, torch.zeros_like(ct))
+            dx = masked_max_pool_bwd_vol(x, occ_in, y.contiguous(),
+                                         ctm.to(x.dtype).contiguous())
+        else:
+            dx = manual_max_pool_bwd_plain(x, occ_in, occ_out, y, ct)
+        return dx, None, None, None
+
+
+def manual_max_pool(x: torch.Tensor, occ_in: torch.Tensor,
+                    occ_out: torch.Tensor,
+                    separable: bool = True) -> torch.Tensor:
+    """`dense_max_pool`'s mode "manual": `windowed_max` of the
+    -1e30-filled volume forward (three 1-D passes, or one 3-D window when
+    `separable` is False), equality routing backward."""
+    return _ManualPool.apply(x.contiguous(), occ_in.contiguous(),
+                             occ_out.contiguous(), separable)

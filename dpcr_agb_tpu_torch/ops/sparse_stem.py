@@ -7,16 +7,22 @@ only as gather storage; every site then reads its 7^3 neighbours (empty
 cells read zeros, the conv semantics) and multiplies them by the weights.
 On CUDA tensors `stem_conv_sites` launches the hand-written `stem_sites`
 kernel and its weight gradient the `stem_sites_dw` kernel; on CPU tensors
-they run `stem_conv_sites_plain` and `stem_conv_sites_dw_plain`."""
+they run `stem_conv_sites_plain` and `stem_conv_sites_dw_plain`.
+
+Also the level-0 pools that work on the rows without the hand-written
+kernels (the reference's DPCR_SPARSE_POOL modes "scattermax" and "rows"):
+`scatter_max_pool_batch`, and `pool_neighbor_map_batch` with
+`max_pool_sparse`."""
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .dense_grid import scatter_to_dense
+from .pool import _pool_parents
 
 K = 7
 
@@ -141,3 +147,87 @@ def stem_conv_rows(coords: torch.Tensor, mask: torch.Tensor,
         vol, coords.to(torch.int32).contiguous(), mask.contiguous(),
         weights.to(compute_dtype).contiguous(),
         None if bias is None else bias.to(compute_dtype))
+
+
+def scatter_max_pool_batch(coords: torch.Tensor, mask: torch.Tensor,
+                           h_rows: torch.Tensor, dims: Sequence[int]
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Minkowski MaxPool (kernel 3, stride 2) as one scatter-max of the
+    level-0 rows [B,V,C] into the level-1 volume: each row goes to its 1..8
+    parent cells (`pool._pool_parents`), and an indicator scattered only to
+    the all-lower parent (x // 2) marks the occupied outputs. Returns
+    (pooled [B,d1,h1,w1,C], zero at unoccupied outputs, occupancy
+    [B,d1,h1,w1,1]). Autograd splits a window's cotangent evenly among its
+    maximizers (`scatter_reduce`'s amax rule, as JAX's scatter-max)."""
+    d, h, w = (int(n) for n in dims)
+    d1, h1, w1 = -(-d // 2), -(-h // 2), -(-w // 2)
+    b, v = mask.shape
+    c = h_rows.shape[-1]
+    s1 = d1 * h1 * w1
+    flat, valid = _pool_parents(coords, mask, dims)
+    flat = torch.where(valid, flat, torch.full_like(flat, b * s1))  # dump row
+    stride_one = torch.zeros((b, v, 8, 1), dtype=h_rows.dtype,
+                             device=h_rows.device)
+    stride_one[:, :, 0, 0] = valid[..., 0].to(h_rows.dtype)
+    payload = torch.cat([h_rows[:, :, None, :].expand(b, v, 8, c),
+                         stride_one], -1)
+    neg = torch.full((), float("-inf"), dtype=h_rows.dtype,
+                     device=h_rows.device)
+    payload = torch.where(valid[..., None], payload, neg)
+    table = torch.full((b * s1 + 1, c + 1), float("-inf"),
+                       dtype=h_rows.dtype, device=h_rows.device)
+    table = table.scatter_reduce(
+        0, flat.reshape(-1, 1).expand(-1, c + 1),
+        payload.reshape(b * v * 8, c + 1), "amax", include_self=True)
+    dense = table[: b * s1].reshape(b, d1, h1, w1, c + 1)
+    occ = (dense[..., -1:] > 0).to(h_rows.dtype).detach()
+    pooled = torch.where(occ > 0, dense[..., :c],
+                         torch.zeros_like(dense[..., :c]))
+    return pooled, occ
+
+
+def pool_neighbor_map_batch(coords0: torch.Tensor, mask0: torch.Tensor,
+                            coords1: torch.Tensor, mask1: torch.Tensor,
+                            dims: Sequence[int]) -> torch.Tensor:
+    """[B,V1,27] local row indices into each sample's level-0 rows for the
+    MaxPool window {2u-1, 2u, 2u+1}^3 of every level-1 site u (z-fastest
+    offsets); V0 marks a missing neighbour. Built from a dense volume of
+    row indices padded by one cell; out-of-volume level-0 rows enter no
+    window, and masked level-1 sites get the shadow only."""
+    d, h, w = (int(n) for n in dims)
+    b, v0 = mask0.shape
+    lim = torch.tensor([d, h, w], device=coords0.device)
+    c0 = coords0.long()
+    m0 = mask0 & ((c0 >= 0) & (c0 < lim)).all(-1)
+    cc = torch.minimum(c0.clamp(min=0), lim - 1) + 1          # padded index
+    dp, hp, wp = d + 2, h + 2, w + 2
+    sp = dp * hp * wp
+    gidx = (cc[..., 0] * hp + cc[..., 1]) * wp + cc[..., 2] \
+        + (torch.arange(b, device=cc.device) * sp)[:, None]
+    gidx = torch.where(m0, gidx, torch.full_like(gidx, b * sp))
+    row_of = torch.full((b * sp + 1,), v0, dtype=torch.long,
+                        device=cc.device)
+    row_of[gidx.reshape(-1)] = torch.arange(v0, device=cc.device).repeat(b)
+    row_of[b * sp] = v0
+    c1 = torch.minimum((coords1.long() * 2).clamp(min=0), lim - 1)
+    base = (c1[..., 0] * hp + c1[..., 1]) * wp + c1[..., 2] \
+        + (torch.arange(b, device=cc.device) * sp)[:, None]  # window corner
+    o = torch.from_numpy(_hypercube_offsets(3)).to(cc.device)
+    off = (o[:, 0] * hp + o[:, 1]) * wp + o[:, 2]
+    nbr = row_of[base[..., None] + off]
+    return torch.where(mask1[..., None], nbr, torch.full_like(nbr, v0))
+
+
+def max_pool_sparse(h_rows: torch.Tensor, nbr: torch.Tensor,
+                    mask1: torch.Tensor) -> torch.Tensor:
+    """Masked max over gathered level-0 rows: h_rows [B,V,C], nbr
+    [B,V1,27] local indices (V = shadow) -> [B,V1,C]; the shadow counts as
+    -inf, and sites with no real neighbour or masked out give 0. Autograd
+    splits a tie evenly (`amax`, as jnp.max)."""
+    b, v, c = h_rows.shape
+    padded = torch.cat([h_rows, h_rows.new_full((b, 1, c), float("-inf"))], 1)
+    idx = nbr + (torch.arange(b, device=nbr.device) * (v + 1))[:, None, None]
+    g = padded.reshape(b * (v + 1), c)[idx]                 # [B,V1,27,C]
+    out = g.amax(2)
+    ok = ((nbr < v).any(-1) & mask1)[..., None]
+    return torch.where(ok, out, torch.zeros_like(out))

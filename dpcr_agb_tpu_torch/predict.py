@@ -5,9 +5,9 @@ input plot file (.npz or .csv, one plot per file) through the model and
 writes de-standardized predictions to csv.
 
     python -m dpcr_agb_tpu_torch.predict checkpoint_dir=outputs/run \\
-        model_name=SENet14|KPConv input='plots/*.npz' output=preds.csv \\
-        [batch_size=16] [weight_name=latest] [centers=centers.csv] \\
-        [device=cpu]
+        model_name=SENet14|SENet50|...|KPConv input='plots/*.npz' \\
+        output=preds.csv [batch_size=16] [weight_name=latest] \\
+        [centers=centers.csv] [device=cpu]
 
 It runs on CUDA unless `device=cpu` is given, and raises when there is no
 CUDA device and the CPU was not asked for. `centers=` (csv with columns

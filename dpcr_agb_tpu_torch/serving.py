@@ -5,7 +5,7 @@ rebuilt from a port checkpoint alone.
 A port checkpoint is `<checkpoint_dir>/<model_name>.pt`, written with
 `torch.save`, holding plain Python objects and tensors only:
   format        CHECKPOINT_FORMAT
-  model_name    the `conf/models` key ("SENet14", "KPConv")
+  model_name    the `conf/models` key ("SENet14", "SENet50", "KPConv")
   option        that model entry (class, model_name, activation, ...)
   in_channels   the model's input feature width
   data          features, scales, centers, first_subsampling and the

@@ -1,9 +1,9 @@
-"""Training CLI of the port: a few optimizer steps of the sparse-voxel
-SENet14 or of the KPConv net on `.npz` plots, then a port checkpoint that
-`predict` serves.
+"""Training CLI of the port: a few optimizer steps of a sparse-voxel
+ResNet/SENet (SENet14 unless named otherwise) or of the KPConv net on
+`.npz` plots, then a port checkpoint that `predict` serves.
 
     python -m dpcr_agb_tpu_torch.train input='plots/*.npz' \\
-        checkpoint_dir=outputs/run [model_name=SENet14|KPConv] \\
+        checkpoint_dir=outputs/run [model_name=SENet14|SENet50|...|KPConv] \\
         [steps=100] [batch_size=16] [seed=0] [bf16=false] \\
         [dense_dims=88,88,104] [device=cpu]
 
@@ -12,16 +12,19 @@ Each `.npz` holds `pos` [N,3] and one scalar per regression target
 Targets are standardized by their mean and standard deviation over the
 training plots (np.nanmean, np.nanstd). Every plot goes through the NFI
 pre_transform once; every step draws `batch_size` plots from a reshuffled
-stream, runs the model's train chain on each (sparse_xy for SENet14, xy
-for KPConv), collates and post-collates them, and takes one step of the
+stream, runs the model's train chain on each (sparse_xy for the
+sparse-voxel nets, xy for KPConv), collates and post-collates them, and takes one step of the
 paper's recipe (the same for both models): AdaBelief (lr 5e-3, weight
 decay 1e-2) behind an elementwise gradient clip at 100, with
 CosineAnnealingWarmRestarts (T_0 10, T_mult 2) stepped per batch. It runs
 on CUDA unless `device=cpu` is given, and raises when there is no CUDA
 device and the CPU was not asked for. `bf16=true` is the bf16 compute dtype
-of SENet14's convs, and for KPConv that of the fused kernel-point
-convolution only. `dense_dims` applies to SENet14. Epochs, validation,
-trackers, LAS input and the YAML configs are not ported."""
+of the sparse-voxel nets' convs, and for KPConv that of the fused
+kernel-point convolution only. `dense_dims` applies to the sparse-voxel
+nets, whose level-0 execution modes are read from DPCR_L0, DPCR_STEM_MODE,
+DPCR_POOL_BWD, DPCR_SPARSE_POOL and DPCR_POOL_FWD when the model is built
+(`models/minkowski.py`). Epochs, validation, trackers, LAS input and the
+YAML configs are not ported."""
 from __future__ import annotations
 
 import copy
@@ -49,11 +52,18 @@ from .transforms import instantiate_transforms
 log = logging.getLogger(__name__)
 
 REG_TARGETS = ["BMag_ha", "V_ha"]
-# conf/models/instance/minkowski_baseline.yaml: SENet14
-SENET14 = {"class": "minkowski.MinkowskiBaselineModel", "conv_type": "SPARSE",
-           "model_name": "SENet14", "D": 3, "activation": "gelu",
-           "first_stride": 1, "dropout": 0.0, "drop_path": 0.01,
-           "global_pool": "sum"}
+# conf/models/instance/minkowski_baseline.yaml: the ResNet/SENet entries
+# share everything but model_name
+
+
+def _resnet_entry(model_name: str) -> dict:
+    return {"class": "minkowski.MinkowskiBaselineModel",
+            "conv_type": "SPARSE", "model_name": model_name, "D": 3,
+            "activation": "gelu", "first_stride": 1, "dropout": 0.0,
+            "drop_path": 0.01, "global_pool": "sum"}
+
+
+SENET14 = _resnet_entry("SENet14")
 # conf/models/instance/kpconv.yaml with data.first_subsampling substituted
 KPCONV = {"class": "kpconv.KPConv", "conv_type": "PARTIAL_DENSE",
           "model_name": "KPConv",
@@ -73,7 +83,12 @@ KPCONV = {"class": "kpconv.KPConv", "conv_type": "PARTIAL_DENSE",
               "fixed_kernel_points": "center", "modulated": False},
           "extra_options": {"kp_disposition": "auto"}}
 MODELS = {"SENet14": (SENET14, nfi_sparse_xy_data_cfg),
-          "KPConv": (KPCONV, nfi_xy_data_cfg)}
+          "KPConv": (KPCONV, nfi_xy_data_cfg),
+          **{key: (_resnet_entry(key), nfi_sparse_xy_data_cfg)
+             for key in ("SENet18", "SENet34", "SENet50", "SENet101")},
+          **{key: (_resnet_entry(key + "_"), nfi_sparse_xy_data_cfg)
+             for key in ("ResNet14", "ResNet18", "ResNet34", "ResNet50",
+                         "ResNet101")}}
 # conf/training/nfi/minkowski.yaml and kpconv.yaml (the same recipe),
 # conf/lr_scheduler/cosineawr.yaml
 RECIPE = {"base_lr": 5e-3, "weight_decay": 1e-2, "grad_clip": 100.0,

@@ -44,7 +44,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, dpcr_agb_tpu_torch.predict, dpcr_agb_tpu_torch."
             "kernels, dpcr_agb_tpu_torch.weights, dpcr_agb_tpu_torch.train, "
             "dpcr_agb_tpu_torch.models.kpconv, dpcr_agb_tpu_torch.ops."
-            "neighbors, dpcr_agb_tpu_torch.ops.kernel_points; "
+            "neighbors, dpcr_agb_tpu_torch.ops.kernel_points, "
+            "dpcr_agb_tpu_torch.ops.dense_stem, dpcr_agb_tpu_torch.ops."
+            "pool, dpcr_agb_tpu_torch.models.minkowski; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r} or m.split('.')[0] == 'triton']; "
             "assert not bad, bad")
@@ -76,6 +78,53 @@ def test_kernel_launchers_refuse_cpu_tensors():
     x, occ = _pool_inputs()
     with pytest.raises(ValueError, match="CUDA"):
         kernels.max_pool_k3s2(x, occ)
+
+
+def _vol_bwd_inputs(device="cpu", dtype=torch.float32, shape=(2, 7, 6, 9),
+                    c=16, seed=0):
+    """x under a 30% occupancy, its pooled y, and a cotangent masked by the
+    pooled occupancy; values rounded to `dtype`, so bf16 holds ties."""
+    from dpcr_agb_tpu_torch.ops.dense_grid import occupancy_pool
+    from dpcr_agb_tpu_torch.ops.pool import masked_max_pool_plain
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(*shape, c)).astype(np.float32)
+    occ = (rng.random((*shape, 1)) < 0.3).astype(np.float32)
+    x = torch.from_numpy(x * occ).to(device, dtype)
+    occ = torch.from_numpy(occ).to(device, dtype)
+    y = masked_max_pool_plain(x, occ)
+    ct = torch.from_numpy(rng.normal(size=tuple(y.shape)).astype(
+        np.float32)).to(device, dtype) * occupancy_pool(occ)
+    return x, occ, y, ct
+
+
+def test_new_wrappers_take_plain_versions_on_cpu_and_refuse_cpu_launches():
+    from dpcr_agb_tpu_torch import kernels
+    from dpcr_agb_tpu_torch.ops import dense_stem, pool
+    x, occ, y, ct = _vol_bwd_inputs()
+    strided = x.permute(0, 4, 1, 2, 3)
+    before = dict(kernels.LAUNCHES)
+    copied = dense_stem.firewall_copy(strided)
+    dx = pool.masked_max_pool_bwd_vol(x, occ, y, ct)
+    assert kernels.LAUNCHES == before
+    assert copied.is_contiguous() and torch.equal(copied, strided)
+    assert torch.equal(dx, pool.masked_max_pool_bwd_vol_plain(x, occ, y, ct))
+    assert dx.shape == x.shape and not dx[(occ == 0).expand_as(dx)].any()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.firewall_copy(strided)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.max_pool_k3s2_bwd_vol(x, occ, y, ct)
+    assert set(kernels.LAUNCHES) >= {"firewall_copy", "max_pool_k3s2_bwd_vol"}
+
+
+def test_two_entries_of_one_source_share_a_library(monkeypatch):
+    from dpcr_agb_tpu_torch.kernels import build
+    monkeypatch.setattr(build, "nvcc_version", lambda: "nvcc 12.8")
+    assert build.library_path("max_pool_bwd") \
+        == build.library_path("max_pool_bwd_vol")
+    assert build.library_path("firewall_copy") \
+        != build.library_path("max_pool_bwd")
+    assert len({build.library_path(n) for n in build.LIBRARIES}) \
+        == len({src for src, _, _ in build.LIBRARIES.values()}) == 7
 
 
 @pytest.mark.parametrize("runtime,torch_cuda,ok", [
@@ -247,3 +296,69 @@ def test_kpconv_kernels_match_plain_versions_on_the_card():
                 torch.testing.assert_close(
                     dw, dw_w, rtol=rtol, msg=lambda m: f"dW {what}: {m}",
                     atol=atol * dw_w.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_firewall_and_volume_backward_kernels_on_the_card():
+    """Both kernels of the dense level 0 against their plain versions,
+    exactly: odd shapes, strided and misaligned sources, sizes with and
+    without a 16-byte tail, both dtypes; the manual pool's 27-tap form
+    within one rounding of the f32 sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py checks the kernels "
+                    "at the main path's shapes")
+    from dpcr_agb_tpu_torch import kernels
+    from dpcr_agb_tpu_torch.ops import dense_stem, pool
+    from dpcr_agb_tpu_torch.ops.dense_grid import occupancy_pool
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((2, 7, 6, 9, 16), (3, 5, 7), (4099,), (2, 3, 4, 5, 3),
+                      (1, 1, 1, 1, 1), (2, 0, 3)):
+            x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            views = [x, x.flatten()[1:], x[..., ::2] if x.numel() else x]
+            if x.dim() > 1:
+                views += [x.transpose(0, -1),
+                          x.permute(*range(1, x.dim()), 0),
+                          x[:1].expand(3, *shape[1:])]
+            for v in views:
+                before = kernels.LAUNCHES["firewall_copy"]
+                got = dense_stem.firewall_copy(v)
+                assert kernels.LAUNCHES["firewall_copy"] - before \
+                    == int(v.numel() > 0)
+                assert got.is_contiguous() and got.shape == v.shape
+                assert got.numel() == 0 or got.data_ptr() != v.data_ptr()
+                assert torch.equal(got, dense_stem.firewall_copy_plain(v))
+        t = torch.randn((3, 5, 4, 6, 8), generator=g, device="cuda").to(
+            dtype).requires_grad_(True)
+        ct = torch.randn((3, 8, 5, 4, 6), generator=g, device="cuda").to(
+            dtype).permute(0, 2, 3, 4, 1)
+        out = dense_stem.layout_firewall(t)
+        out.backward(ct)
+        assert torch.equal(out, t) and torch.equal(t.grad, ct)
+        assert t.grad.is_contiguous()
+        for shape, c in (((2, 7, 6, 9), 16), ((1, 12, 10, 9), 8),
+                         ((3, 11, 9, 7), 64), ((2, 1, 1, 2), 8)):
+            x, occ, y, ctm = _vol_bwd_inputs("cuda", dtype, shape, c, seed=1)
+            got = pool.masked_max_pool_bwd_vol(x, occ, y, ctm)
+            torch.testing.assert_close(
+                got, pool.masked_max_pool_bwd_vol_plain(x, occ, y, ctm),
+                rtol=0, atol=0)
+            manual = pool.manual_max_pool_bwd_plain(
+                x, occ, occupancy_pool(occ), y, ctm)
+            torch.testing.assert_close(
+                got, manual, rtol=1e-6 if dtype == torch.float32 else 1e-2,
+                atol=1e-6)
+            # through the autograd functions: the kernels both ways
+            xr = x.clone().requires_grad_(True)
+            before = dict(kernels.LAUNCHES)
+            pool.pallas_max_pool(xr, occ, occupancy_pool(occ)).backward(ctm)
+            assert kernels.LAUNCHES["max_pool_k3s2"] \
+                == before["max_pool_k3s2"] + 1
+            assert kernels.LAUNCHES["max_pool_k3s2_bwd_vol"] \
+                == before["max_pool_k3s2_bwd_vol"] + 1
+            torch.testing.assert_close(xr.grad, got, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.firewall_copy(torch.zeros(4, device="cuda",
+                                          dtype=torch.float64))
+    with pytest.raises(ValueError, match="dimensions"):
+        kernels.firewall_copy(torch.zeros((1,) * 6, device="cuda"))

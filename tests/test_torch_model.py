@@ -1,5 +1,6 @@
 """Parity of the port's SENet14 eval forward with the JAX
-SparseResNet._dense_forward (sparse level 0, fused pool) on the CPU: a
+SparseResNet._dense_forward (sparse level 0, fused pool; the other modes
+in test_torch_dense_l0_model.py) on the CPU: a
 narrow net (planes 16,16,32,32, init_dim 16) over dense_dims (12,12,12)
 with a z bucket of 8, the same weights carried across by weights.from_flax,
 random positive BN running stats."""
@@ -140,17 +141,52 @@ def test_full_width_senet14_builds_with_flax_names():
 
 @pytest.mark.parametrize("option,env", [
     ({"extra_options": {"dense_dims": None}}, {}),
-    ({"first_stride": 2}, {}),
-    ({}, {"DPCR_L0": "dense"}),
-    ({}, {"DPCR_SPARSE_POOL": "rows"}),
+    ({}, {"DPCR_L0": "dense3d"}),
+    ({}, {"DPCR_SPARSE_POOL": "row"}),
+    ({}, {"DPCR_STEM_MODE": "zfold"}),
+    ({}, {"DPCR_POOL_BWD": "knockout"}),
+    ({"first_stride": 2}, {"DPCR_POOL_FWD": "knockout"}),
 ])
 def test_unported_modes_raise(option, env, monkeypatch):
+    """Map mode is the one part of the file left for a later slice; an
+    unknown value of a mode variable raises when the model is built."""
     for k, val in env.items():
         monkeypatch.setenv(k, val)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises((NotImplementedError, ValueError),
+                       match="later slice" if not env else "one of"):
         build_resnet("SENet14", {"first_stride": 1, **option}, 2, 3)
 
 
+@pytest.mark.parametrize("name,option,env,sparse", [
+    ("SENet14", {"first_stride": 2}, {}, False),
+    ("SENet14", {}, {}, False),          # build_resnet's default stride is 2
+    ("SENet14", {"first_stride": 1}, {"DPCR_L0": "dense"}, False),
+    ("SENet14", {"first_stride": 1}, {"DPCR_SPARSE_POOL": "rows"}, True),
+    ("SENet50", {"first_stride": 1}, {}, True),
+    ("ResNet50_", {"first_stride": 1}, {"DPCR_L0": "dense",
+                                        "DPCR_POOL_BWD": "pallas"}, False),
+])
+def test_once_unported_modes_build_and_run(name, option, env, sparse, case,
+                                           monkeypatch):
+    """The dense level 0 (by DPCR_L0 or first_stride 2), the other sparse
+    pools and the bottleneck nets: full-width models that run the tiny
+    batch."""
+    for k, val in env.items():
+        monkeypatch.setenv(k, val)
+    net = build_resnet(name, {"extra_options": {"dense_dims": (12, 12, 12)},
+                              **option}, 2, 3,
+                       generator=torch.Generator().manual_seed(0))
+    assert net.sparse_level0 == sparse
+    net.eval()
+    with torch.no_grad():
+        out = net(Batch(**case["fields"]).to("cpu"))
+    assert out.shape == (2, 2) and bool(torch.isfinite(out).all())
+
+
 def test_bottleneck_archs_raise():
+    """In map mode, as every arch does; on the dense grid they build."""
     with pytest.raises(NotImplementedError, match="later slice"):
-        build_resnet("SENet50", {"first_stride": 1}, 2, 3)
+        build_resnet("SENet50", {"first_stride": 1,
+                                 "extra_options": {"dense_dims": None}}, 2, 3)
+    net = build_resnet("SENet50", {"first_stride": 1}, 2, 3)
+    assert net.stage0_block0.conv3.kernel.shape == (1, 64, 256)
