@@ -17,7 +17,12 @@ points as a user would) and SENet50 (bottleneck blocks, sparse level 0):
            the plain version and one PyTorch call of the same function
            where there is one (time yardsticks the port never calls), and
            the least time the card could take (bound_ms, from what this
-           run's data needs). SENet14: stem_sites and max_pool_k3s2 at the
+           run's data needs). firewall_copy and kpconv_fused_bwd, and their
+           yardsticks, also get device_ms: CUDA events around 20
+           back-to-back calls queued behind a spin kernel, so without the
+           host's launch path; kpconv_fused_bwd also the device ms of each
+           of its own kernels (sub_kernels, torch.profiler) and a check
+           that two runs give the same dW bit for bit. SENet14: stem_sites and max_pool_k3s2 at the
            first serving batch's shapes, stem_sites_dw and
            max_pool_k3s2_bwd at the first train batch's (SENet50 runs the
            same four kernels at the same shapes: its rows are SENet14's
@@ -211,6 +216,80 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+_SLEEP_CYCLES_PER_MS = []
+
+
+def _sleep_cycles_per_ms() -> float:
+    """GPU clock cycles of `torch.cuda._sleep` per ms (timed once)."""
+    import torch
+    if not _SLEEP_CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(20_000_000 / start.elapsed_time(end))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
+def device_ms(fn, n: int = 20, warmup: int = 3, reps: int = 3) -> float:
+    """Device time of one fn() without the host's launch path: CUDA events
+    around n back-to-back calls, queued behind a spin kernel that lasts
+    twice as long as their enqueueing, over n (median of reps). Raises if
+    the enqueueing outlasted the spin (the calls would have waited for the
+    host)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    enqueue_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = 2 * enqueue_ms + 1.0
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * _sleep_cycles_per_ms()))
+        t = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        queued_ms = (time.perf_counter() - t) * 1e3
+        end.synchronize()
+        if queued_ms > spin_ms:
+            raise AssertionError(f"device_ms: enqueueing took {queued_ms} "
+                                 f"ms, longer than the {spin_ms} ms spin")
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def kernel_ms(fn, reps: int = 5) -> dict:
+    """Device ms per fn() of each of the port's kernels (namespace dpcr)
+    that fn launches, from torch.profiler over reps calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and "dpcr::" in e.key:
+            name = e.key.split("dpcr::", 1)[1].split("<")[0].split("(")[0]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total \
+                / reps / 1e3
+    return out
 
 
 @contextlib.contextmanager
@@ -544,11 +623,20 @@ def dense_l0_kernel_rows(bundles: dict, batch, train_batch, smi: str,
                                        f"{dtname}", got, want, 0.0, 0.0)
                     amax = _amax(want)
                     del got, want
-                    ms = time_ms(lambda: dense_stem.firewall_copy(src))
-                    plain_ms = time_ms(
-                        lambda: dense_stem.firewall_copy_plain(src))
-                    lib_ms = time_ms(lambda: src.clone(
-                        memory_format=torch.contiguous_format))
+                    def kernel():
+                        return dense_stem.firewall_copy(src)
+
+                    def plain():
+                        return dense_stem.firewall_copy_plain(src)
+
+                    def library():
+                        return src.clone(
+                            memory_format=torch.contiguous_format)
+
+                    ms, plain_ms, lib_ms = (time_ms(f) for f in (
+                        kernel, plain, library))
+                    dev_ms, plain_dev_ms, lib_dev_ms = (device_ms(f) for f in (
+                        kernel, plain, library))
                     nbytes = 2 * src.numel() * esz   # read once, write once
                     rows.append({
                         "name": "firewall_copy", "dtype": dtname,
@@ -563,7 +651,11 @@ def dense_l0_kernel_rows(bundles: dict, batch, train_batch, smi: str,
                         "bound_by": "bytes", "library_ms": lib_ms,
                         "library": "Tensor.clone(memory_format="
                                    "contiguous_format)",
+                        "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
+                        "library_device_ms": lib_dev_ms,
+                        "device_ms_over_library": dev_ms / lib_dev_ms,
                         "achieved_gb_per_s": nbytes / ms / 1e6,
+                        "device_gb_per_s": nbytes / dev_ms / 1e6,
                         "shape": {"x": list(src.shape),
                                   "strides": list(src.stride()),
                                   "needed_bytes": nbytes},
@@ -895,10 +987,24 @@ def phase_kpconv_kernels(bundle, batch, smi: str, seed: int) -> list:
                                        dx, dx_w, rtol, atol * scales["dx"]),
                     "dw": _check_close(f"kpconv_fused_bwd dW {case} {dtname}",
                                        dw, dw_w, rtol, atol * scales["dw"])}
+                # dW is summed in a fixed order: a second run, the same bits
+                if not torch.equal(kpconv.kpconv_backward(*args, ct, *tail)[1],
+                                   dw):
+                    raise AssertionError(f"kpconv_fused_bwd {case} {dtname}: "
+                                         f"two runs give different dW")
                 del dx, dw, dx_w, dw_w
-                ms = time_ms(lambda: kpconv.kpconv_backward(*args, ct, *tail))
-                plain_ms = time_ms(lambda: kpconv.kpconv_fused_bwd_plain(
-                    *args, ct, *tail), n=5, warmup=1)
+
+                def kernel():
+                    return kpconv.kpconv_backward(*args, ct, *tail)
+
+                def plain():
+                    return kpconv.kpconv_fused_bwd_plain(*args, ct, *tail)
+
+                ms = time_ms(kernel)
+                plain_ms = time_ms(plain, n=5, warmup=1)
+                dev_ms = device_ms(kernel)
+                plain_dev_ms = device_ms(plain, n=5, warmup=1)
+                sub_kernels = kernel_ms(kernel)
                 # the forward's inputs and g read once, dx and dW written
                 # once; g @ W^T and part^T g per active row, the weighted
                 # sums for part and for dx per weighted pair
@@ -918,8 +1024,11 @@ def phase_kpconv_kernels(bundle, batch, smi: str, seed: int) -> list:
                     "max_abs_err": errs[worst],
                     "max_abs_plain": scales[worst], "errors": errs,
                     "max_abs_plains": scales,
-                    "tolerance": tol + " (f32 atomics)", "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                    "tolerance": tol + " (dx: f32 atomics)", "ms": ms,
+                    "plain_ms": plain_ms, "device_ms": dev_ms,
+                    "plain_device_ms": plain_dev_ms,
+                    "sub_kernels": sub_kernels, "dw_reproducible": True,
+                    "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes > t_ops else "operations",
                     "library_ms": None,
                     "library": "none: no one PyTorch call computes it",
@@ -1418,7 +1527,8 @@ def main(argv=None) -> int:
     summary = {"kernels": [{k: r.get(k) for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dtype",
-        "case", "max_abs_plain", "launches_by_path")} for r in krows]}
+        "case", "max_abs_plain", "launches_by_path", "device_ms",
+        "library_device_ms", "sub_kernels")} for r in krows]}
     RECORD.append({"total_seconds": time.perf_counter() - t_start})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

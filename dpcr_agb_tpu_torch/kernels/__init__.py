@@ -47,6 +47,16 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _on_device(device: torch.device, fn, *args) -> int:
+    """fn(*args, stream) with `device` current: the device context is
+    entered only when another device is current (a launch goes to the
+    current device)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args, _stream(device))
+    with torch.cuda.device(device):
+        return fn(*args, _stream(device))
+
+
 def stem_sites(vol: torch.Tensor, coords: torch.Tensor, mask: torch.Tensor,
                weights: torch.Tensor,
                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -253,12 +263,9 @@ def firewall_copy(x: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0:
         return out
     pad = 5 - x.dim()
-    sizes = [1] * pad + list(x.shape)
-    strides = [0] * pad + list(x.stride())
-    with torch.cuda.device(x.device):
-        rc = build.entry("firewall_copy")(
-            x.element_size(), x.data_ptr(), out.data_ptr(), *sizes, *strides,
-            _stream(x.device))
+    rc = _on_device(x.device, build.entry("firewall_copy"), x.element_size(),
+                    x.data_ptr(), out.data_ptr(), *(1,) * pad, *x.shape,
+                    *(0,) * pad, *x.stride())
     _check_rc(rc, "firewall_copy")
     LAUNCHES["firewall_copy"] += 1
     return out
@@ -319,14 +326,78 @@ def kpconv_fused(x: torch.Tensor, nbr: torch.Tensor, rel: torch.Tensor,
     return out
 
 
+# rows of a tile of the backward kernels, and the dW product's output tiles
+# (largest Cout, rows BM over Kp*C, columns BN over Cout) by Cout
+KPCONV_BWD_ROWS = 64
+_KPCONV_DW_TILES = ((16, 256, 16), (32, 128, 32), (256, 64, 64))
+SMEM_PER_BLOCK = 232448     # bytes of shared memory a block may use (H100)
+H100_SMS = 132
+
+
+def kpconv_bwd_plan(b: int, nq: int, ns: int, k: int, c: int, cout: int,
+                    n_kp: int, bf16: bool, sms: int = H100_SMS) -> dict:
+    """How `kpconv_fused_bwd` cuts its work (pure: shapes in, numbers out):
+    row tiles, the dW product's output tile and row splits (enough blocks
+    for eight an SM), each kernel's grid and shared memory, and the scratch
+    it needs in bytes. The C entry point takes dw_cfg and splits from
+    here."""
+    m = b * nq
+    tiles = -(-m // KPCONV_BWD_ROWS)
+    kc = n_kp * c
+    dw_cfg = next(i for i, (most, _, _) in enumerate(_KPCONV_DW_TILES)
+                  if cout <= most)
+    _, bm, bn = _KPCONV_DW_TILES[dw_cfg]
+    bk = 32 if bf16 else 16
+
+    def gemm_smem(bm_: int, bn_: int) -> int:
+        # bf16: [m][k] and [n][k] tiles, rows padded by 8 values; f32: [k][m]
+        # and [k][n], rows padded by 4
+        return (bm_ + bn_) * (bk + 8) * 2 if bf16 \
+            else bk * (bm_ + bn_ + 8) * 4
+
+    out_tiles = -(-kc // bm) * -(-cout // bn)
+    splits = max(1, min(tiles, 8 * sms // out_tiles, 65535))
+    rows = tiles * KPCONV_BWD_ROWS
+    # the edge kernel: blocks of 16 rows x 32 channels; shared memory for
+    # each slot's 16 weights (padded to 20) and source row and list entry,
+    # the rows' dpart for 16 kernel points and the channels, kernel points
+    edge_c = -(-c // 4) * 4 if c < 32 else 32
+    edge_smem = (16 * k * 20 + 16 * 16 * edge_c) * 4 + 16 * k * 8 \
+        + n_kp * 12
+    return {"tiles": tiles, "tile_rows": KPCONV_BWD_ROWS, "dw_cfg": dw_cfg,
+            "dw_tile": (bm, bn), "splits": splits,
+            "grids": {"flags": (tiles, 1), "dpart": (tiles, -(-kc // 64)),
+                      "edge": (tiles * KPCONV_BWD_ROWS // 16, -(-c // 32)),
+                      "dw": (out_tiles, splits),
+                      "reduce": (-(-kc * cout // 32), 1)},
+            "smem_bytes": {"dpart": gemm_smem(KPCONV_BWD_ROWS, 64),
+                           "dw": gemm_smem(bm, bn), "edge": edge_smem,
+                           "reduce": 8 * 32 * 4},
+            "scratch_bytes": {"flags": 4 * tiles,
+                              "part": rows * kc * (2 if bf16 else 4),
+                              "dpart": rows * kc * 4,
+                              "partial": splits * kc * cout * 4}}
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device.index]
+
+
 def kpconv_fused_bwd(x: torch.Tensor, nbr: torch.Tensor, rel: torch.Tensor,
                      weights: torch.Tensor, kernel_points: torch.Tensor,
                      g: torch.Tensor, extent: float,
                      influence: str = "linear", aggregation: str = "sum"
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward of `kpconv_fused` for the cotangent g [B,Nq,Cout] f32 ->
-    (dx [B,Ns,C] f32, dW [Kp,C,Cout] f32), both summed with f32 atomics
-    (the order of the additions varies). The shadow gets nothing."""
+    (dx [B,Ns,C] f32, dW [Kp,C,Cout] f32). dx is summed with f32 atomics
+    (the order of the additions varies); dW in a fixed order, the same bit
+    for bit from run to run. The shadow gets nothing."""
     b, nq, ns, k, c, cout, n_kp = _kpconv_args(
         "kpconv_fused_bwd", x, nbr, rel, weights, kernel_points, influence,
         aggregation)
@@ -335,16 +406,24 @@ def kpconv_fused_bwd(x: torch.Tensor, nbr: torch.Tensor, rel: torch.Tensor,
     if g.shape != (b, nq, cout):
         raise ValueError(f"kpconv_fused_bwd: g {tuple(g.shape)} for an "
                          f"output {(b, nq, cout)}")
+    plan = kpconv_bwd_plan(b, nq, ns, k, c, cout, n_kp,
+                           x.dtype == torch.bfloat16, _sm_count(dev))
+    rows, kc = plan["tiles"] * KPCONV_BWD_ROWS, n_kp * c
     dx = torch.zeros((b, ns, c), dtype=torch.float32, device=dev)
-    dw = torch.zeros((n_kp, c, cout), dtype=torch.float32, device=dev)
-    wt = torch.empty((n_kp, cout, c), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = build.entry("kpconv_bwd")(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), nbr.data_ptr(),
-            rel.data_ptr(), weights.data_ptr(), kernel_points.data_ptr(),
-            g.data_ptr(), wt.data_ptr(), dx.data_ptr(), dw.data_ptr(), b, nq,
-            ns, k, c, cout, n_kp, float(extent), _INFLUENCE_CODE[influence],
-            int(aggregation == "closest"), _stream(dev))
+    dw = torch.empty((n_kp, c, cout), dtype=torch.float32, device=dev)
+    flags = torch.empty(plan["tiles"], dtype=torch.int32, device=dev)
+    part = torch.empty((rows, kc), dtype=x.dtype, device=dev)
+    dpart = torch.empty((rows, kc), dtype=torch.float32, device=dev)
+    partial = torch.empty((plan["splits"], kc, cout), dtype=torch.float32,
+                          device=dev)
+    rc = _on_device(
+        dev, build.entry("kpconv_bwd"), _DTYPE_CODE[x.dtype], x.data_ptr(),
+        nbr.data_ptr(), rel.data_ptr(), weights.data_ptr(),
+        kernel_points.data_ptr(), g.data_ptr(), flags.data_ptr(),
+        part.data_ptr(), dpart.data_ptr(), partial.data_ptr(), dx.data_ptr(),
+        dw.data_ptr(), b, nq, ns, k, c, cout, n_kp, float(extent),
+        _INFLUENCE_CODE[influence], int(aggregation == "closest"),
+        plan["dw_cfg"], plan["splits"])
     _check_rc(rc, "kpconv_fused_bwd")
     LAUNCHES["kpconv_fused_bwd"] += 1
     return dx, dw

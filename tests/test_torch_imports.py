@@ -211,15 +211,21 @@ def test_backward_kernels_match_plain_versions_on_the_card():
                                    atol=1e-5 * want.abs().max().item())
 
 
-def _kpconv_case(rng, b, nq, ns, k, n_kp, c, cout, device="cpu"):
+def _kpconv_case(rng, b, nq, ns, k, n_kp, c, cout, device="cpu",
+                 shadow_rows=0.0):
     """Random clouds in the unit cube with neighbour lists that hold
-    shadows (index ns), one query row of shadows only, and kernel points
-    within the extent."""
+    shadows (index ns), one query row of shadows only if there are two or
+    more (and with
+    `shadow_rows`, that share of all rows), and kernel points within the
+    extent."""
     q = rng.uniform(0, 1, (b, nq, 3)).astype(np.float32)
     s = rng.uniform(0, 1, (b, ns, 3)).astype(np.float32)
     nbr = rng.integers(0, ns + 1, (b, nq, k)).astype(np.int32)
     nbr[:, :, -1] = ns
-    nbr[:, nq // 2] = ns
+    if nq > 1:
+        nbr[:, nq // 2] = ns
+    if shadow_rows:
+        nbr[rng.random((b, nq)) < shadow_rows] = ns
     x = rng.standard_normal((b, ns, c)).astype(np.float32)
     kp = (rng.uniform(-1, 1, (n_kp, 3)) * 0.3).astype(np.float32)
     w = (rng.standard_normal((n_kp, c, cout)) * 0.2).astype(np.float32)
@@ -255,6 +261,14 @@ KPCONV_CARD_CASES = [
     (1, 33, 30, 20, 15, 64, 64),
     (1, 20, 25, 9, 17, 70, 24), (1, 17, 20, 5, 15, 32, 128),
     (1, 18, 30, 40, 15, 256, 256)]
+# the backward's tiles of 64 rows: 90% of the rows all shadow (whole tiles
+# skipped, real neighbours interleaved with shadows in the rest, rows not a
+# multiple of 64) at level 0's widths, at the first layer's and at the
+# widest; one row (with its real neighbours)
+KPCONV_SPARSE_CARD_CASES = [
+    (3, 150, 120, 40, 15, 16, 16), (2, 140, 130, 40, 15, 3, 32),
+    (2, 90, 70, 40, 15, 256, 256), (1, 1, 5, 40, 15, 16, 16),
+    (1, 1, 5, 40, 15, 3, 32)]
 
 
 @pytest.mark.cuda
@@ -269,8 +283,10 @@ def test_kpconv_kernels_match_plain_versions_on_the_card():
                     "at the main path's shapes")
     from dpcr_agb_tpu_torch.ops import kpconv
     rng = np.random.default_rng(3)
-    for case in KPCONV_CARD_CASES:
-        q, s, nbr, x, kp, w, g = _kpconv_case(rng, *case, device="cuda")
+    for case, shadow_rows in [(c, 0.0) for c in KPCONV_CARD_CASES] \
+            + [(c, 0.9 * (c[1] > 1)) for c in KPCONV_SPARSE_CARD_CASES]:
+        q, s, nbr, x, kp, w, g = _kpconv_case(rng, *case, device="cuda",
+                                              shadow_rows=shadow_rows)
         rel = kpconv.shared_rel(q, s, nbr)
         modes = [(i, a) for i in kpconv.INFLUENCES
                  for a in kpconv.AGGREGATIONS] if case[5] <= 16 \
@@ -287,7 +303,7 @@ def test_kpconv_kernels_match_plain_versions_on_the_card():
                 torch.testing.assert_close(
                     got, want, rtol=rtol, msg=lambda m: f"{what}: {m}",
                     atol=atol * want.abs().max().item())
-                assert not got[:, case[1] // 2].any(), what
+                assert case[1] == 1 or not got[:, case[1] // 2].any(), what
                 dx_w, dw_w = kpconv.kpconv_fused_bwd_plain(*args, g, *tail)
                 dx, dw = kpconv.kpconv_backward(*args, g, *tail)
                 torch.testing.assert_close(
@@ -296,6 +312,9 @@ def test_kpconv_kernels_match_plain_versions_on_the_card():
                 torch.testing.assert_close(
                     dw, dw_w, rtol=rtol, msg=lambda m: f"dW {what}: {m}",
                     atol=atol * dw_w.abs().max().item())
+                # dW is summed in a fixed order: two runs, the same bits
+                assert torch.equal(kpconv.kpconv_backward(*args, g, *tail)[1],
+                                   dw), what
 
 
 @pytest.mark.cuda
@@ -328,6 +347,17 @@ def test_firewall_and_volume_backward_kernels_on_the_card():
                 assert got.is_contiguous() and got.shape == v.shape
                 assert got.numel() == 0 or got.data_ptr() != v.data_ptr()
                 assert torch.equal(got, dense_stem.firewall_copy_plain(v))
+        # NCDHW buffers behind NDHWC views (the transpose kernel), sizes
+        # ragged against its tiles (3 x 320 at C 3, 32 x 32 at C 64 and
+        # C 33), also from a base one element past an aligned one
+        for c, dhw in ((3, (5, 7, 11)), (64, (3, 5, 7)), (33, (2, 3, 5))):
+            n = 2 * c * int(np.prod(dhw))
+            flat = torch.randn(n + 1, generator=g, device="cuda").to(dtype)
+            for base in (flat[:n], flat[1:]):
+                v = base.view(2, c, *dhw).permute(0, 2, 3, 4, 1)
+                got = dense_stem.firewall_copy(v)
+                assert got.is_contiguous() and torch.equal(
+                    got, dense_stem.firewall_copy_plain(v)), (c, dtype)
         t = torch.randn((3, 5, 4, 6, 8), generator=g, device="cuda").to(
             dtype).requires_grad_(True)
         ct = torch.randn((3, 8, 5, 4, 6), generator=g, device="cuda").to(
