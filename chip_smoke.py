@@ -5,8 +5,10 @@
                           [--only SENet14|KPConv|SENet14-denseL0|SENet50]
 
 Phases, each printing one JSON line; any failure exits non-zero:
-  device   the card's name and power limit; builds the eight CUDA kernels
-           from dpcr_agb_tpu_torch/kernels/csrc for sm_90a (build seconds)
+  device   the card's name and power limit, the float32 settings pinned by
+           `device.pin_numerics` (TF32 off: what the entry points pin);
+           builds the kernels from dpcr_agb_tpu_torch/kernels/csrc for
+           sm_90a (build seconds)
 Then for each configuration (`--only` keeps one of them): SENet14 with the
 sparse level 0, KPConv, SENet14 with the dense level 0 (DPCR_L0=dense,
 DPCR_STEM_MODE=zfold2d_firewall, DPCR_POOL_BWD=pallas, set around its entry
@@ -17,47 +19,61 @@ points as a user would) and SENet50 (bottleneck blocks, sparse level 0):
            the plain version and one PyTorch call of the same function
            where there is one (time yardsticks the port never calls), and
            the least time the card could take (bound_ms, from what this
-           run's data needs). firewall_copy and kpconv_fused_bwd, and their
-           yardsticks, also get device_ms: CUDA events around 20
-           back-to-back calls queued behind a spin kernel, so without the
-           host's launch path; kpconv_fused_bwd also the device ms of each
-           of its own kernels (sub_kernels, torch.profiler) and a check
-           that two runs give the same dW bit for bit. SENet14: stem_sites and max_pool_k3s2 at the
-           first serving batch's shapes, stem_sites_dw and
-           max_pool_k3s2_bwd at the first train batch's (SENet50 runs the
-           same four kernels at the same shapes: its rows are SENet14's
-           unless it runs alone). KPConv: kpconv_fused and kpconv_fused_bwd
-           on the inputs that the first serving batch gives the first
-           layer (C 3 -> 32), a level-0 layer (C 16 -> 16) and the last
-           level-4 layer (C 256 -> 256). Dense level 0: firewall_copy at
-           the stem's input and output shapes of the first serving and the
-           first train batch, from a contiguous and from a permuted
-           (NCDHW-strided) source; max_pool_k3s2 on the dense path's pool
-           input of the serving batch and max_pool_k3s2_bwd_vol on that of
-           the train batch
+           run's data needs); each of the three also as device_ms: CUDA
+           events around back-to-back calls queued behind a spin kernel,
+           so without the host's launch path. kpconv_fused and
+           kpconv_fused_bwd also the device ms of each of their own
+           kernels (sub_kernels, torch.profiler). Every sum that a train
+           step takes in a fixed order is checked to give the same bits in
+           two runs (stem_sites_dw, kpconv_fused_bwd's dx and dW,
+           gather_rows_bwd).
+           SENet14: stem_sites and max_pool_k3s2 at the first serving
+           batch's shapes, stem_sites_dw and max_pool_k3s2_bwd at the
+           first train batch's (SENet50 runs the same four kernels at the
+           same shapes: its rows are SENet14's unless it runs alone).
+           KPConv: kpconv_fused and kpconv_fused_bwd on the inputs that
+           the first serving batch gives the first layer (C 3 -> 32), a
+           level-0 layer (C 16 -> 16) and the last level-4 layer (C 256 ->
+           256); both at all 14 layers (the kpconv_layers line: errors,
+           ms, device_ms and their sums) and at the bench's K 51 and 70;
+           gather_rows_bwd at the first strided shortcut. Dense level 0:
+           firewall_copy at the stem's input and output shapes of the
+           first serving and the first train batch, from a contiguous and
+           from a permuted (NCDHW-strided) source; max_pool_k3s2 on the
+           dense path's pool input of the serving batch and
+           max_pool_k3s2_bwd_vol on that of the train batch
   serve    the full-width model (f32, then bf16): 16 synthetic plots dense
            enough that MaxPoints binds (sparse-voxel nets: V bucket 16384;
            KPConv: N bucket 8192) served by
-           `dpcr_agb_tpu_torch.predict.main` from a port checkpoint with
-           seeded random weights; checks 16 finite prediction rows, the
-           launches of that run (KPConv: 14 kpconv_fused; dense level 0:
-           firewall_copy 2, max_pool_k3s2 1, the row kernels 0), and that
-           the raw outputs equal a run through the plain versions; prints
-           plots/s (KPConv: and the neighbour search's share of the
-           forward, after checking that two pyramids of the batch are
-           bit-identical; dense level 0: and that the same checkpoint
-           served through the sparse level 0 agrees)
-  train    the full-width model (f32 with TF32 off, then bf16) trained by
-           `dpcr_agb_tpu_torch.train.main` for 6 steps at bs16 on the same
+           `dpcr_agb_tpu_torch.predict.main` (started from PyTorch's
+           default float32 settings: it must pin TF32 off itself) from a
+           port checkpoint with seeded random weights; checks 16 finite
+           prediction rows, the launches of that run (KPConv: 14
+           kpconv_fused; dense level 0: firewall_copy 2, max_pool_k3s2 1,
+           the row kernels 0), and that the raw outputs equal a run
+           through the plain versions; prints plots/s (KPConv: and the
+           neighbour search's share of the forward, after checking that
+           two pyramids of the batch are bit-identical; dense level 0: and
+           that the same checkpoint served through the sparse level 0
+           agrees)
+  train    the full-width model (f32, then bf16) trained by
+           `dpcr_agb_tpu_torch.train.main` (it must pin TF32 off and
+           record that in its checkpoint) for 6 steps at bs16 on the same
            plots and their targets: 6 finite losses, the launches of every
-           step (KPConv: 14 kpconv_fused and 14 kpconv_fused_bwd; dense
-           level 0: firewall_copy 3, max_pool_k3s2 and
-           max_pool_k3s2_bwd_vol 1, the row kernels 0); one step from one
-           state through the kernels and through the plain versions (loss,
-           every gradient, the updated parameters and BN running stats
-           within stated tolerances); train_step_ms (median of 5 steps on
-           a device-resident batch), plots/s and peak memory; then
-           `predict.main` serves the trained checkpoint (16 finite rows)
+           step (KPConv: 14 kpconv_fused, 14 kpconv_fused_bwd and 4
+           gather_rows_bwd; dense level 0: firewall_copy 3, max_pool_k3s2
+           and max_pool_k3s2_bwd_vol 1, the row kernels 0); one step from
+           one state through the kernels and through the plain versions
+           (loss, every gradient, the updated parameters and BN running
+           stats within stated tolerances); train_step_ms (median of 5
+           steps on a device-resident batch), and again with
+           cudnn.deterministic, plots/s and peak memory; then
+           `predict.main` serves the trained checkpoint (16 finite rows);
+           then train_reproducible: train.main a second time with the same
+           seed, losses and final state compared bit for bit (KPConv must
+           agree; elsewhere a differing run names the parameter where the
+           difference starts and whether deterministic algorithms remove
+           it)
 Then the kernels summary line, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`. Without CUDA (or without the rest of
 the repository) it exits non-zero before printing any result."""
@@ -98,6 +114,9 @@ KP_FWD_SRC = "dpcr_agb_tpu_torch/kernels/csrc/kpconv_fwd.cu"
 KP_BWD_SRC = "dpcr_agb_tpu_torch/kernels/csrc/kpconv_bwd.cu"
 KP_FWD_REPLACES = "dpcr_agb_tpu/ops/pallas_kpconv.py:222"
 KP_BWD_REPLACES = "dpcr_agb_tpu/ops/pallas_kpconv.py:249"
+# no Pallas kernel: the JAX package's gather backward is XLA autodiff of
+# its row gather
+GATHER_REPLACES = "dpcr_agb_tpu/models/kpconv.py:59"
 N_PLOTS = 16     # one serving batch of bench.py's size, the train batch
 DENSITY = 60.0   # points per m^2: MaxPoints binds (16000 and 6144)
 TRAIN_STEPS = 6
@@ -114,17 +133,23 @@ _ROW_KERNELS = {"stem_sites": 0, "stem_sites_dw": 0, "max_pool_k3s2_bwd": 0}
 # per path: the entry points' model_name, the mode variables, which
 # kernels phase it gets, the kernels serving launches and the ones training
 # adds, and where the count is fixed, the launches of each kernel in one
-# forward and in one train step (KPCNN's 14 blocks hold one KPConv each;
-# the dense level 0 copies the stem's input, its output and the output's
-# cotangent, and pools once each way)
+# forward and in one train step (KPCNN's 14 blocks hold one KPConv each
+# and 4 strided shortcuts; the dense level 0 copies the stem's input, its
+# output and the output's cotangent, and pools once each way); and whether
+# two same-seed runs of train.main must agree bit for bit (every sum of
+# the KPConv step runs in a fixed order; the sparse-voxel nets' f32 steps
+# go through cuDNN's own choice of algorithms)
 MODELS = {
     "SENet14": {"model_name": "SENet14", **_SPARSE_L0},
     "KPConv": {"model_name": "KPConv", "env": {}, "kernels": "kpconv",
                "forward": ("kpconv_fused",),
-               "backward": ("kpconv_fused_bwd",),
-               "exact": {"forward": {"kpconv_fused": 14},
+               "backward": ("kpconv_fused_bwd", "gather_rows_bwd"),
+               "exact": {"forward": {"kpconv_fused": 14,
+                                     "gather_rows_bwd": 0},
                          "step": {"kpconv_fused": 14,
-                                  "kpconv_fused_bwd": 14}}},
+                                  "kpconv_fused_bwd": 14,
+                                  "gather_rows_bwd": 4}},
+               "reproducible": True},
     "SENet14-denseL0": {
         "model_name": "SENet14", "kernels": "dense_l0",
         "env": {"DPCR_L0": "dense", "DPCR_STEM_MODE": "zfold2d_firewall",
@@ -161,6 +186,9 @@ STEP_TOL = {"float32": {"loss": 1e-5, "grads": 1e-4, "grad": 1e-3,
 # and allows each quantity 4 times what one rounding does to it.
 
 RECORD = []
+# the KPConv layer sweep of the kernels phase (its sums stand beside the
+# serve and train profiles)
+KP_SWEEP: dict = {}
 
 
 @contextlib.contextmanager
@@ -236,12 +264,14 @@ def _sleep_cycles_per_ms() -> float:
     return _SLEEP_CYCLES_PER_MS[0]
 
 
-def device_ms(fn, n: int = 20, warmup: int = 3, reps: int = 3) -> float:
+def device_ms(fn, n: int = 20, warmup: int = 3, reps: int = 3,
+              attempts: int = 3) -> float:
     """Device time of one fn() without the host's launch path: CUDA events
     around n back-to-back calls, queued behind a spin kernel that lasts
-    twice as long as their enqueueing, over n (median of reps). Raises if
-    the enqueueing outlasted the spin (the calls would have waited for the
-    host)."""
+    four times as long as their enqueueing, over n (median of reps). A rep
+    whose enqueueing outlasted its spin (the calls would have waited for
+    the host) is taken again behind a spin twice as long, `attempts` times
+    in all; then it raises."""
     import torch
     for _ in range(warmup):
         fn()
@@ -251,24 +281,58 @@ def device_ms(fn, n: int = 20, warmup: int = 3, reps: int = 3) -> float:
         fn()
     enqueue_ms = (time.perf_counter() - t) * 1e3
     torch.cuda.synchronize()
-    spin_ms = 2 * enqueue_ms + 1.0
+    spin_ms = 4 * enqueue_ms + 2.0
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(spin_ms * _sleep_cycles_per_ms()))
-        t = time.perf_counter()
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        queued_ms = (time.perf_counter() - t) * 1e3
-        end.synchronize()
-        if queued_ms > spin_ms:
+        for _ in range(attempts):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(spin_ms * _sleep_cycles_per_ms()))
+            t = time.perf_counter()
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            queued_ms = (time.perf_counter() - t) * 1e3
+            end.synchronize()
+            if queued_ms <= spin_ms:
+                break
+            spin_ms *= 2
+        else:
             raise AssertionError(f"device_ms: enqueueing took {queued_ms} "
-                                 f"ms, longer than the {spin_ms} ms spin")
+                                 f"ms, longer than the {spin_ms / 2} ms "
+                                 f"spin, {attempts} times")
         times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
+
+
+def device_ms_of(fn, ms: float, attempts: int = 3,
+                 optional: bool = False):
+    """`device_ms` with as many calls as take ~0.1 s at `ms` a call (3 to
+    20). With `optional`, None where fn waits for the host (a plain
+    version that reads a value back): its device time then cannot be told
+    from the host's. Otherwise that raises."""
+    n = max(3, min(20, int(100.0 / max(ms, 1e-3))))
+    try:
+        return device_ms(fn, n=n, warmup=1 if n < 20 else 3,
+                         attempts=attempts)
+    except AssertionError:
+        if not optional:
+            raise
+        return None
+
+
+def device_row(kernel, plain, library, ms: float, plain_ms: float,
+               library_ms) -> dict:
+    """device_ms of a kernel (which must have one), of its plain version
+    and of its yardstick (None where there is none or where it waits for
+    the host), timed as `device_ms_of` times them."""
+    return {"device_ms": device_ms_of(kernel, ms),
+            # a plain version that reads a value back never fits the spin
+            "plain_device_ms": device_ms_of(plain, plain_ms, attempts=1,
+                                            optional=True),
+            "library_device_ms": None if library is None
+            else device_ms_of(library, library_ms, optional=True)}
 
 
 def kernel_ms(fn, reps: int = 5) -> dict:
@@ -294,7 +358,7 @@ def kernel_ms(fn, reps: int = 5) -> dict:
 
 @contextlib.contextmanager
 def plain_ops():
-    """Route the models' eight kernel ops to their plain PyTorch versions
+    """Route the models' nine kernel ops to their plain PyTorch versions
     (the reference runs of the serve and train phases); raises if a kernel
     launched inside, i.e. if the reference did not really take the plain
     path."""
@@ -309,7 +373,8 @@ def plain_ops():
                "masked_max_pool_bwd_vol_plain"),
               (dense_stem, "firewall_copy", "firewall_copy_plain"),
               (kpconv, "kpconv_forward", "kpconv_fused_plain"),
-              (kpconv, "kpconv_backward", "kpconv_fused_bwd_plain")]
+              (kpconv, "kpconv_backward", "kpconv_fused_bwd_plain"),
+              (kpconv, "gather_rows_backward", "gather_rows_bwd_plain")]
     saved = [getattr(mod, name) for mod, name, _ in routes]
     for mod, name, plain in routes:
         setattr(mod, name, getattr(mod, plain))
@@ -364,7 +429,7 @@ def make_checkpoint(root: str, name: str, model_name: str, option: dict,
     return ckpt
 
 
-def phase_device() -> dict:
+def phase_device(pinned: dict) -> dict:
     import torch
     from dpcr_agb_tpu_torch.kernels import build
     smi = nvidia_smi_line()
@@ -376,6 +441,7 @@ def phase_device() -> dict:
     out = {"phase": "device", "name": torch.cuda.get_device_name(0),
            "nvidia_smi": smi, "count": torch.cuda.device_count(),
            "torch": torch.__version__, "cuda": torch.version.cuda,
+           "numerics": pinned,
            "build_seconds": round(seconds, 3),
            "built": {k: not v["cached"] for k, v in report.items()},
            "ptxas": ptxas}
@@ -479,6 +545,11 @@ def phase_kernels(bundles: dict, batch, train_batch, smi: str,
             del dense
             lib_ms = time_ms(lambda: F.conv3d(vol_nc, w_nc, bias, padding=3),
                              n=5, warmup=1)
+            devs = device_row(
+                lambda: stem_conv_sites(vol, coords, mask, wts, bias),
+                lambda: stem_conv_sites_plain(vol, coords, mask, wts, bias),
+                lambda: F.conv3d(vol_nc, w_nc, bias, padding=3), ms,
+                plain_ms, lib_ms)
             del vol_nc
             # what this data needs: the volume cells within reach of an
             # occupied site, and one product per non-zero neighbour value
@@ -495,7 +566,7 @@ def phase_kernels(bundles: dict, batch, train_batch, smi: str,
                 "source": STEM_SRC, "replaces": STEM_REPLACES,
                 "launches": None, "max_abs_err": err,
                 "max_abs_plain": _amax(want), "tolerance": tol,
-                "ms": ms, "plain_ms": plain_ms,
+                "ms": ms, "plain_ms": plain_ms, **devs,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes > t_ops else "operations",
                 "library_ms": lib_ms,
@@ -544,6 +615,10 @@ def pool_forward_row(x, occ, dtname: str, smi: str, case=None) -> dict:
     ncdhw = filled.permute(0, 4, 1, 2, 3).contiguous()
     del filled
     lib_ms = time_ms(lambda: F.max_pool3d(ncdhw, 3, 2, 1))
+    devs = device_row(lambda: masked_max_pool(x, occ),
+                      lambda: masked_max_pool_plain(x, occ),
+                      lambda: F.max_pool3d(ncdhw, 3, 2, 1), ms_p, plain_ms_p,
+                      lib_ms)
     del ncdhw
     # what this data needs: the occupancy, x at the occupied cells (the
     # rest counts as -inf), all of y; one max per occupied input value in
@@ -558,7 +633,8 @@ def pool_forward_row(x, occ, dtname: str, smi: str, case=None) -> dict:
         "route": "cuda", "source": POOL_SRC, "replaces": POOL_REPLACES,
         "launches": None, "max_abs_err": err_p,
         "max_abs_plain": _amax(want_p), "tolerance": "exact",
-        "ms": ms_p, "plain_ms": plain_ms_p, "bound_ms": max(t_bytes, t_ops),
+        "ms": ms_p, "plain_ms": plain_ms_p, **devs,
+        "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes > t_ops else "operations",
         "library_ms": lib_ms,
         "library": "F.max_pool3d k3 s2 p1 on the -inf-filled NCDHW volume",
@@ -696,6 +772,12 @@ def dense_l0_kernel_rows(bundles: dict, batch, train_batch, smi: str,
             lib_ms = time_ms(lambda: aten_bwd(
                 ct_nc, x_nc, [3, 3, 3], [2, 2, 2], [1, 1, 1], [1, 1, 1],
                 False, idx), n=5, warmup=1)
+            devs = device_row(
+                lambda: pool.masked_max_pool_bwd_vol(x, occ, y, ct),
+                lambda: pool.masked_max_pool_bwd_vol_plain(x, occ, y, ct),
+                lambda: aten_bwd(ct_nc, x_nc, [3, 3, 3], [2, 2, 2],
+                                 [1, 1, 1], [1, 1, 1], False, idx),
+                ms, plain_ms, lib_ms)
             del x_nc, ct_nc, idx
             torch.cuda.empty_cache()
             # what this data needs: the occupancy of every cell and dx
@@ -718,7 +800,7 @@ def dense_l0_kernel_rows(bundles: dict, batch, train_batch, smi: str,
                 "source": POOL_BWD_SRC, "replaces": POOL_BWD_REPLACES,
                 "launches": None, "max_abs_err": err, "max_abs_plain": amax,
                 "tolerance": "exact", "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
+                **devs, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes > t_ops else "operations",
                 "library_ms": lib_ms,
                 "library": "aten.max_pool3d_with_indices_backward on the "
@@ -774,10 +856,14 @@ def backward_kernel_rows(net, tb, dtname: str, smi: str, seed: int) -> list:
         got = stem_conv_sites_dw(vol, coords, mask, ct)
         want = stem_conv_sites_dw_plain(vol, coords, mask, ct)
         torch.cuda.synchronize()
-        # f32 sums in both; the kernel's f32 atomics add in a varying order
+        # f32 sums in both, in another order
         scale = want.abs().max().item()
         err = _check_close(f"stem_sites_dw {dtname}", got, want, 1e-4,
                            2e-5 * scale)
+        # a fixed order: a second run, the same bits
+        if not torch.equal(stem_conv_sites_dw(vol, coords, mask, ct), got):
+            raise AssertionError(f"stem_sites_dw {dtname}: two runs give "
+                                 f"different dW")
         ms = time_ms(lambda: stem_conv_sites_dw(vol, coords, mask, ct))
         plain_ms = time_ms(lambda: stem_conv_sites_dw_plain(vol, coords,
                                                              mask, ct))
@@ -789,6 +875,12 @@ def backward_kernel_rows(net, tb, dtname: str, smi: str, seed: int) -> list:
         del ct_v
         lib_ms = time_ms(lambda: torch.nn.grad.conv3d_weight(
             vol_nc, (64, cin, 7, 7, 7), ct_nc, padding=3), n=5, warmup=1)
+        devs = device_row(
+            lambda: stem_conv_sites_dw(vol, coords, mask, ct),
+            lambda: stem_conv_sites_dw_plain(vol, coords, mask, ct),
+            lambda: torch.nn.grad.conv3d_weight(
+                vol_nc, (64, cin, 7, 7, 7), ct_nc, padding=3),
+            ms, plain_ms, lib_ms)
         del vol_nc, ct_nc
         torch.cuda.empty_cache()
         # what this data needs: the volume cells within reach of a site and
@@ -805,8 +897,10 @@ def backward_kernel_rows(net, tb, dtname: str, smi: str, seed: int) -> list:
             "name": "stem_sites_dw", "dtype": dtname, "route": "cuda",
             "source": DW_SRC, "replaces": DW_REPLACES, "launches": None,
             "max_abs_err": err, "max_abs_plain": scale,
-            "tolerance": "rtol 1e-4, atol 2e-5 * max|plain| (f32 atomics)",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "tolerance": "rtol 1e-4, atol 2e-5 * max|plain| (f32 sums in "
+                         "another order)", "reproducible": True,
+            "ms": ms, "plain_ms": plain_ms, **devs,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "library_ms": lib_ms,
             "library": "torch.nn.grad.conv3d_weight k7 pad 3, NCDHW",
@@ -850,6 +944,14 @@ def backward_kernel_rows(net, tb, dtname: str, smi: str, seed: int) -> list:
         lib_ms_p = time_ms(lambda: aten_bwd(ct_nc, x_nc, [3, 3, 3],
                                             [2, 2, 2], [1, 1, 1], [1, 1, 1],
                                             False, idx), n=5, warmup=1)
+        devs = device_row(
+            lambda: masked_max_pool_bwd_rows(coords, mask, h_rows, y, occ_l,
+                                             ct, dims),
+            lambda: masked_max_pool_bwd_rows_plain(coords, mask, h_rows, y,
+                                                   occ_l, ct, dims),
+            lambda: aten_bwd(ct_nc, x_nc, [3, 3, 3], [2, 2, 2], [1, 1, 1],
+                             [1, 1, 1], False, idx), ms_p, plain_ms_p,
+            lib_ms_p)
         del x_nc, ct_nc, idx
         torch.cuda.empty_cache()
         # what this data needs: coords and mask, h at the occupied rows, y
@@ -870,7 +972,7 @@ def backward_kernel_rows(net, tb, dtname: str, smi: str, seed: int) -> list:
             "source": POOL_BWD_SRC, "replaces": POOL_BWD_REPLACES,
             "launches": None, "max_abs_err": err_p,
             "max_abs_plain": _amax(want), "tolerance": "exact",
-            "ms": ms_p, "plain_ms": plain_ms_p,
+            "ms": ms_p, "plain_ms": plain_ms_p, **devs,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "library_ms": lib_ms_p,
@@ -903,27 +1005,204 @@ def kpconv_work(nbr, rel, kernel_points, extent: float, influence: str,
             "rows_of_x_read": int(torch.unique(flat).numel())}
 
 
+def capture_kpconv_inputs(net, tb) -> tuple:
+    """One forward of the KPCNN `net` on the device batch tb: the inputs
+    (nbr, x, rel) of each of its 14 KPConvs by block, and those of each
+    strided shortcut's max pool (x, nbr) by block."""
+    import torch
+    from dpcr_agb_tpu_torch.models import kpconv as kmodel
+    convs, pools = {}, {}
+    blocks = [bi for bi, *_ in net.blocks if hasattr(net, f"block{bi}_kpconv")]
+    hooks = [getattr(net, f"block{bi}_kpconv").register_forward_pre_hook(
+        lambda mod, args, bi=bi: convs.__setitem__(
+            bi, tuple(a.detach() for a in args[:3]))) for bi in blocks]
+    pool, order = kmodel.max_pool_zero_shadow_batched, []
+
+    def record(x, nbr, rev=None):
+        order.append((x.detach(), nbr))
+        return pool(x, nbr, rev)
+
+    kmodel.max_pool_zero_shadow_batched = record
+    try:
+        with torch.no_grad():
+            net(tb)
+    finally:
+        kmodel.max_pool_zero_shadow_batched = pool
+        for h in hooks:
+            h.remove()
+    strided = [bi for bi, block, *_ in net.blocks if "strided" in block]
+    return convs, dict(zip(strided, order))
+
+
+# layers whose nbr the kernels are also held at with the bench's
+# neighbourhood limits (bench.py:179: K 51 at level 2, 70 at level 3)
+KP_WIDE_K = ((6, 2, 51), (9, 3, 70))
+KP_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (0.0, 1e-2)}
+
+
+def kpconv_layer_sweep(net, tb, convs: dict, smi: str, seed: int) -> dict:
+    """kpconv_fused and kpconv_fused_bwd at all 14 layers of the first
+    serving batch, f32 and bf16: each held against its plain version at
+    the stated tolerances, dx and dW the same bits in two runs, timed (ms,
+    device_ms; their sums over the 14 layers stand beside the profile's
+    totals); then both at K 51 and 70 (the bench's limits) on level 2's and
+    level 3's points, against their plain versions."""
+    import torch
+    from dpcr_agb_tpu_torch.ops import kpconv
+    from dpcr_agb_tpu_torch.ops.neighbors import radius_neighbors
+    dev = tb.pos.device
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    out = {"phase": "kpconv_layers", "card": smi}
+
+    def check(what, x, nbr, rel, op, dtname, timed):
+        dt = getattr(torch, dtname)
+        ns = x.shape[1]
+        rev = kpconv.reverse_edges(nbr, ns)
+        w = op.weights.detach().contiguous()
+        tail = (op.extent, op.influence, op.aggregation)
+        args = (x.to(dt).contiguous(), nbr, rel, w, op.kernel_points)
+        ct = torch.randn((*nbr.shape[:2], w.shape[-1]), generator=g,
+                         device=dev)
+        rtol, atol = KP_TOL[dtname]
+        with torch.no_grad():
+            want = kpconv.kpconv_fused_plain(*args, *tail)
+            got = kpconv.kpconv_forward(*args, *tail)
+            row = {"x": list(x.shape), "nbr": list(nbr.shape),
+                   "cout": w.shape[-1],
+                   "fwd_max_abs_err": _check_close(
+                       f"kpconv_fused {what} {dtname}", got, want, rtol,
+                       atol * _amax(want)),
+                   "fwd_max_abs_plain": _amax(want)}
+            dx_w, dw_w = kpconv.kpconv_fused_bwd_plain(*args, ct, *tail)
+            dx, dw = kpconv.kpconv_backward(*args, ct, *tail, rev=rev)
+            for n, a_, b_ in (("dx", dx, dx_w), ("dw", dw, dw_w)):
+                row[f"{n}_max_abs_err"] = _check_close(
+                    f"kpconv_fused_bwd {n} {what} {dtname}", a_, b_, rtol,
+                    atol * _amax(b_))
+                row[f"{n}_max_abs_plain"] = _amax(b_)
+            dx2, dw2 = kpconv.kpconv_backward(*args, ct, *tail, rev=rev)
+            if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+                raise AssertionError(f"kpconv_fused_bwd {what} {dtname}: "
+                                     f"two runs differ")
+            del want, got, dx_w, dw_w, dx, dw, dx2, dw2
+            if timed:
+                def fwd():
+                    return kpconv.kpconv_forward(*args, *tail)
+
+                def bwd():
+                    return kpconv.kpconv_backward(*args, ct, *tail, rev=rev)
+
+                row.update(fwd_ms=time_ms(fwd), fwd_device_ms=device_ms(fwd),
+                           bwd_ms=time_ms(bwd), bwd_device_ms=device_ms(bwd))
+        return row
+
+    for dtname in ("float32", "bfloat16"):
+        layers = []
+        for bi in sorted(convs):
+            nbr, x, rel = convs[bi]
+            layers.append({"block": bi, **check(
+                f"block {bi}", x, nbr, rel, getattr(net, f"block{bi}_kpconv"),
+                dtname, True)})
+        out[dtname] = {"layers": layers, **{
+            f"{k}_sum": sum(r[k] for r in layers) for k in (
+                "fwd_ms", "fwd_device_ms", "bwd_ms", "bwd_device_ms")}}
+    # the bench's neighbourhood limits on this batch's pyramid
+    pyr = net.device_pyramid(tb.pos, tb.mask)
+    wide = []
+    for bi, level, k in KP_WIDE_K:
+        _, x, _ = convs[bi]
+        p, m = pyr[f"kp_pts{level}"], pyr[f"kp_mask{level}"]
+        r = net.first_subsampling_dl * net.conv_radius * 2 ** level
+        nbr = radius_neighbors(p, m, p, m, r, k)
+        rel = kpconv.shared_rel(p, p, nbr)
+        for dtname in ("float32", "bfloat16"):
+            wide.append({"block": bi, "level": level, "k": k,
+                         "dtype": dtname,
+                         "filled_slots": int((nbr < x.shape[1]).sum()),
+                         **check(f"block {bi} K {k}", x, nbr, rel,
+                                 getattr(net, f"block{bi}_kpconv"), dtname,
+                                 False)})
+    out["wide_k"] = wide
+    emit(out)
+    return out
+
+
+def gather_kernel_rows(x, nbr, smi: str, seed: int) -> list:
+    """gather_rows_bwd (the strided shortcut's gather backward) at the
+    first shortcut's shapes of the first serving batch, f32: against its
+    plain version (index_add_), the same bits in two runs, timed beside
+    one `torch.index_add` of the same rows."""
+    import torch
+    from dpcr_agb_tpu_torch.ops import kpconv
+    b, ns, c = x.shape
+    g = torch.Generator(device=x.device).manual_seed(seed + 2)
+    ct = torch.randn((*nbr.shape, c), generator=g, device=x.device)
+    rev = kpconv.reverse_edges(nbr, ns)
+    got = kpconv.gather_rows_backward(ct, nbr, ns, rev)
+    want = kpconv.gather_rows_bwd_plain(ct, nbr, ns)
+    torch.cuda.synchronize()
+    err = _check_close("gather_rows_bwd", got, want, 1e-5, 1e-6 * _amax(want))
+    if not torch.equal(kpconv.gather_rows_backward(ct, nbr, ns, rev), got):
+        raise AssertionError("gather_rows_bwd: two runs differ")
+    idx = (torch.where(nbr < ns, nbr.long(), ns)
+           + (torch.arange(b, device=x.device) * (ns + 1))[:, None, None]
+           ).reshape(-1)
+    zero = torch.zeros((b * (ns + 1), c), device=x.device)
+    flat = ct.reshape(-1, c)
+
+    def kernel():
+        return kpconv.gather_rows_backward(ct, nbr, ns, rev)
+
+    def plain():
+        return kpconv.gather_rows_bwd_plain(ct, nbr, ns)
+
+    def library():
+        return torch.index_add(zero, 0, idx, flat)
+
+    ms, plain_ms, lib_ms = (time_ms(f) for f in (kernel, plain, library))
+    devs = device_row(kernel, plain, library, ms, plain_ms, lib_ms)
+    # nbr and the real edges' cotangent rows read once, dx written once
+    # (the reverse index is the kernel's own helper, not counted: nbr
+    # alone says where dx goes); an add per real edge and channel
+    real = int((nbr < ns).sum())
+    nbytes = real * c * 4 + nbr.numel() * 4 + b * ns * c * 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = real * c / PEAK_FLOPS["float32"] * 1e3
+    return [{
+        "name": "gather_rows_bwd", "dtype": "float32",
+        "case": "first strided shortcut (level 0 -> 1)", "route": "cuda",
+        "source": KP_BWD_SRC, "replaces": GATHER_REPLACES, "launches": None,
+        "max_abs_err": err, "max_abs_plain": _amax(want),
+        "tolerance": "rtol 1e-5, atol 1e-6 * max|plain| (index_add_ adds "
+                     "with atomics)",
+        "ms": ms, "plain_ms": plain_ms, **devs,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes > t_ops else "operations",
+        "library_ms": lib_ms,
+        "library": "torch.index_add of the cotangent rows",
+        "reproducible": True,
+        "shape": {"x": list(x.shape), "nbr": list(nbr.shape),
+                  "real_edges": real, "needed_bytes": nbytes},
+        "card": smi}]
+
+
 def phase_kpconv_kernels(bundle, batch, smi: str, seed: int) -> list:
     """kpconv_fused and kpconv_fused_bwd in f32 and bf16 on the inputs that
     the first serving batch gives the layers of KP_CASES (captured by
-    hooks during one forward), cotangents drawn from `seed`."""
+    hooks during one forward), cotangents drawn from `seed`; the sweep
+    over all 14 layers and K 51/70 (`kpconv_layer_sweep`), and
+    gather_rows_bwd."""
     import torch
     from dpcr_agb_tpu_torch.ops import kpconv
     net, dev = bundle.net, bundle.device
     tb = batch.to(dev)
-    captured = {}
-    hooks = [getattr(net, f"block{bi}_kpconv").register_forward_pre_hook(
-        lambda mod, args, bi=bi: captured.__setitem__(
-            bi, tuple(a.detach() for a in args))) for bi, _ in KP_CASES]
-    with torch.no_grad():
-        net(tb)
-    for h in hooks:
-        h.remove()
+    convs, pools = capture_kpconv_inputs(net, tb)
+    KP_SWEEP.update(kpconv_layer_sweep(net, tb, convs, smi, seed))
     g = torch.Generator(device=dev).manual_seed(seed)
-    rows = []
+    rows = gather_kernel_rows(*pools[min(pools)], smi, seed)
     for bi, case in KP_CASES:
         op = getattr(net, f"block{bi}_kpconv")
-        nbr, x, rel = captured.pop(bi)
+        nbr, x, rel = convs[bi]
         w = op.weights.detach().contiguous()
         kp = op.kernel_points
         tail = (op.extent, op.influence, op.aggregation)
@@ -954,6 +1233,12 @@ def phase_kpconv_kernels(bundle, batch, smi: str, seed: int) -> list:
                 ms = time_ms(lambda: kpconv.kpconv_forward(*args, *tail))
                 plain_ms = time_ms(lambda: kpconv.kpconv_fused_plain(
                     *args, *tail), n=5, warmup=1)
+                devs = device_row(
+                    lambda: kpconv.kpconv_forward(*args, *tail),
+                    lambda: kpconv.kpconv_fused_plain(*args, *tail), None,
+                    ms, plain_ms, None)
+                devs["sub_kernels"] = kernel_ms(
+                    lambda: kpconv.kpconv_forward(*args, *tail))
                 # each input read once (of x the distinct rows that some
                 # neighbour list names), the output written once; a
                 # multiply-add per weighted pair and channel, then per
@@ -971,14 +1256,15 @@ def phase_kpconv_kernels(bundle, batch, smi: str, seed: int) -> list:
                     "replaces": KP_FWD_REPLACES, "launches": None,
                     "max_abs_err": err, "max_abs_plain": scale,
                     "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": max(t_bytes, t_ops),
+                    **devs, "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes > t_ops else "operations",
                     "library_ms": None,
                     "library": "none: no one PyTorch call computes it",
                     "shape": {**shape, "needed_flops": flops,
                               "needed_bytes": nbytes}, "card": smi})
 
-                dx, dw = kpconv.kpconv_backward(*args, ct, *tail)
+                rev = kpconv.reverse_edges(nbr, ns)
+                dx, dw = kpconv.kpconv_backward(*args, ct, *tail, rev=rev)
                 dx_w, dw_w = kpconv.kpconv_fused_bwd_plain(*args, ct, *tail)
                 torch.cuda.synchronize()
                 scales = {"dx": _amax(dx_w), "dw": _amax(dw_w)}
@@ -987,27 +1273,33 @@ def phase_kpconv_kernels(bundle, batch, smi: str, seed: int) -> list:
                                        dx, dx_w, rtol, atol * scales["dx"]),
                     "dw": _check_close(f"kpconv_fused_bwd dW {case} {dtname}",
                                        dw, dw_w, rtol, atol * scales["dw"])}
-                # dW is summed in a fixed order: a second run, the same bits
-                if not torch.equal(kpconv.kpconv_backward(*args, ct, *tail)[1],
-                                   dw):
+                # dx and dW are summed in a fixed order: a second run, the
+                # same bits
+                dx2, dw2 = kpconv.kpconv_backward(*args, ct, *tail, rev=rev)
+                if not (torch.equal(dx2, dx) and torch.equal(dw2, dw)):
                     raise AssertionError(f"kpconv_fused_bwd {case} {dtname}: "
-                                         f"two runs give different dW")
-                del dx, dw, dx_w, dw_w
+                                         f"two runs give different dx or dW")
+                del dx, dw, dx_w, dw_w, dx2, dw2
 
                 def kernel():
-                    return kpconv.kpconv_backward(*args, ct, *tail)
+                    return kpconv.kpconv_backward(*args, ct, *tail, rev=rev)
 
                 def plain():
                     return kpconv.kpconv_fused_bwd_plain(*args, ct, *tail)
 
                 ms = time_ms(kernel)
+                # built once per neighbour list on the main path and shared
+                # by every op over it, so outside the kernel's ms
+                rev_ms = time_ms(lambda: kpconv.reverse_edges(nbr, ns))
                 plain_ms = time_ms(plain, n=5, warmup=1)
                 dev_ms = device_ms(kernel)
                 plain_dev_ms = device_ms(plain, n=5, warmup=1)
                 sub_kernels = kernel_ms(kernel)
                 # the forward's inputs and g read once, dx and dW written
-                # once; g @ W^T and part^T g per active row, the weighted
-                # sums for part and for dx per weighted pair
+                # once (the reverse index is the kernel's own helper, not
+                # counted: nbr alone says where dx goes); g @ W^T and
+                # part^T g per active row, the weighted sums for part and
+                # for dx per weighted pair
                 nbytes = (work["rows_of_x_read"] * c * esz + nbr.numel() * 4
                           + rel.numel() * 4 + w.numel() * 4 + kp.numel() * 4
                           + ct.numel() * 4 + b * ns * c * 4 + w.numel() * 4)
@@ -1024,10 +1316,12 @@ def phase_kpconv_kernels(bundle, batch, smi: str, seed: int) -> list:
                     "max_abs_err": errs[worst],
                     "max_abs_plain": scales[worst], "errors": errs,
                     "max_abs_plains": scales,
-                    "tolerance": tol + " (dx: f32 atomics)", "ms": ms,
+                    "tolerance": tol, "ms": ms,
                     "plain_ms": plain_ms, "device_ms": dev_ms,
                     "plain_device_ms": plain_dev_ms,
+                    "reverse_edges_ms": rev_ms,
                     "sub_kernels": sub_kernels, "dw_reproducible": True,
+                    "dx_reproducible": True,
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes > t_ops else "operations",
                     "library_ms": None,
@@ -1035,7 +1329,7 @@ def phase_kpconv_kernels(bundle, batch, smi: str, seed: int) -> list:
                     "shape": {**shape, "g": list(ct.shape),
                               "needed_flops": flops, "needed_bytes": nbytes},
                     "card": smi})
-            del args
+            del args, rev
             torch.cuda.empty_cache()
         del nbr, x, rel, ct
     for r in rows:
@@ -1086,7 +1380,7 @@ def phase_serve(key: str, dtname: str, ckpt: str, plot_dir: str,
     what = f"serve {key} {dtname}"
     kernels.reset_launches()
     t0 = time.perf_counter()
-    predict.main(args)
+    _, pinned = from_default_numerics(lambda: predict.main(args), what)
     torch.cuda.synchronize()
     main_seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -1168,11 +1462,26 @@ def phase_serve(key: str, dtname: str, ckpt: str, plot_dir: str,
            "forward_ms": fwd * 1e3, "plots_per_s": N_PLOTS / fwd, **extra,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
-           "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
-                    "matmul": torch.backends.cuda.matmul.allow_tf32},
-           "profile": profile, "card": smi}
+           "numerics": pinned, "profile": profile, "card": smi}
+    if key == "KPConv" and KP_SWEEP:
+        out["kpconv_fused_14_layers_device_ms"] = \
+            KP_SWEEP[dtname]["fwd_device_ms_sum"]
     emit(out)
     return out
+
+
+def from_default_numerics(run, what: str) -> tuple:
+    """run() (an entry point) started from PyTorch's default float32
+    settings (TF32 on in cuDNN): returns (its result, the settings it left,
+    i.e. its own pin); raises unless it turned TF32 off."""
+    import torch
+    from dpcr_agb_tpu_torch.device import numerics
+    torch.backends.cudnn.allow_tf32 = True
+    out = run()
+    got = numerics()
+    if got["cudnn_allow_tf32"] or got["matmul_allow_tf32"]:
+        raise AssertionError(f"{what}: the entry point left TF32 on: {got}")
+    return out, got
 
 
 def check_predictions(out_csv: str, what: str) -> None:
@@ -1305,11 +1614,16 @@ def phase_train(key: str, dtname: str, plot_dir: str, out_dir: str,
     StepRunner.train = counted
     try:
         t0 = time.perf_counter()
-        result = train.main(args)
+        result, pinned = from_default_numerics(lambda: train.main(args), what)
         torch.cuda.synchronize()
         main_seconds = time.perf_counter() - t0
     finally:
         StepRunner.train = unwrapped
+    saved = torch.load(result["checkpoint"], map_location="cpu",
+                       weights_only=True)["numerics"]
+    if saved != pinned:
+        raise AssertionError(f"{what}: the checkpoint records {saved}, the "
+                             f"run pinned {pinned}")
     launches = dict(kernels.LAUNCHES)
     losses = result["losses"]
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
@@ -1339,6 +1653,21 @@ def phase_train(key: str, dtname: str, plot_dir: str, out_dir: str,
         if i >= 2:
             times.append(time.perf_counter() - t)
     step_s = statistics.median(times)
+    # the same steps with cuDNN held to its deterministic algorithms (the
+    # entry points leave that choice to cuDNN)
+    torch.backends.cudnn.deterministic = True
+    try:
+        det_times = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            runner.train(batch)
+            torch.cuda.synchronize()
+            if i >= 2:
+                det_times.append(time.perf_counter() - t)
+    finally:
+        torch.backends.cudnn.deterministic = pinned["cudnn_deterministic"]
+    det_step_s = statistics.median(det_times)
     torch.cuda.reset_peak_memory_stats()
     runner.train(batch)
     torch.cuda.synchronize()
@@ -1355,18 +1684,104 @@ def phase_train(key: str, dtname: str, plot_dir: str, out_dir: str,
                   f"input={plot_dir}/*.npz", f"output={out_csv}",
                   f"batch_size={N_PLOTS}"])
     check_predictions(out_csv, f"{what}: serving the checkpoint")
+    repro = train_reproducible(key, dtname, args, result, files, seed)
     out = {"phase": "train", "model": key, "dtype": dtname,
            "plots": N_PLOTS, "steps": TRAIN_STEPS, "losses": losses,
            "launches": launches, "launches_per_step": per_step,
            "train_main_seconds": main_seconds, **facts,
            "kernel_vs_plain_step": compared,
            "train_step_ms": step_s * 1e3, "plots_per_s": N_PLOTS / step_s,
+           "train_step_ms_cudnn_deterministic": det_step_s * 1e3,
+           "cudnn_deterministic_cost": det_step_s / step_s - 1.0,
            "peak_mem_gb": peak, "peak_reserved_gb": reserved,
-           "served_trained_checkpoint": N_PLOTS,
-           "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
-                    "matmul": torch.backends.cuda.matmul.allow_tf32},
-           "profile": profile, "card": smi}
+           "served_trained_checkpoint": N_PLOTS, "numerics": pinned,
+           **repro, "profile": profile, "card": smi}
+    if key == "KPConv" and KP_SWEEP:
+        out["kpconv_14_layers_device_ms"] = {
+            k: KP_SWEEP[dtname][f"{k}_device_ms_sum"] for k in ("fwd", "bwd")}
     emit(out)
+    return out
+
+
+def train_reproducible(key: str, dtname: str, args: list, first: dict,
+                       files: list, seed: int) -> dict:
+    """train.main a second time with the first run's arguments (the same
+    seed and plots) into another checkpoint; its six losses and its final
+    parameters and BN stats against the first run's, bit for bit. Where
+    they differ, one step from the initial state on the first batch, taken
+    twice, names the parameters whose gradients differ (the one nearest the
+    loss first: where the difference starts) and the largest difference;
+    then the same two steps under torch.use_deterministic_algorithms(True,
+    warn_only=True), with the ops it warns about, and under
+    cudnn.deterministic alone."""
+    import copy
+    import warnings
+    import torch
+    from dpcr_agb_tpu_torch import train
+    what = f"train {key} {dtname}"
+    args2 = [a + "_again" if a.startswith("checkpoint_dir=") else a
+             for a in args]
+    second = train.main(args2)
+    torch.cuda.synchronize()
+
+    def state(result):
+        return torch.load(result["checkpoint"], map_location="cpu",
+                          weights_only=True)["weights"]["latest"]
+
+    a, b = state(first), state(second)
+    moved = [k for k in a if not torch.equal(a[k], b[k])]
+    same = first["losses"] == second["losses"] and not moved
+    out = {"train_reproducible": same}
+    if same:
+        return out
+    out["second_run_losses"] = second["losses"]
+    out["state_entries_that_differ"] = len(moved)
+    run = train.setup(files, MODELS[key]["model_name"],
+                      bf16=dtname == "bfloat16", batch_size=N_PLOTS,
+                      seed=seed)
+    batch = run.stream.next().to(run.runner.device)
+    net0, stats = copy.deepcopy(run.runner.net), run.stats
+    del run
+
+    def grads():
+        r = train.build_runner(copy.deepcopy(net0), stats, seed=seed)
+        r.train(batch)
+        g = {n: p.grad.detach().clone() for n, p in r.net.named_parameters()}
+        torch.cuda.synchronize()
+        return g
+
+    def compare(g1, g2) -> dict:
+        names = [n for n in g1 if not torch.equal(g1[n], g2[n])]
+        if not names:
+            return {"grads_equal": True}
+        diff = {n: (g1[n] - g2[n]).abs().max().item() for n in names}
+        return {"grads_equal": False, "params_differing": len(names),
+                "of_params": len(g1),
+                "nearest_the_loss": names[-1],
+                "its_max_abs_diff": diff[names[-1]],
+                "first_in_model_order": names[0],
+                "max_abs_diff": max(diff.values()),
+                "at": max(diff, key=diff.get)}
+
+    out["one_step_twice"] = compare(grads(), grads())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            det = compare(grads(), grads())
+        finally:
+            torch.use_deterministic_algorithms(False)
+    det["ops_without_a_deterministic_implementation"] = sorted({
+        str(w.message).split(" does not have")[0] for w in caught
+        if "deterministic" in str(w.message)})
+    out["in_deterministic_mode"] = det
+    pinned = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out["with_cudnn_deterministic"] = compare(grads(), grads())
+    finally:
+        torch.backends.cudnn.deterministic = pinned
+    print(f"{what}: two same-seed runs differ: {out}", file=sys.stderr)
     return out
 
 
@@ -1486,7 +1901,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every phase's JSON to this file")
     ap.add_argument("--only", choices=sorted(MODELS), default=None,
-                    help="run the phases of one path only (all eight "
+                    help="run the phases of one path only (all the "
                          "kernels are built either way)")
     args = ap.parse_args(argv)
 
@@ -1501,11 +1916,11 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the dpcr_agb_tpu_torch package is missing: {e}",
               file=sys.stderr)
         return 2
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from dpcr_agb_tpu_torch.device import pin_numerics
+    pinned = pin_numerics()
 
     t_start = time.perf_counter()
-    dev = phase_device()
+    dev = phase_device(pinned)
     smi = dev["nvidia_smi"]
     krows = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1524,11 +1939,19 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "
                              f"{missing}")
+    drifted = [f"{r['model']} {r['dtype']}" for r in RECORD
+               if r.get("phase") == "train"
+               and MODELS[r["model"]].get("reproducible")
+               and not r["train_reproducible"]]
+    if drifted:
+        raise AssertionError(f"two same-seed runs of train.main differ: "
+                             f"{drifted}")
     summary = {"kernels": [{k: r.get(k) for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dtype",
         "case", "max_abs_plain", "launches_by_path", "device_ms",
-        "library_device_ms", "sub_kernels")} for r in krows]}
+        "plain_device_ms", "library_device_ms", "sub_kernels")}
+        for r in krows]}
     RECORD.append({"total_seconds": time.perf_counter() - t_start})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

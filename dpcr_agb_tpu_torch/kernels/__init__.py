@@ -15,7 +15,8 @@ from . import build
 
 LAUNCHES = {"stem_sites": 0, "max_pool_k3s2": 0, "stem_sites_dw": 0,
             "max_pool_k3s2_bwd": 0, "kpconv_fused": 0, "kpconv_fused_bwd": 0,
-            "firewall_copy": 0, "max_pool_k3s2_bwd_vol": 0}
+            "firewall_copy": 0, "max_pool_k3s2_bwd_vol": 0,
+            "gather_rows_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INFLUENCE_CODE = {"linear": 0, "gaussian": 1, "constant": 2}
@@ -127,12 +128,42 @@ def max_pool_k3s2(x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
     return y
 
 
+SMEM_PER_BLOCK = 232448     # bytes of shared memory a block may use (H100)
+H100_SMS = 132
+STEM_DW_TILE_ROWS = 64      # rows of dW [343*Cin, 64] of a stem_sites_dw block
+
+
+def _gemm_smem(bm: int, bn: int, bf16: bool) -> int:
+    """Shared memory of a BlockGemm tile (csrc/gemm.cuh): bf16 [m][k] and
+    [n][k] tiles of depth 32, rows padded by 8 values; f32 [k][m] and
+    [k][n] of depth 16, rows padded by 4."""
+    return (bm + bn) * (32 + 8) * 2 if bf16 else 16 * (bm + bn + 8) * 4
+
+
+def stem_dw_plan(b: int, v: int, cin: int, bf16: bool,
+                 sms: int = H100_SMS) -> dict:
+    """How `stem_sites_dw` cuts its work (pure: shapes in, numbers out): dW
+    [343*Cin, 64] in tiles of 64 rows, the B*V sites in `splits` ranges of
+    equal length (about four blocks an SM in all, never more ranges than
+    windows of 256 sites; from the card, not from the batch's occupancy),
+    the block's shared memory and the partials' scratch in bytes."""
+    sites = b * v
+    m_tiles = -(-343 * cin // STEM_DW_TILE_ROWS)
+    splits = max(1, min(-(-sites // 256), 4 * sms // m_tiles, 65535))
+    return {"m_tiles": m_tiles, "splits": splits,
+            "grid": (m_tiles, splits),
+            "sites_per_split": -(-sites // splits),
+            "smem_bytes": _gemm_smem(STEM_DW_TILE_ROWS, 64, bf16)
+            + 256 * 4 + 256 * 16 + 8 * 4,
+            "scratch_bytes": {"partial": splits * 343 * cin * 64 * 4}}
+
+
 def stem_sites_dw(vol: torch.Tensor, coords: torch.Tensor, mask: torch.Tensor,
                   ct: torch.Tensor) -> torch.Tensor:
     """Weight gradient of `stem_sites`: vol [B,D,H,W,Cin], coords [B,V,3]
     int32, mask [B,V] bool, ct [B,V,64] of vol's dtype -> dW [343,Cin,64]
-    float32, the sum over the masked-in sites of patch x ct (f32
-    accumulation, f32 atomics: the order of the additions varies)."""
+    float32, the sum over the masked-in sites of patch x ct (f32 sums in a
+    fixed order: the same bits from run to run)."""
     if not vol.is_cuda:
         raise ValueError("stem_sites_dw takes CUDA tensors")
     dev, dt = vol.device, vol.dtype
@@ -150,12 +181,14 @@ def stem_sites_dw(vol: torch.Tensor, coords: torch.Tensor, mask: torch.Tensor,
             f"stem_sites_dw: shapes vol {tuple(vol.shape)}, coords "
             f"{tuple(coords.shape)}, mask {tuple(mask.shape)}, ct "
             f"{tuple(ct.shape)} (need ct [B,V,64] and 1 <= Cin <= 18)")
-    dw = torch.zeros((343, cin, 64), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = build.entry("stem_dw")(
-            _DTYPE_CODE[dt], vol.data_ptr(), coords.data_ptr(),
-            mask.data_ptr(), ct.data_ptr(), dw.data_ptr(), b, d, h, w, v, cin,
-            _stream(dev))
+    plan = stem_dw_plan(b, v, cin, dt == torch.bfloat16, _sm_count(dev))
+    dw = torch.empty((343, cin, 64), dtype=torch.float32, device=dev)
+    partial = torch.empty((plan["splits"], 343 * cin, 64),
+                          dtype=torch.float32, device=dev)
+    rc = _on_device(dev, build.entry("stem_dw"), _DTYPE_CODE[dt],
+                    vol.data_ptr(), coords.data_ptr(), mask.data_ptr(),
+                    ct.data_ptr(), partial.data_ptr(), dw.data_ptr(), b, d, h,
+                    w, v, cin, plan["splits"])
     _check_rc(rc, "stem_sites_dw")
     LAUNCHES["stem_sites_dw"] += 1
     return dw
@@ -302,6 +335,58 @@ def _kpconv_args(name: str, x, nbr, rel, weights, kernel_points,
     return b, nq, ns, k, c, cout, n_kp
 
 
+# rows of a tile of the KPConv kernels (tiles without a real neighbour are
+# skipped), and the two products' output tiles by Cout: (largest Cout, BM,
+# BN); the forward's BM runs over rows, dW's over Kp*C
+KPCONV_ROWS = 64
+_PRODUCT_TILES = ((16, 256, 16), (32, 128, 32), (256, 64, 64))
+
+
+def _part_smem(k: int, n_kp: int) -> int:
+    """Shared memory of the part kernel (csrc/kpconv_part.cuh): 16 rows'
+    slots, each with 16 weights (padded to 20) and a source row, and the
+    kernel points."""
+    return 16 * k * 20 * 4 + 16 * k * 4 + n_kp * 12
+
+
+def kpconv_fwd_plan(b: int, nq: int, ns: int, k: int, c: int, cout: int,
+                    n_kp: int, bf16: bool) -> dict:
+    """How `kpconv_fused` cuts its work (pure: shapes in, numbers out): row
+    tiles of 64 (flags), the part kernel's blocks of 16 rows x 32 channels,
+    the product's output tile by Cout (`tile` for the C entry point) and
+    the ranges its depth Kp*C is cut into (`splits`: one per 480 from a
+    depth of 2048, at most 8, so that the widest levels' few active tiles
+    fill the card; a shallower product has blocks enough), each
+    kernel's grid and shared memory, and the scratch in bytes (flags; part
+    [tiles*64, Kp*C] in the compute dtype; the splits' f32 partials where
+    there is more than one). Raises where the part kernel's slots do not
+    fit a block's shared memory (K in the hundreds)."""
+    m = b * nq
+    tiles = -(-m // KPCONV_ROWS)
+    tile = next(i for i, (most, _, _) in enumerate(_PRODUCT_TILES)
+                if cout <= most)
+    _, bm, bn = _PRODUCT_TILES[tile]
+    part_smem = _part_smem(k, n_kp)
+    if part_smem > SMEM_PER_BLOCK:
+        raise ValueError(f"kpconv_fused: K {k} leaves no room in a block's "
+                         f"shared memory ({part_smem} bytes)")
+    splits = min(8, n_kp * c // 480) if n_kp * c >= 2048 else 1
+    return {"tiles": tiles, "tile_rows": KPCONV_ROWS, "tile": tile,
+            "product_tile": (bm, bn), "splits": splits,
+            "grids": {"flags": (tiles, 1),
+                      "part": (tiles * KPCONV_ROWS // 16, -(-c // 32)),
+                      "product": (-(-m // bm), -(-cout // bn), splits),
+                      "reduce": (-(-m * cout // 32) if splits > 1 else 0,
+                                 1)},
+            "smem_bytes": {"part": part_smem,
+                           "product": _gemm_smem(bm, bn, bf16)},
+            "scratch_bytes": {"flags": 4 * tiles,
+                              "part": tiles * KPCONV_ROWS * n_kp * c
+                              * (2 if bf16 else 4),
+                              "partial": splits * m * cout * 4
+                              if splits > 1 else 0}}
+
+
 def kpconv_fused(x: torch.Tensor, nbr: torch.Tensor, rel: torch.Tensor,
                  weights: torch.Tensor, kernel_points: torch.Tensor,
                  extent: float, influence: str = "linear",
@@ -313,25 +398,28 @@ def kpconv_fused(x: torch.Tensor, nbr: torch.Tensor, rel: torch.Tensor,
     b, nq, ns, k, c, cout, n_kp = _kpconv_args(
         "kpconv_fused", x, nbr, rel, weights, kernel_points, influence,
         aggregation)
-    out = torch.empty((b, nq, cout), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = build.entry("kpconv_fwd")(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), nbr.data_ptr(),
-            rel.data_ptr(), weights.data_ptr(), kernel_points.data_ptr(),
-            out.data_ptr(), b, nq, ns, k, c, cout, n_kp, float(extent),
-            _INFLUENCE_CODE[influence], int(aggregation == "closest"),
-            _stream(x.device))
+    dev = x.device
+    plan = kpconv_fwd_plan(b, nq, ns, k, c, cout, n_kp,
+                           x.dtype == torch.bfloat16)
+    out = torch.empty((b, nq, cout), dtype=torch.float32, device=dev)
+    flags = torch.empty(plan["tiles"], dtype=torch.int32, device=dev)
+    part = torch.empty((plan["tiles"] * KPCONV_ROWS, n_kp * c),
+                       dtype=x.dtype, device=dev)
+    splits = plan["splits"]
+    partial = torch.empty((splits, b * nq, cout) if splits > 1 else (0,),
+                          dtype=torch.float32, device=dev)
+    rc = _on_device(
+        dev, build.entry("kpconv_fwd"), _DTYPE_CODE[x.dtype], x.data_ptr(),
+        nbr.data_ptr(), rel.data_ptr(), weights.data_ptr(),
+        kernel_points.data_ptr(), flags.data_ptr(), part.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), b, nq, ns, k, c, cout, n_kp,
+        float(extent), _INFLUENCE_CODE[influence],
+        int(aggregation == "closest"), plan["tile"], splits)
     _check_rc(rc, "kpconv_fused")
     LAUNCHES["kpconv_fused"] += 1
     return out
 
 
-# rows of a tile of the backward kernels, and the dW product's output tiles
-# (largest Cout, rows BM over Kp*C, columns BN over Cout) by Cout
-KPCONV_BWD_ROWS = 64
-_KPCONV_DW_TILES = ((16, 256, 16), (32, 128, 32), (256, 64, 64))
-SMEM_PER_BLOCK = 232448     # bytes of shared memory a block may use (H100)
-H100_SMS = 132
 
 
 def kpconv_bwd_plan(b: int, nq: int, ns: int, k: int, c: int, cout: int,
@@ -342,41 +430,39 @@ def kpconv_bwd_plan(b: int, nq: int, ns: int, k: int, c: int, cout: int,
     it needs in bytes. The C entry point takes dw_cfg and splits from
     here."""
     m = b * nq
-    tiles = -(-m // KPCONV_BWD_ROWS)
+    tiles = -(-m // KPCONV_ROWS)
     kc = n_kp * c
-    dw_cfg = next(i for i, (most, _, _) in enumerate(_KPCONV_DW_TILES)
+    dw_cfg = next(i for i, (most, _, _) in enumerate(_PRODUCT_TILES)
                   if cout <= most)
-    _, bm, bn = _KPCONV_DW_TILES[dw_cfg]
-    bk = 32 if bf16 else 16
-
-    def gemm_smem(bm_: int, bn_: int) -> int:
-        # bf16: [m][k] and [n][k] tiles, rows padded by 8 values; f32: [k][m]
-        # and [k][n], rows padded by 4
-        return (bm_ + bn_) * (bk + 8) * 2 if bf16 \
-            else bk * (bm_ + bn_ + 8) * 4
-
+    _, bm, bn = _PRODUCT_TILES[dw_cfg]
     out_tiles = -(-kc // bm) * -(-cout // bn)
     splits = max(1, min(tiles, 8 * sms // out_tiles, 65535))
-    rows = tiles * KPCONV_BWD_ROWS
-    # the edge kernel: blocks of 16 rows x 32 channels; shared memory for
-    # each slot's 16 weights (padded to 20) and source row and list entry,
-    # the rows' dpart for 16 kernel points and the channels, kernel points
-    edge_c = -(-c // 4) * 4 if c < 32 else 32
-    edge_smem = (16 * k * 20 + 16 * 16 * edge_c) * 4 + 16 * k * 8 \
-        + n_kp * 12
-    return {"tiles": tiles, "tile_rows": KPCONV_BWD_ROWS, "dw_cfg": dw_cfg,
+    # dx: rows of 16 channels or fewer (and Kp <= 64) take the narrow
+    # kernel, a group of `lanes` lanes an edge, each warp's batch of
+    # influences in shared memory
+    narrow = c <= 16 and n_kp <= 64
+    lanes = 4 if c <= 4 else 8 if c <= 8 else 16
+    rows = tiles * KPCONV_ROWS
+    return {"tiles": tiles, "tile_rows": KPCONV_ROWS, "dw_cfg": dw_cfg,
             "dw_tile": (bm, bn), "splits": splits,
             "grids": {"flags": (tiles, 1), "dpart": (tiles, -(-kc // 64)),
-                      "edge": (tiles * KPCONV_BWD_ROWS // 16, -(-c // 32)),
+                      "dx": (-(-b * ns // 8), 1),
+                      "edge": (tiles * KPCONV_ROWS // 16, -(-c // 32)),
                       "dw": (out_tiles, splits),
                       "reduce": (-(-kc * cout // 32), 1)},
-            "smem_bytes": {"dpart": gemm_smem(KPCONV_BWD_ROWS, 64),
-                           "dw": gemm_smem(bm, bn), "edge": edge_smem,
-                           "reduce": 8 * 32 * 4},
+            "smem_bytes": {"dpart": _gemm_smem(KPCONV_ROWS, 64, bf16),
+                           "dx": n_kp * 12 + (8 * (32 // lanes) * (n_kp + 1)
+                                              * 4 if narrow else 0),
+                           "dw": _gemm_smem(bm, bn, bf16),
+                           "edge": _part_smem(k, n_kp), "reduce": 8 * 32 * 4},
+            # the reverse edge index (built by the caller, once per
+            # neighbour list): perm and off, int32
             "scratch_bytes": {"flags": 4 * tiles,
                               "part": rows * kc * (2 if bf16 else 4),
                               "dpart": rows * kc * 4,
-                              "partial": splits * kc * cout * 4}}
+                              "partial": splits * kc * cout * 4,
+                              "reverse_index": 4 * (m * k + b * (ns + 1)
+                                                    + 1)}}
 
 
 _SMS: dict = {}
@@ -389,15 +475,32 @@ def _sm_count(device: torch.device) -> int:
     return _SMS[device.index]
 
 
+def _check_reverse(name: str, rev, b: int, nq: int, ns: int, k: int,
+                   device: torch.device) -> None:
+    if rev is None:
+        raise ValueError(f"{name}: needs nbr's reverse edge index "
+                         f"(ops.kpconv.reverse_edges)")
+    perm, off = rev
+    _require(perm, "perm", torch.int32, 1, device)
+    _require(off, "off", torch.int32, 1, device)
+    if perm.shape != (b * nq * k,) or off.shape != (b * (ns + 1) + 1,):
+        raise ValueError(f"{name}: reverse index perm {tuple(perm.shape)}, "
+                         f"off {tuple(off.shape)} for nbr {(b, nq, k)} over "
+                         f"{ns} rows")
+
+
 def kpconv_fused_bwd(x: torch.Tensor, nbr: torch.Tensor, rel: torch.Tensor,
                      weights: torch.Tensor, kernel_points: torch.Tensor,
                      g: torch.Tensor, extent: float,
-                     influence: str = "linear", aggregation: str = "sum"
+                     influence: str = "linear", aggregation: str = "sum",
+                     rev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward of `kpconv_fused` for the cotangent g [B,Nq,Cout] f32 ->
-    (dx [B,Ns,C] f32, dW [Kp,C,Cout] f32). dx is summed with f32 atomics
-    (the order of the additions varies); dW in a fixed order, the same bit
-    for bit from run to run. The shadow gets nothing."""
+    (dx [B,Ns,C] f32, dW [Kp,C,Cout] f32), both summed in a fixed order:
+    the same bits from run to run. dx has one owner per row of x, which
+    walks the rows that name it in the order of `rev`, nbr's reverse edge
+    index (`ops.kpconv.reverse_edges`; without it the wrapper raises).
+    The shadow gets nothing."""
     b, nq, ns, k, c, cout, n_kp = _kpconv_args(
         "kpconv_fused_bwd", x, nbr, rel, weights, kernel_points, influence,
         aggregation)
@@ -408,8 +511,9 @@ def kpconv_fused_bwd(x: torch.Tensor, nbr: torch.Tensor, rel: torch.Tensor,
                          f"output {(b, nq, cout)}")
     plan = kpconv_bwd_plan(b, nq, ns, k, c, cout, n_kp,
                            x.dtype == torch.bfloat16, _sm_count(dev))
-    rows, kc = plan["tiles"] * KPCONV_BWD_ROWS, n_kp * c
-    dx = torch.zeros((b, ns, c), dtype=torch.float32, device=dev)
+    rows, kc = plan["tiles"] * KPCONV_ROWS, n_kp * c
+    _check_reverse("kpconv_fused_bwd", rev, b, nq, ns, k, dev)
+    dx = torch.empty((b, ns, c), dtype=torch.float32, device=dev)
     dw = torch.empty((n_kp, c, cout), dtype=torch.float32, device=dev)
     flags = torch.empty(plan["tiles"], dtype=torch.int32, device=dev)
     part = torch.empty((rows, kc), dtype=x.dtype, device=dev)
@@ -419,11 +523,38 @@ def kpconv_fused_bwd(x: torch.Tensor, nbr: torch.Tensor, rel: torch.Tensor,
     rc = _on_device(
         dev, build.entry("kpconv_bwd"), _DTYPE_CODE[x.dtype], x.data_ptr(),
         nbr.data_ptr(), rel.data_ptr(), weights.data_ptr(),
-        kernel_points.data_ptr(), g.data_ptr(), flags.data_ptr(),
-        part.data_ptr(), dpart.data_ptr(), partial.data_ptr(), dx.data_ptr(),
+        kernel_points.data_ptr(), g.data_ptr(), rev[0].data_ptr(),
+        rev[1].data_ptr(), flags.data_ptr(), part.data_ptr(),
+        dpart.data_ptr(), partial.data_ptr(), dx.data_ptr(),
         dw.data_ptr(), b, nq, ns, k, c, cout, n_kp, float(extent),
         _INFLUENCE_CODE[influence], int(aggregation == "closest"),
         plan["dw_cfg"], plan["splits"])
     _check_rc(rc, "kpconv_fused_bwd")
     LAUNCHES["kpconv_fused_bwd"] += 1
     return dx, dw
+
+
+def gather_rows_bwd(g: torch.Tensor, rev: Tuple[torch.Tensor, torch.Tensor],
+                    b: int, ns: int) -> torch.Tensor:
+    """Backward of the row gather of x [B,Ns,C] by a neighbour list nbr
+    [B,Nq,K] (Ns = shadow): g [B,Nq,K,C] f32 or bf16, rev nbr's reverse
+    edge index (`ops.kpconv.reverse_edges`) -> dx [B,Ns,C] of g's dtype,
+    each row the f32 sum of the g rows that name it in rev's order (the
+    same bits from run to run; the shadow's rows are dropped)."""
+    if not g.is_cuda:
+        raise ValueError("gather_rows_bwd takes CUDA tensors")
+    dev, dt = g.device, g.dtype
+    if dt not in _DTYPE_CODE:
+        raise ValueError(f"gather_rows_bwd: unsupported dtype {dt}")
+    _require(g, "g", dt, 4, dev)
+    if g.shape[0] != b:
+        raise ValueError(f"gather_rows_bwd: g {tuple(g.shape)} for B {b}")
+    nq, k, c = g.shape[1:]
+    _check_reverse("gather_rows_bwd", rev, b, nq, ns, k, dev)
+    dx = torch.empty((b, ns, c), dtype=dt, device=dev)
+    rc = _on_device(dev, build.entry("gather_rows_bwd"), _DTYPE_CODE[dt],
+                    rev[0].data_ptr(), rev[1].data_ptr(), g.data_ptr(),
+                    dx.data_ptr(), b, ns, c)
+    _check_rc(rc, "gather_rows_bwd")
+    LAUNCHES["gather_rows_bwd"] += 1
+    return dx

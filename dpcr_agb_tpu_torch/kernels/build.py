@@ -44,12 +44,13 @@ LIBRARIES = {
                      [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P]),
     "stem_dw": ("stem_dw.cu", "stem_sites_dw_launch",
-                [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                [_I, *[_P] * 6, *[_I] * 7, _P]),
     "kpconv_fwd": ("kpconv_fwd.cu", "kpconv_fused_launch",
-                   [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                    _F, _I, _I, _P]),
+                   [_I, *[_P] * 9, *[_I] * 7, _F, *[_I] * 4, _P]),
     "kpconv_bwd": ("kpconv_bwd.cu", "kpconv_fused_bwd_launch",
-                   [_I, *[_P] * 12, *[_I] * 7, _F, *[_I] * 4, _P]),
+                   [_I, *[_P] * 14, *[_I] * 7, _F, *[_I] * 4, _P]),
+    "gather_rows_bwd": ("kpconv_bwd.cu", "gather_rows_bwd_launch",
+                        [_I, *[_P] * 4, _I, _I, _I, _P]),
     "max_pool_bwd_vol": ("max_pool_bwd.cu", "max_pool_k3s2_bwd_vol_launch",
                          [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "firewall_copy": ("firewall_copy.cu", "firewall_copy_launch",

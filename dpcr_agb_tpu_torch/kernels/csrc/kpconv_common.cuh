@@ -1,19 +1,14 @@
 // Shared by the fused rigid KPConv kernels (kpconv_fwd.cu, kpconv_bwd.cu):
-// the influence of a kernel point on a neighbour, and the weights of one
-// edge (query row, neighbour) for a chunk of kernel points.
+// the influence of a kernel point on a neighbour and the weight of one
+// edge (query row, neighbour) for a kernel point.
 #pragma once
 
 #include "common.cuh"
 
 namespace dpcr {
 
-constexpr int kTQ = 16;        // query rows of a block (of a row group)
 constexpr int kPC = 16;        // kernel points of a chunk
 constexpr int kThreads = 256;  // threads of a block
-
-// floats of one query row's edge weights in shared memory, [K][kPC], padded
-// so that neighbouring rows start in different banks and stay 16-byte aligned
-__host__ __device__ inline int w_stride(int K) { return K * kPC + 4; }
 
 // influence codes passed from the Python wrappers
 enum Influence : int { kLinear = 0, kGaussian = 1, kConstant = 2 };
@@ -66,15 +61,6 @@ __device__ __forceinline__ float edge_weight(const float* r, const float* kp,
   if (best >= 0 && p != best) return 0.f;
   return influence_of(sq_dist(r[0], r[1], r[2], kp + 3 * p), extent,
                       influence);
-}
-
-// The row of the feature table [B*Ns, C] that neighbour k of query `row`
-// reads, or -1 for the shadow (index Ns, or anything outside [0, Ns)).
-__device__ __forceinline__ int source_row(const int32_t* nbr, long long row,
-                                          int k, int K, int Nq, int Ns) {
-  const int idx = nbr[row * K + k];
-  if ((unsigned)idx >= (unsigned)Ns) return -1;
-  return (int)(row / Nq) * Ns + idx;
 }
 
 }  // namespace dpcr

@@ -22,9 +22,13 @@ every block. Submodule and parameter names are the flax ones.
 Mixed precision (`dtype=torch.bfloat16`) is the compute dtype inside the
 fused op only; everything around it stays f32.
 
+In a forward on the card that takes gradients, each neighbour list also
+gets its reverse edge index (`ops.kpconv.reverse_edges`, once per list, shared by
+every op over it), over which the backward sums dx of every KPConv and of
+the strided shortcut's gather in a fixed order.
+
 Not ported yet: deformable and modulated kernels, the host pyramid (native
-pointops), the edge-transpose and reverse-list backward variants, the
-neighbour-limit calibration."""
+pointops), the neighbour-limit calibration."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -36,7 +40,8 @@ from torch import nn
 from ..nn.blocks import ACTIVATIONS, SeparateLinear, TorchLinear
 from ..nn.norm import MaskedBatchNorm
 from ..ops.kernel_points import load_kernel_points
-from ..ops.kpconv import gather_rows, kpconv_fused, shared_rel
+from ..ops.kpconv import (gather_rows, kpconv_fused, reverse_edges,
+                          shared_rel)
 from ..ops.masked import masked_mean, masked_sum
 from ..ops.neighbors import grid_subsample, radius_neighbors
 
@@ -45,11 +50,13 @@ SHADOW_POS = 1e6
 _LATER = "a later slice of the port"
 
 
-def max_pool_zero_shadow_batched(x: torch.Tensor,
-                                 nbr: torch.Tensor) -> torch.Tensor:
+def max_pool_zero_shadow_batched(x: torch.Tensor, nbr: torch.Tensor,
+                                 rev=None) -> torch.Tensor:
     """Strided-shortcut max pool: x [B,Ns,C], nbr [B,Nq,K] -> [B,Nq,C], the
-    max over each row's neighbours with a zero row for the shadow."""
-    return gather_rows(x, nbr).amax(dim=2)
+    max over each row's neighbours with a zero row for the shadow (its
+    backward splits a tie evenly, as jnp.max's; the gather's backward sums
+    over rev, nbr's reverse edge index, in a fixed order)."""
+    return gather_rows(x, nbr, rev).amax(dim=2)
 
 
 class KPConvOp(nn.Module):
@@ -80,11 +87,12 @@ class KPConvOp(nn.Module):
                 -bound, bound, generator=generator))
 
     def forward(self, nbr: torch.Tensor, x: torch.Tensor,
-                rel: torch.Tensor) -> torch.Tensor:
-        """nbr [B,Nq,K], x [B,Ns,Cin], rel [B,Nq,K,3] -> [B,Nq,Cout] f32."""
+                rel: torch.Tensor, rev=None) -> torch.Tensor:
+        """nbr [B,Nq,K], x [B,Ns,Cin], rel [B,Nq,K,3] -> [B,Nq,Cout] f32;
+        rev: nbr's reverse edge index for the backward (optional)."""
         return kpconv_fused(x, nbr, rel, self.weights, self.kernel_points,
                             self.extent, self.influence, self.aggregation,
-                            self.dtype)
+                            self.dtype, rev)
 
 
 class BatchNormBlock(nn.Module):
@@ -270,6 +278,10 @@ class KPCNN(nn.Module):
             aux = self.device_pyramid(batch.pos, batch.mask)
         x = batch.x.float()
         rel_cache: Dict[Tuple[int, bool], torch.Tensor] = {}
+        # each list's reverse edge index, for the card's fixed-order
+        # backward sums; built only where a gradient will be taken on the
+        # card (the CPU's plain versions do not read it)
+        rev_cache: Dict[Tuple[int, bool], tuple] = {}
         for bi, block, l, in_dim, out_dim in self.blocks:
             name = f"block{bi}"
             p_l, m_l = aux[f"kp_pts{l}"].float(), aux[f"kp_mask{l}"]
@@ -283,13 +295,17 @@ class KPCNN(nn.Module):
             if (l, strided) not in rel_cache:
                 rel_cache[(l, strided)] = shared_rel(q_pts, p_l, nbr,
                                                      SHADOW_POS)
+                if torch.is_grad_enabled() and nbr.is_cuda:
+                    rev_cache[(l, strided)] = reverse_edges(nbr,
+                                                            p_l.shape[1])
             rel = rel_cache[(l, strided)]
+            rev = rev_cache.get((l, strided))
             if block.startswith("simple"):
-                x = getattr(self, f"{name}_kpconv")(nbr, x, rel)
+                x = getattr(self, f"{name}_kpconv")(nbr, x, rel, rev)
                 x = self.act(getattr(self, f"{name}_norm")(x, q_mask))
             elif block.startswith("resnetb"):
                 x = self._resnet_block(name, x, in_dim, out_dim, nbr, rel,
-                                       m_l, q_mask, strided)
+                                       rev, m_l, q_mask, strided)
             else:
                 x = getattr(self, f"{name}_unary")(x, q_mask)
             x = torch.where(q_mask[..., None], x, torch.zeros_like(x))
@@ -302,15 +318,17 @@ class KPCNN(nn.Module):
         return self.final(g)
 
     def _resnet_block(self, name: str, x, in_dim: int, out_dim: int, nbr,
-                      rel, in_mask, q_mask, strided: bool) -> torch.Tensor:
+                      rel, rev, in_mask, q_mask,
+                      strided: bool) -> torch.Tensor:
         """ResnetBottleneckBlock (blocks.py:594-680)."""
         h = x
         if in_dim != out_dim // 4:
             h = getattr(self, f"{name}_unary1")(h, in_mask)
-        h = getattr(self, f"{name}_kpconv")(nbr, h, rel)
+        h = getattr(self, f"{name}_kpconv")(nbr, h, rel, rev)
         h = self.act(getattr(self, f"{name}_normconv")(h, q_mask))
         h = getattr(self, f"{name}_unary2")(h, q_mask)
-        shortcut = max_pool_zero_shadow_batched(x, nbr) if strided else x
+        shortcut = max_pool_zero_shadow_batched(x, nbr, rev) if strided \
+            else x
         if in_dim != out_dim:
             shortcut = getattr(self, f"{name}_shortcut")(shortcut, q_mask)
         return self.act(h + shortcut)

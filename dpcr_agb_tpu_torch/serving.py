@@ -14,6 +14,8 @@ A port checkpoint is `<checkpoint_dir>/<model_name>.pt`, written with
   target_stats  {"scale", "center", "weights"} per regression target
   reg_targets   target names
   weights       {weight_name: state_dict}
+  numerics      the float32 settings the writing process ran with
+                (`device.numerics()`: TF32 off, as the entry points pin it)
 A checkpoint written by training also holds `train_state` (optimizer
 state and counters, `training/state.py`), which serving ignores. Reading
 the JAX package's `.ckpt` files (flax msgpack) is not ported."""
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from .data.batch import CollateSpec
-from .device import resolve_device
+from .device import numerics, resolve_device
 from .models.base import InstanceSpec
 from .models.factory import build_model, collate_spec, make_post_collate
 from .transforms import Compose, instantiate_transforms
@@ -184,6 +186,7 @@ def save_checkpoint(checkpoint_dir: str, model_name: str,
                          for k, v in target_stats.items()},
         "reg_targets": list(reg_targets),
         "weights": {weight_name: state},
+        "numerics": numerics(),
         **(extra or {}),
     }, path)
     return path

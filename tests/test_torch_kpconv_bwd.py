@@ -136,3 +136,35 @@ def test_backward_plan_at_the_edges():
     odd = kernels.kpconv_bwd_plan(3, 70, 50, 9, 70, 24, 17, True)
     assert odd["dw_tile"] == (128, 32) and odd["grids"]["edge"] == (16, 3)
     assert odd["grids"]["dpart"] == (4, -(-17 * 70 // 64))
+
+
+@pytest.mark.parametrize("sizes", SPARSE, ids=["c8", "c3-first-layer"])
+def test_row_owner_dx_over_the_reverse_index(sizes):
+    """dx as the card's kernel forms it, written out on the CPU: each row of
+    x sums, over the edges that name it in the order of the reverse edge
+    index (`kpconv.reverse_edges`), sum_p w_p * dpart[q, p, :], with the
+    influences recomputed from rel and dpart = g @ W^T; within 2e-4 of the
+    interpret-mode Pallas VJP, and exactly 0 where no edge names a row."""
+    case = _sparse_case(7, *sizes, shadow_rows=0.9, shadow_slots=0.7)
+    q, s, nbr, x, kp, w, g = case
+    b, nq, ns, k, n_kp, c, _ = sizes
+    t = torch.from_numpy
+    rel = kpconv.shared_rel(t(q), t(s), t(nbr))
+    wts = kpconv.influence_weights(rel, t(kp), EXTENT).numpy().reshape(
+        -1, n_kp)
+    dpart = np.einsum("bqd,pcd->bqpc", g, w).reshape(b * nq, n_kp, c)
+    perm, off = (a.numpy() for a in kpconv.reverse_edges(t(nbr), ns))
+    dx = np.zeros((b, ns, c), np.float32)
+    for i in range(b):
+        for j in range(ns):
+            seg = i * (ns + 1) + j
+            for e in perm[off[seg]:off[seg + 1]]:
+                dx[i, j] += wts[e] @ dpart[e // k]
+    rel_np, nx = _rel_nx(q, s, nbr, x)
+    _, dx_p, _ = _pallas_reference(rel_np, nx, nbr, kp, w, g, "linear",
+                                   "sum", jnp.float32)
+    np.testing.assert_allclose(dx, dx_p, rtol=2e-4, atol=2e-4)
+    named = np.zeros((b, ns), bool)
+    for i in range(b):
+        named[i, nbr[i][nbr[i] < ns]] = True
+    assert not dx[~named].any() and dx[named].any()
