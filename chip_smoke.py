@@ -26,11 +26,17 @@ points as a user would) and SENet50 (bottleneck blocks, sparse level 0):
            kernels (sub_kernels, torch.profiler). Every sum that a train
            step takes in a fixed order is checked to give the same bits in
            two runs (stem_sites_dw, kpconv_fused_bwd's dx and dW,
-           gather_rows_bwd).
-           SENet14: stem_sites and max_pool_k3s2 at the first serving
-           batch's shapes, stem_sites_dw and max_pool_k3s2_bwd at the
-           first train batch's (SENet50 runs the same four kernels at the
-           same shapes: its rows are SENet14's unless it runs alone).
+           gather_rows_bwd), and so are stem_sites and max_pool_k3s2_rows.
+           SENet14: stem_sites at the first serving batch's shapes;
+           max_pool_k3s2_rows, the sparse level 0's pool, at the first
+           serving and the first train batch's (y and occ_l exact; timed
+           beside the route it replaces, scatter_to_dense +
+           occupancy_pool + the volume form, which is held exact too; the
+           pool forward's own peak memory, which must stay below the
+           C-wide full-resolution volume); stem_sites_dw and
+           max_pool_k3s2_bwd at the first train batch's (SENet50 runs the
+           same kernels at the same shapes: its rows are SENet14's unless
+           it runs alone).
            KPConv: kpconv_fused and kpconv_fused_bwd on the inputs that
            the first serving batch gives the first layer (C 3 -> 32), a
            level-0 layer (C 16 -> 16) and the last level-4 layer (C 256 ->
@@ -48,9 +54,11 @@ points as a user would) and SENet50 (bottleneck blocks, sparse level 0):
            `dpcr_agb_tpu_torch.predict.main` (started from PyTorch's
            default float32 settings: it must pin TF32 off itself) from a
            port checkpoint with seeded random weights; checks 16 finite
-           prediction rows, the launches of that run (KPConv: 14
-           kpconv_fused; dense level 0: firewall_copy 2, max_pool_k3s2 1,
-           the row kernels 0), and that the raw outputs equal a run
+           prediction rows, the launches of that run (sparse level 0:
+           stem_sites and max_pool_k3s2_rows at least once, max_pool_k3s2
+           never; KPConv: 14 kpconv_fused; dense level 0: firewall_copy 2,
+           max_pool_k3s2 1, the row kernels 0), and that the raw outputs
+           equal a run
            through the plain versions; prints plots/s (KPConv: and the
            neighbour search's share of the forward, after checking that
            two pyramids of the batch are bit-identical; dense level 0: and
@@ -65,8 +73,10 @@ points as a user would) and SENet50 (bottleneck blocks, sparse level 0):
            and max_pool_k3s2_bwd_vol 1, the row kernels 0); one step from
            one state through the kernels and through the plain versions
            (loss, every gradient, the updated parameters and BN running
-           stats within stated tolerances); train_step_ms (median of 5
-           steps on a device-resident batch), and again with
+           stats within stated tolerances; SENet14 f32: and how far a
+           correct reordering of the stem's f32 sum moves that step, a
+           reading, not a check: stem_order_witness); train_step_ms
+           (median of 5 steps on a device-resident batch), and again with
            cudnn.deterministic, plots/s and peak memory; then
            `predict.main` serves the trained checkpoint (16 finite rows);
            then train_reproducible: train.main a second time with the same
@@ -126,16 +136,19 @@ TRAIN_STEPS = 6
 MODE_VARS = ("DPCR_L0", "DPCR_STEM_MODE", "DPCR_POOL_BWD",
              "DPCR_SPARSE_POOL", "DPCR_POOL_FWD")
 _SPARSE_L0 = {"env": {}, "kernels": "sparse_l0",
-              "forward": ("stem_sites", "max_pool_k3s2"),
+              "forward": ("stem_sites", "max_pool_k3s2_rows"),
               "backward": ("stem_sites_dw", "max_pool_k3s2_bwd"),
-              "exact": None}
-_ROW_KERNELS = {"stem_sites": 0, "stem_sites_dw": 0, "max_pool_k3s2_bwd": 0}
+              "exact": None, "never": ("max_pool_k3s2",)}
+_ROW_KERNELS = {"stem_sites": 0, "stem_sites_dw": 0, "max_pool_k3s2_bwd": 0,
+                "max_pool_k3s2_rows": 0}
 # per path: the entry points' model_name, the mode variables, which
 # kernels phase it gets, the kernels serving launches and the ones training
-# adds, and where the count is fixed, the launches of each kernel in one
-# forward and in one train step (KPCNN's 14 blocks hold one KPConv each
-# and 4 strided shortcuts; the dense level 0 copies the stem's input, its
-# output and the output's cotangent, and pools once each way); and whether
+# adds, the kernels it must never launch (the sparse level 0 pools its
+# rows without the volume form), and where the count is fixed, the
+# launches of each kernel in one forward and in one train step (KPCNN's 14
+# blocks hold one KPConv each and 4 strided shortcuts; the dense level 0
+# copies the stem's input, its output and the output's cotangent, and
+# pools once each way); and whether
 # two same-seed runs of train.main must agree bit for bit (every sum of
 # the KPConv step runs in a fixed order; the sparse-voxel nets' f32 steps
 # go through cuDNN's own choice of algorithms)
@@ -358,7 +371,7 @@ def kernel_ms(fn, reps: int = 5) -> dict:
 
 @contextlib.contextmanager
 def plain_ops():
-    """Route the models' nine kernel ops to their plain PyTorch versions
+    """Route the models' ten kernel ops to their plain PyTorch versions
     (the reference runs of the serve and train phases); raises if a kernel
     launched inside, i.e. if the reference did not really take the plain
     path."""
@@ -367,6 +380,7 @@ def plain_ops():
     routes = [(sparse_stem, "stem_conv_sites", "stem_conv_sites_plain"),
               (sparse_stem, "stem_conv_sites_dw", "stem_conv_sites_dw_plain"),
               (pool, "masked_max_pool", "masked_max_pool_plain"),
+              (pool, "masked_max_pool_rows", "masked_max_pool_rows_plain"),
               (pool, "masked_max_pool_bwd_rows",
                "masked_max_pool_bwd_rows_plain"),
               (pool, "masked_max_pool_bwd_vol",
@@ -465,6 +479,18 @@ def _amax(t) -> float:
     return t.float().abs().max().item()
 
 
+def _same_bits(a, b) -> bool:
+    """a and b hold the same bits (torch.equal alone takes -0 for +0)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        return torch.equal(a.contiguous().view(view),
+                           b.contiguous().view(view))
+    return torch.equal(a, b)
+
+
 def stem_work(vol, coords, mask) -> tuple:
     """What the stem's data needs: (non-zero values in the occupied sites'
     7^3 neighbourhoods, summed over sites and input channels; volume cells
@@ -531,6 +557,11 @@ def phase_kernels(bundles: dict, batch, train_batch, smi: str,
                 err = _check_close("stem_sites bf16", got, want, 0.0,
                                    2e-2 * scale)
                 tol = "atol 2e-2 * max|plain| (bf16)"
+            # sums in a fixed order: a second call, the same bits
+            if not _same_bits(stem_conv_sites(vol, coords, mask, wts, bias),
+                              got):
+                raise AssertionError(f"stem_sites {dtname}: two calls give "
+                                     f"different bits")
             ms = time_ms(lambda: stem_conv_sites(vol, coords, mask, wts,
                                                  bias))
             plain_ms = time_ms(lambda: stem_conv_sites_plain(
@@ -566,6 +597,7 @@ def phase_kernels(bundles: dict, batch, train_batch, smi: str,
                 "source": STEM_SRC, "replaces": STEM_REPLACES,
                 "launches": None, "max_abs_err": err,
                 "max_abs_plain": _amax(want), "tolerance": tol,
+                "reproducible": True,
                 "ms": ms, "plain_ms": plain_ms, **devs,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes > t_ops else "operations",
@@ -581,12 +613,14 @@ def phase_kernels(bundles: dict, batch, train_batch, smi: str,
                           "needed_flops": flops, "needed_bytes": nbytes},
                 "card": smi})
 
-            # the pool input: the stem rows through BN + act, scattered to
-            # the full-resolution volume, as on the main path
+            # the pool input: the stem rows through BN + act, as on the
+            # main path, pooled by the row form
             h_rows = net.act(net.stem_norm(got, mask)) * mask[..., None].to(dt)
-            x, occ = scatter_to_dense(coords, mask, h_rows, dims)
-            rows.append(pool_forward_row(x, occ, dtname, smi))
-            del x, occ, vol, got, want, h_rows
+            del vol, got, want
+            torch.cuda.empty_cache()
+            rows.append(pool_rows_row(coords, mask, h_rows, dims, dtname, smi,
+                                      "serve batch", "serve"))
+            del h_rows
             torch.cuda.empty_cache()
             rows += backward_kernel_rows(net, train_batch.to(bundle.device),
                                          dtname, smi, seed)
@@ -640,6 +674,137 @@ def pool_forward_row(x, occ, dtname: str, smi: str, case=None) -> dict:
         "library": "F.max_pool3d k3 s2 p1 on the -inf-filled NCDHW volume",
         "shape": {"x": list(x.shape), "y": list(got_p.shape),
                   "occupied_cells": n_occ,
+                  "occupied_inputs_in_windows": in_windows,
+                  "needed_bytes": nbytes},
+        "card": smi}
+
+
+def profiled_device_ms(fn, reps: int = 5) -> float:
+    """Device ms per fn() from torch.profiler: every kernel, memset and
+    copy that fn puts on the card, summed (for a route that reads a value
+    back to the host, where `device_ms` cannot hold the queue)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / reps / 1e3
+
+
+def pool_rows_row(coords, mask, h_rows, dims, dtname: str, smi: str,
+                  case: str, counted_in: str) -> dict:
+    """max_pool_k3s2_rows on the stem rows h_rows [B,V,C] against its plain
+    version (y and occ_l exact, the same bits in two calls), timed beside
+    the route it replaces on the main path (scatter_to_dense,
+    occupancy_pool and the volume-form kernel, on the same rows, held
+    exact against the same plain version); the
+    pool forward's own peak memory over `pooled_rows`, which must stay
+    below the C-wide full-resolution volume that route allocates."""
+    import torch
+    from dpcr_agb_tpu_torch.ops.dense_grid import (occupancy_pool,
+                                                   scatter_to_dense)
+    from dpcr_agb_tpu_torch.ops.pool import (masked_max_pool,
+                                             masked_max_pool_rows,
+                                             masked_max_pool_rows_plain,
+                                             pooled_rows)
+    b, v, c = h_rows.shape
+    esz = h_rows.element_size()
+
+    def kernel():
+        return masked_max_pool_rows(coords, mask, h_rows, dims)
+
+    def plain():
+        return masked_max_pool_rows_plain(coords, mask, h_rows, dims)
+
+    def previous():
+        hv, occ_v = scatter_to_dense(coords, mask, h_rows, dims)
+        return masked_max_pool(hv, occ_v), occupancy_pool(occ_v)
+
+    def peak_gb(fn) -> float:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+        return peak / 1e9
+
+    got_y, got_o = kernel()
+    want_y, want_o = plain()
+    torch.cuda.synchronize()
+    err = _check_close(f"max_pool_k3s2_rows {case} {dtname}", got_y, want_y,
+                       0.0, 0.0)
+    _check_close(f"max_pool_k3s2_rows occ_l {case} {dtname}", got_o, want_o,
+                 0.0, 0.0)
+    if got_o.dtype != h_rows.dtype or got_y.shape != want_y.shape:
+        raise AssertionError(f"max_pool_k3s2_rows {case} {dtname}: y "
+                             f"{tuple(got_y.shape)}, occ_l {got_o.dtype}")
+    again_y, again_o = kernel()
+    if not (_same_bits(again_y, got_y) and _same_bits(again_o, got_o)):
+        raise AssertionError(f"max_pool_k3s2_rows {case} {dtname}: two "
+                             f"calls give different bits")
+    del again_y, again_o
+    # the route it replaces, through the volume-form kernel: exact too
+    prev_y, prev_o = previous()
+    torch.cuda.synchronize()
+    prev_err = _check_close(f"max_pool_k3s2 (volume form) {case} {dtname}",
+                            prev_y, want_y, 0.0, 0.0)
+    _check_close(f"occupancy_pool {case} {dtname}", prev_o, want_o, 0.0, 0.0)
+    amax, y_numel, o_numel = _amax(want_y), got_y.numel(), got_o.numel()
+    del got_y, got_o, want_y, want_o, prev_y, prev_o
+    ms, plain_ms, prev_ms = (time_ms(f) for f in (kernel, plain, previous))
+    devs = device_row(kernel, plain, None, ms, plain_ms, None)
+    prev_dev = device_ms_of(previous, prev_ms, optional=True)
+    prev_dev_by = "device_ms"
+    if prev_dev is None:
+        prev_dev, prev_dev_by = profiled_device_ms(previous), "profiler"
+    volume_gb = b * int(np.prod(dims)) * c * esz / 1e9
+    peak = peak_gb(lambda: pooled_rows(coords, mask, h_rows, dims))
+    prev_peak = peak_gb(previous)
+    if not peak < volume_gb:
+        raise AssertionError(f"max_pool_k3s2_rows {case} {dtname}: the pool "
+                             f"forward peaks at {peak} GB, not below the "
+                             f"{volume_gb} GB full-resolution volume")
+    # what this data needs: the valid rows, coords and mask read once, y
+    # and occ_l written once (the kernel's own cell -> row index is not
+    # counted: the function does not need it); one max per occupied input
+    # value in each window that holds it
+    _, occ = scatter_to_dense(coords, mask, torch.ones_like(h_rows[..., :1]),
+                              dims)
+    n_occ, in_windows = pool_work(occ)
+    n_valid = int(mask.sum())
+    del occ
+    nbytes = (n_valid * c * esz + coords.numel() * 4 + mask.numel()
+              + (y_numel + o_numel) * esz)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = float(in_windows) * c / PEAK_FLOPS["float32"] * 1e3
+    return {
+        "name": "max_pool_k3s2_rows", "dtype": dtname, "case": case,
+        "counted_in": counted_in, "route": "cuda", "source": POOL_SRC,
+        "replaces": POOL_REPLACES, "launches": None, "max_abs_err": err,
+        "max_abs_plain": amax, "tolerance": "exact (y and occ_l)",
+        "reproducible": True, "ms": ms, "plain_ms": plain_ms, **devs,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes > t_ops else "operations",
+        "library_ms": None,
+        "library": "none: no one PyTorch call computes it; previous_route_ms "
+                   "times the route it replaces",
+        "previous_route": "scatter_to_dense + occupancy_pool + max_pool_k3s2 "
+                          "(the volume form), the same rows",
+        "previous_route_max_abs_err": prev_err,
+        "previous_route_ms": prev_ms, "previous_route_device_ms": prev_dev,
+        "previous_route_device_ms_by": prev_dev_by,
+        "pool_forward_peak_gb": peak, "previous_route_peak_gb": prev_peak,
+        "full_resolution_volume_gb": volume_gb,
+        "shape": {"h_rows": list(h_rows.shape), "dims": list(dims),
+                  "valid_rows": n_valid, "occupied_cells": n_occ,
                   "occupied_inputs_in_windows": in_windows,
                   "needed_bytes": nbytes},
         "card": smi}
@@ -917,6 +1082,10 @@ def backward_kernel_rows(net, tb, dtname: str, smi: str, seed: int) -> list:
         bias = net.stem_conv.bias.detach().to(dt).contiguous()
         h_rows = net.act(net.stem_norm(stem_conv_sites(
             vol, coords, mask, wts, bias), mask)) * mask[..., None].to(dt)
+        del vol
+        torch.cuda.empty_cache()
+        rows.append(pool_rows_row(coords, mask, h_rows, dims, dtname, smi,
+                                  "train batch", "train"))
         y, occ_l = pooled_rows(coords, mask, h_rows, dims)
         ct = torch.randn(y.shape, generator=g, device=dev).to(dt)
         got = masked_max_pool_bwd_rows(coords, mask, h_rows, y, occ_l, ct,
@@ -1358,7 +1527,10 @@ def check_launches(what: str, key: str, launches: dict, part: str) -> None:
     names = spec["forward"] + (spec["backward"] if part == "step" else ())
     if exact is None:
         bad = {k: launches[k] for k in names if launches[k] < 1}
-        expected = "at least 1 of each"
+        bad.update({k: launches[k] for k in spec.get("never", ())
+                    if launches[k] != 0})
+        expected = (f"at least 1 of each, none of "
+                    f"{list(spec.get('never', ()))}")
     else:
         bad = {k: launches[k] for k, n in exact[part].items()
                if launches[k] != n}
@@ -1533,8 +1705,79 @@ def _step_errors(got, want, before: dict, loss_got: float,
     return errs, grad
 
 
+def stem_order_witness(again, reordered, plain, batch, before: dict,
+                       loss_plain: float) -> dict:
+    """How far a correct f32 reordering of the stem's sum moves one train
+    step: a reading beside the step check, which it does not change.
+    `again` takes the plain step a second time, `reordered` takes it with
+    the stem's patch product summed as four products over quarters of its
+    343 taps, added in order (each through `stem_conv_sites_plain` with
+    the other taps' weights zeroed: exact in f32). Returns each one's step
+    errors against `plain`'s (the first is cuDNN's run-to-run difference
+    alone) and whether they are within STEP_TOL, how many stem values the
+    reordering changes, and how many of the level-0 pool's routes (a row
+    and channel's count of the windows whose max it is) it changes."""
+    import torch
+    from dpcr_agb_tpu_torch.ops import pool, sparse_stem
+    stem_plain = sparse_stem.stem_conv_sites_plain
+    rows_plain = pool.masked_max_pool_rows_plain
+
+    def quartered(vol, coords, mask, weights, bias=None):
+        quarter = (torch.arange(343, device=weights.device) * 4) // 343
+        y = None
+        for q in range(4):
+            w = torch.where((quarter == q)[:, None, None], weights, 0.0)
+            part = stem_plain(vol, coords, mask, w)
+            y = part if y is None else y + part
+        if bias is None:
+            return y
+        return (y + bias.to(y.dtype)) * mask[..., None].to(y.dtype)
+
+    seen = {}
+
+    def step(runner, tag, stem):
+        def stem_seen(*args):
+            seen[tag, "stem"] = stem(*args).detach()
+            return seen[tag, "stem"]
+
+        def rows_seen(coords, mask, h_rows, dims):
+            y, occ_l = rows_plain(coords, mask, h_rows, dims)
+            seen[tag, "pool"] = (coords, mask, h_rows.detach(), y, occ_l,
+                                 dims)
+            return y, occ_l
+
+        with plain_ops():
+            sparse_stem.stem_conv_sites = stem_seen
+            pool.masked_max_pool_rows = rows_seen
+            out = runner.train(batch)
+        torch.cuda.synchronize()
+        errs, _ = _step_errors(runner, plain, before, float(out["loss"]),
+                               loss_plain)
+        return {"errors": errs, "within_step_tol": all(
+            v <= STEP_TOL["float32"][k] for k, v in errs.items())}
+
+    out = {"reordering": "the stem's 343 taps summed as four quarter "
+                         "products, added in order",
+           "plain_again_vs_plain": step(again, "again", stem_plain),
+           "reordered_vs_plain": step(reordered, "reordered", quartered)}
+    a, r = seen["again", "stem"], seen["reordered", "stem"]
+    routes = {}
+    for tag in ("again", "reordered"):
+        coords, mask, h_rows, y, occ_l, dims = seen[tag, "pool"]
+        routes[tag] = pool.masked_max_pool_bwd_rows_plain(
+            coords, mask, h_rows, y, occ_l, torch.ones_like(y), dims)
+    out.update(
+        stem_values=a.numel(), stem_values_changed=int((a != r).sum()),
+        stem_max_abs_change=(a - r).abs().max().item(),
+        pool_routes=int(batch.mask.sum()) * a.shape[-1],
+        pool_routes_changed=int((routes["again"] != routes["reordered"])
+                                .sum()))
+    return out
+
+
 def compare_train_steps(run, batch, dtname: str, tols: dict,
-                        conditioning: bool = False) -> dict:
+                        conditioning: bool = False,
+                        stem_order: bool = False) -> dict:
     """One train step on one device batch from one state, through the
     kernels (run.runner) and through the plain versions (a copy of the
     runner); the errors of the kernel path against the plain one, each held
@@ -1542,7 +1785,8 @@ def compare_train_steps(run, batch, dtname: str, tols: dict,
     step on the batch with its features moved by one f32 rounding
     (x * (1 + 6e-8 * normal noise)): its errors against the plain step say
     how far one rounding of the input moves each quantity, and a quantity
-    may then miss its tolerance by up to 4 times that."""
+    may then miss its tolerance by up to 4 times that. With `stem_order`
+    (f32), two more plain copies give `stem_order_witness`'s reading."""
     import copy
     import dataclasses
     import torch
@@ -1556,6 +1800,7 @@ def compare_train_steps(run, batch, dtname: str, tols: dict,
 
     plain = plain_copy()
     moved = plain_copy() if conditioning else None
+    witness = (plain_copy(), plain_copy()) if stem_order else None
     before = {n: p.detach().clone()
               for n, p in plain.net.named_parameters()}
     out_k = run.runner.train(batch)
@@ -1579,6 +1824,9 @@ def compare_train_steps(run, batch, dtname: str, tols: dict,
         out["one_rounding_of_x_moves_the_plain_step_by"] = sens
         tol = {k: max(v, 4 * sens[k]) for k, v in tol.items()}
         out["tolerance_with_conditioning"] = tol
+    if witness is not None:
+        out["stem_order_witness"] = stem_order_witness(*witness, plain, batch,
+                                                       before, lp)
     bad = {k: v for k, v in errs.items() if not v <= tol[k]}
     if bad or not np.isfinite(lk):
         raise AssertionError(f"train {dtname}: kernel step vs plain step "
@@ -1640,7 +1888,8 @@ def phase_train(key: str, dtname: str, plot_dir: str, out_dir: str,
     host_batch = run.stream.next()
     batch = host_batch.to(run.runner.device)
     compared = compare_train_steps(
-        run, batch, dtname, STEP_TOL, conditioning=key == "KPConv")
+        run, batch, dtname, STEP_TOL, conditioning=key == "KPConv",
+        stem_order=key == "SENet14" and not bf16)
 
     # step time on the device-resident batch
     runner = run.runner
@@ -1950,7 +2199,8 @@ def main(argv=None) -> int:
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dtype",
         "case", "max_abs_plain", "launches_by_path", "device_ms",
-        "plain_device_ms", "library_device_ms", "sub_kernels")}
+        "plain_device_ms", "library_device_ms", "sub_kernels",
+        "previous_route_ms", "previous_route_device_ms")}
         for r in krows]}
     RECORD.append({"total_seconds": time.perf_counter() - t_start})
     if args.out:

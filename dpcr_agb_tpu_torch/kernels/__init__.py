@@ -16,7 +16,7 @@ from . import build
 LAUNCHES = {"stem_sites": 0, "max_pool_k3s2": 0, "stem_sites_dw": 0,
             "max_pool_k3s2_bwd": 0, "kpconv_fused": 0, "kpconv_fused_bwd": 0,
             "firewall_copy": 0, "max_pool_k3s2_bwd_vol": 0,
-            "gather_rows_bwd": 0}
+            "gather_rows_bwd": 0, "max_pool_k3s2_rows": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INFLUENCE_CODE = {"linear": 0, "gaussian": 1, "constant": 2}
@@ -58,12 +58,48 @@ def _on_device(device: torch.device, fn, *args) -> int:
         return fn(*args, _stream(device))
 
 
+SMEM_PER_BLOCK = 232448     # bytes of shared memory a block may use (H100)
+H100_SMS = 132
+STEM_MAX_CIN = 4            # stem_sites keeps W in shared memory
+STEM_LIST_CAP = 344         # a site's tap list (uint16, csrc/stem_sites.cu)
+STEM_STAGE = 32             # neighbours a site stages at a time (16 or 32 B)
+STEM_MAX_WARPS = 20         # a stem_sites block's warps, 4 sites each
+
+
+def stem_sites_plan(b: int, d: int, h: int, w: int, v: int, cin: int,
+                    bf16: bool, sms: int = H100_SMS) -> dict:
+    """How `stem_sites` cuts its work (pure: shapes in, numbers out): W's
+    share in shared memory, 32 words a (tap, input channel), which in f32
+    is 32 of the 64 output channels (`parts` 2, each with its own blocks)
+    and in bf16 all of them (`parts` 1); as many warps a block (at most 20,
+    4 sites each) as the sites' staged neighbours (32 a site, 16 bytes
+    each, 32 at Cin 4) and tap lists leave room for; one block an SM in
+    all, never more blocks than the B*V sites fill; the occupancy bits'
+    scratch (one int32 a 32 z-cells of a column). Raises for Cin outside
+    1..4."""
+    if not 1 <= cin <= STEM_MAX_CIN:
+        raise ValueError(f"stem_sites: Cin {cin} (the kernel keeps W in "
+                         f"shared memory: 1 <= Cin <= {STEM_MAX_CIN})")
+    parts = 1 if bf16 else 2
+    w_bytes = 343 * cin * 32 * 4
+    per_warp = 4 * (STEM_STAGE * (16 if cin <= 3 else 32)
+                    + STEM_LIST_CAP * 2)
+    warps = min(STEM_MAX_WARPS, (SMEM_PER_BLOCK - w_bytes) // per_warp)
+    blocks = max(1, min(sms // parts, -(-b * v // (4 * warps)), 65535))
+    words = b * d * h * -(-w // 32)
+    return {"parts": parts, "warps": warps, "blocks": blocks,
+            "grid": (blocks, parts),
+            "smem_bytes": w_bytes + warps * per_warp,
+            "scratch_bytes": {"bits": 4 * words}}
+
+
 def stem_sites(vol: torch.Tensor, coords: torch.Tensor, mask: torch.Tensor,
                weights: torch.Tensor,
                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """k=7 stem conv at the sites: vol [B,D,H,W,Cin], coords [B,V,3] int32,
-    mask [B,V] bool, weights [343,Cin,Cout] (z-fastest offsets), bias
-    [Cout] -> [B,V,Cout] in vol's dtype (f32 accumulation)."""
+    """k=7 stem conv at the sites: vol [B,D,H,W,Cin] (1 <= Cin <= 4),
+    coords [B,V,3] int32, mask [B,V] bool, weights [343,Cin,64] (z-fastest
+    offsets), bias [64] -> [B,V,64] in vol's dtype (f32 sums in tap order:
+    the same bits from call to call)."""
     if not vol.is_cuda:
         raise ValueError("stem_sites takes CUDA tensors")
     dev, dt = vol.device, vol.dtype
@@ -87,13 +123,16 @@ def stem_sites(vol: torch.Tensor, coords: torch.Tensor, mask: torch.Tensor,
         _require(bias, "bias", dt, 1, dev)
         if bias.shape != (cout,):
             raise ValueError(f"stem_sites: bias {tuple(bias.shape)}")
+    plan = stem_sites_plan(b, d, h, w, v, cin, dt == torch.bfloat16,
+                           _sm_count(dev))
+    bits = torch.empty(plan["scratch_bytes"]["bits"] // 4, dtype=torch.int32,
+                       device=dev)
     out = torch.empty((b, v, cout), dtype=dt, device=dev)
-    with torch.cuda.device(dev):
-        rc = build.entry("stem_sites")(
-            _DTYPE_CODE[dt], vol.data_ptr(), coords.data_ptr(),
-            mask.data_ptr(), weights.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            b, d, h, w, v, cin, cout, _stream(dev))
+    rc = _on_device(dev, build.entry("stem_sites"), _DTYPE_CODE[dt],
+                    vol.data_ptr(), bits.data_ptr(), coords.data_ptr(),
+                    mask.data_ptr(), weights.data_ptr(),
+                    None if bias is None else bias.data_ptr(), out.data_ptr(),
+                    b, d, h, w, v, cin, cout, plan["warps"], plan["blocks"])
     _check_rc(rc, "stem_sites")
     LAUNCHES["stem_sites"] += 1
     return out
@@ -119,17 +158,58 @@ def max_pool_k3s2(x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
                          "whole number of 16-byte channel groups")
     y = torch.empty((b, -(-d // 2), -(-h // 2), -(-w // 2), c), dtype=dt,
                     device=dev)
-    with torch.cuda.device(dev):
-        rc = build.entry("max_pool")(
-            _DTYPE_CODE[dt], x.data_ptr(), occ.data_ptr(), y.data_ptr(),
-            b, d, h, w, c, _stream(dev))
+    rc = _on_device(dev, build.entry("max_pool"), _DTYPE_CODE[dt],
+                    x.data_ptr(), occ.data_ptr(), y.data_ptr(), b, d, h, w,
+                    c)
     _check_rc(rc, "max_pool_k3s2")
     LAUNCHES["max_pool_k3s2"] += 1
     return y
 
 
-SMEM_PER_BLOCK = 232448     # bytes of shared memory a block may use (H100)
-H100_SMS = 132
+def max_pool_k3s2_rows(coords: torch.Tensor, mask: torch.Tensor,
+                       h_rows: torch.Tensor, dims: Sequence[int]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row form of the masked k3/s2 max pool: coords [B,V,3] int32, mask
+    [B,V] bool, rows h_rows [B,V,C] in the volume of `dims` -> (y
+    [B,d1,h1,w1,C], its occupancy occ_l [B,d1,h1,w1,1], both in h_rows'
+    dtype): what scattering the rows into the volume (masked and
+    out-of-volume rows dropped, duplicate cells summed), occupancy_pool and
+    `max_pool_k3s2` give, with no C-wide volume. The kernel keeps an int32
+    cell -> row index volume [B,D,H,W] and a slot a duplicated cell in
+    scratch."""
+    if not h_rows.is_cuda:
+        raise ValueError("max_pool_k3s2_rows takes CUDA tensors")
+    dev, dt = h_rows.device, h_rows.dtype
+    if dt not in _DTYPE_CODE:
+        raise ValueError(f"max_pool_k3s2_rows: unsupported dtype {dt}")
+    _require(coords, "coords", torch.int32, 3, dev)
+    _require(mask, "mask", torch.bool, 2, dev)
+    _require(h_rows, "h_rows", dt, 3, dev)
+    b, v, c = h_rows.shape
+    d, h, w = (int(n) for n in dims)
+    if coords.shape != (b, v, 3) or mask.shape != (b, v):
+        raise ValueError(
+            f"max_pool_k3s2_rows: shapes coords {tuple(coords.shape)}, mask "
+            f"{tuple(mask.shape)}, h_rows {tuple(h_rows.shape)}")
+    if h_rows.data_ptr() % 16 or (c * h_rows.element_size()) % 16:
+        raise ValueError("max_pool_k3s2_rows: h_rows must be 16-byte aligned "
+                         "with C a whole number of 16-byte channel groups")
+    l1 = (b, -(-d // 2), -(-h // 2), -(-w // 2))
+    y = torch.empty((*l1, c), dtype=dt, device=dev)
+    occ_l = torch.empty((*l1, 1), dtype=dt, device=dev)
+    slots = max(1, -(-b * v // 2))      # a duplicated cell holds 2 rows+
+    scratch = torch.empty(b * d * h * w + 1 + 2 * slots, dtype=torch.int32,
+                          device=dev)
+    merged = torch.empty((slots, c), dtype=dt, device=dev)
+    rc = _on_device(dev, build.entry("max_pool_rows"), _DTYPE_CODE[dt],
+                    coords.data_ptr(), mask.data_ptr(), h_rows.data_ptr(),
+                    scratch.data_ptr(), merged.data_ptr(), y.data_ptr(),
+                    occ_l.data_ptr(), b, v, d, h, w, c, slots)
+    _check_rc(rc, "max_pool_k3s2_rows")
+    LAUNCHES["max_pool_k3s2_rows"] += 1
+    return y, occ_l
+
+
 STEM_DW_TILE_ROWS = 64      # rows of dW [343*Cin, 64] of a stem_sites_dw block
 
 

@@ -36,10 +36,11 @@ _L = ctypes.c_longlong
 # its library
 LIBRARIES = {
     "stem_sites": ("stem_sites.cu", "stem_sites_launch",
-                   [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                    _P]),
+                   [_I, *[_P] * 7, *[_I] * 9, _P]),
     "max_pool": ("max_pool.cu", "max_pool_k3s2_launch",
                  [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "max_pool_rows": ("max_pool.cu", "max_pool_k3s2_rows_launch",
+                      [_I, *[_P] * 7, *[_I] * 7, _P]),
     "max_pool_bwd": ("max_pool_bwd.cu", "max_pool_k3s2_bwd_launch",
                      [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P]),

@@ -1,95 +1,334 @@
-// max_pool_k3s2: the masked Minkowski MaxPool (kernel 3, stride 2) forward.
+// max_pool_k3s2 and max_pool_k3s2_rows: the masked Minkowski MaxPool
+// (kernel 3, stride 2) forward, of a volume and of the level-0 rows.
 //
 // Replaces: the Pallas forward kernel _fwd_kernel of
 // dpcr_agb_tpu/ops/pallas_pool.py (called through _fwd_call and
-// pallas_max_pool). Output cell u takes the max over the input window
+// pallas_max_pool), and for the rows the composite that
+// dpcr_agb_tpu/ops/sparse_stem.py pooled_rows_fused runs in its forward
+// (scatter of the rows into a full-resolution volume, occupancy_pool, the
+// window max). Output cell u takes the max over the input window
 // {2u-1, 2u, 2u+1} on each axis, where unoccupied and out-of-range inputs
-// count as -inf; it is zeroed where the pooled occupancy is 0, i.e. where
-// none of its 2^3 children {2u, 2u+1}^3 is occupied (the reference masks by
-// occupancy_pool). An occupied output always has an occupied input in its
-// window, so no -inf reaches the output.
+// count as -inf; it is zeroed where none of its 2^3 children {2u, 2u+1}^3 is
+// occupied. An occupied child lies in the window, so no -inf reaches the
+// output.
 //
-// What bounds it on an H100: bytes. It does ~27 compares per output against
-// one read of the C-channel input volume (1.6 GB in bf16 at the bs16 main
-// path shape) and one write of an eighth of that, so the 3.35 TB/s memory
-// rate is the limit.
+// What bounds it on an H100: bytes, and of those the output. The volume
+// form reads the occupancy and the occupied inputs' values (~2% of the
+// cells on the main path) and writes all of y ([16,44,44,40,64] at bs16:
+// 317 MB f32). The row form reads the rows once and writes and reads an
+// int32 cell -> row index volume (40 MB at bs16) in place of the C-wide
+// volume (2.54 GB f32) that the scatter route built, zeroed and read.
 //
-// Design: one thread per output cell and 16-byte group of channels (8 bf16
-// or 4 f32 values), groups innermost, so a warp reads whole 16-byte chunks
-// of consecutive channels of one input cell (coalesced, 128-bit loads) and
-// the ~3x overlap of neighbouring windows is served from L1/L2. A cell's
-// occupancy is read once per channel group, and empty cells skip the value
-// load. Child occupancy is tracked in the same loop, so the kernel needs no
-// pooled occupancy volume. Each input is read from device memory about once.
+// What held the first version back (0.75 / 0.41 ms f32 / bf16 at bs16): a
+// thread per (output cell, 16-byte channel group) read all 27 window
+// cells' occupancy itself, so each output's window was read 16 (f32) or 8
+// (bf16) times, and it walked the window of outputs that have no occupied
+// child too.
+//
+// Design: one window logic for both forms (window_mask). A warp owns 32
+// consecutive output cells; each lane reads its cell's 27 window cells
+// once into a 27-bit mask, with a bit for "a child is occupied" (and, in
+// the row form, the largest child count: occ_l). The warp then writes the
+// 32 cells' channels as (cell, 16-byte group) items, consecutive lanes on
+// consecutive 16 bytes of y, each item taking its cell's mask by a shuffle:
+// a cell without an occupied child writes zeros and reads nothing, the
+// others read only the occupied inputs' 16-byte groups.
+//
+// Row form: the index volume is filled with "empty" (memset), each valid
+// row's cell gets the lowest row index that names it (atomicMin), and a
+// cell that two or more valid rows name (the scatter route summed them)
+// gets a merge slot: one warp sums the cell's rows in row order, rounding
+// to the storage type after each add as index_add_ on the CPU does, and
+// counts them (occupancy_pool keeps the count). No host sync anywhere;
+// with unique coordinates (every production batch) the merge kernel finds
+// no slot and returns.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace dpcr {
 
-template <typename T, int VEC>
-__global__ void max_pool_k3s2_kernel(const T* __restrict__ x,
-                                     const T* __restrict__ occ,
-                                     T* __restrict__ y, int B, int D, int H,
-                                     int W, int C, int D1, int H1, int W1) {
-  using P = Pack<T, VEC>;
-  const int groups = C / VEC;
-  const long long total = (long long)B * D1 * H1 * W1 * groups;
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += step) {
-    const int g = (int)(idx % groups);
-    long long t = idx / groups;
-    const int k = (int)(t % W1);
-    t /= W1;
-    const int j = (int)(t % H1);
-    t /= H1;
-    const int i = (int)(t % D1);
-    const long long b = t / D1;
-    float m[VEC];
+constexpr uint32_t kEmpty = 0xffffffffu;   // index volume: no valid row
+constexpr uint32_t kMerged = 0x80000000u;  // index volume: merge slot | id
+constexpr uint32_t kClaimed = 0xfffffffeu; // a merge slot being taken
+constexpr int kChildBit = 27;              // window mask: a child occupied
+constexpr int kPoolWarps = 8;
+
+// The 27-cell window {2u-1, 2u, 2u+1}^3 of the output cell whose all-lower
+// child (2i, 2j, 2k) is input cell `c0`: bit 9(a+1) + 3(c+1) + (f+1) set
+// where input (2i+a, 2j+c, 2k+f) lies in the volume and probe() gives it a
+// count > 0, bit kChildBit where a child (a, c, f >= 0) does; `most` gets
+// the largest child count.
+template <typename Probe>
+__device__ __forceinline__ uint32_t window_mask(const Probe& probe, int c0,
+                                                int i, int j, int k, int D,
+                                                int H, int W, int& most) {
+  uint32_t m = 0;
+  most = 0;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) m[e] = -INFINITY;
-    bool child = false;
-    for (int a = -1; a <= 1; ++a) {
-      const int xi = 2 * i + a;
-      if (xi < 0 || xi >= D) continue;
-      for (int c = -1; c <= 1; ++c) {
-        const int yi = 2 * j + c;
-        if (yi < 0 || yi >= H) continue;
-        for (int f = -1; f <= 1; ++f) {
-          const int zi = 2 * k + f;
-          if (zi < 0 || zi >= W) continue;
-          const size_t cell = (((size_t)b * D + xi) * H + yi) * W + zi;
-          if (!(to_float(occ[cell]) > 0.f)) continue;
-          const P p = *reinterpret_cast<const P*>(x + cell * C + g * VEC);
+  for (int a = -1; a <= 1; ++a) {
+    const int xi = 2 * i + a;
+    if (xi < 0 || xi >= D) continue;
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) m[e] = fmaxf(m[e], to_float(p.v[e]));
-          child = child || (a >= 0 && c >= 0 && f >= 0);
+    for (int c = -1; c <= 1; ++c) {
+      const int yi = 2 * j + c;
+      if (yi < 0 || yi >= H) continue;
+#pragma unroll
+      for (int f = -1; f <= 1; ++f) {
+        const int zi = 2 * k + f;
+        if (zi < 0 || zi >= W) continue;
+        const int n = probe(c0 + (a * H + c) * W + f);
+        if (n > 0) {
+          m |= 1u << (9 * (a + 1) + 3 * (c + 1) + (f + 1));
+          if (a >= 0 && c >= 0 && f >= 0) {
+            m |= 1u << kChildBit;
+            most = max(most, n);
+          }
         }
       }
     }
+  }
+  return m;
+}
+
+// volume form: occupancy > 0, values at x[cell]
+template <typename T>
+struct VolumeSource {
+  const T* __restrict__ x;
+  const T* __restrict__ occ;
+  int C;
+  __device__ int operator()(int cell) const {
+    return to_float(occ[cell]) > 0.f ? 1 : 0;
+  }
+  __device__ const T* values(int cell) const {
+    return x + (size_t)cell * C;
+  }
+  // the values as they are (the plain version reads x itself)
+  __device__ static float value(T v) { return to_float(v); }
+};
+
+// row form: the cell's row (or merge slot) from the index volume
+template <typename T>
+struct RowSource {
+  const uint32_t* __restrict__ idx;
+  const T* __restrict__ rows;
+  const T* __restrict__ merged;   // [slots, C] sums of duplicate rows
+  const int* __restrict__ counts; // [slots] how many rows each sums
+  int C;
+  __device__ int operator()(int cell) const {
+    const uint32_t r = idx[cell];
+    if (r == kEmpty) return 0;
+    return (r & kMerged) ? counts[r & ~kMerged] : 1;
+  }
+  __device__ const T* values(int cell) const {
+    const uint32_t r = idx[cell];
+    return (r & kMerged) ? merged + (size_t)(r & ~kMerged) * C
+                         : rows + (size_t)r * C;
+  }
+  // the scatter route's cell held 0 + row: -0 reads as +0
+  __device__ static float value(T v) { return to_float(v) + 0.f; }
+};
+
+template <typename T, int VEC, typename Source>
+__global__ void __launch_bounds__(kPoolWarps * 32)
+pool_k3s2_kernel(Source src, T* __restrict__ y, T* __restrict__ occ_l,
+                 int B, int D, int H, int W, int C, int D1, int H1, int W1) {
+  using P = Pack<T, VEC>;
+  const int lane = threadIdx.x & 31;
+  const int total = B * D1 * H1 * W1;
+  const int base = (blockIdx.x * kPoolWarps + (threadIdx.x >> 5)) * 32;
+  if (base >= total) return;                      // uniform within the warp
+  uint32_t m = 0;
+  int c0 = 0;
+  const int cell = base + lane;
+  if (cell < total) {
+    const int k = cell % W1;
+    int t = cell / W1;
+    const int j = t % H1;
+    t /= H1;
+    const int i = t % D1;
+    const int b = t / D1;
+    c0 = ((b * D + 2 * i) * H + 2 * j) * W + 2 * k;
+    int most;
+    m = window_mask(src, c0, i, j, k, D, H, W, most);
+    if (occ_l != nullptr) occ_l[cell] = from_float<T>((float)most);
+  }
+  const int groups = C / VEC;
+  // the warp's 32 cells x groups items, 32 at a time (the same trip count
+  // in every lane: the shuffles take all of them)
+  for (int it = lane; it < 32 * groups; it += 32) {
+    const int cl = it / groups, g = it - cl * groups;
+    const uint32_t mc = __shfl_sync(0xffffffffu, m, cl);
+    const int cc = __shfl_sync(0xffffffffu, c0, cl);
+    if (base + cl >= total) continue;
     P out;
+    if (mc >> kChildBit & 1u) {
+      float acc[VEC];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) out.v[e] = from_float<T>(child ? m[e] : 0.f);
-    *reinterpret_cast<P*>(y + idx * VEC) = out;
+      for (int e = 0; e < VEC; ++e) acc[e] = -INFINITY;
+      uint32_t bits = mc & ((1u << kChildBit) - 1u);
+      while (bits) {
+        const int t = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const int a = t / 9 - 1, c = t / 3 % 3 - 1, f = t % 3 - 1;
+        const P p = *reinterpret_cast<const P*>(
+            src.values(cc + (a * H + c) * W + f) + g * VEC);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc[e] = fmaxf(acc[e], Source::value(p.v[e]));
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) out.v[e] = from_float<T>(acc[e]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) out.v[e] = from_float<T>(0.f);
+    }
+    *reinterpret_cast<P*>(y + (size_t)(base + cl) * C + g * VEC) = out;
+  }
+}
+
+template <typename T, typename Source>
+static int launch_pool(const Source& src, void* y, void* occ_l, int B, int D,
+                       int H, int W, int C, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);  // 16-byte channel groups
+  const int D1 = (D + 1) / 2, H1 = (H + 1) / 2, W1 = (W + 1) / 2;
+  const long long total = (long long)B * D1 * H1 * W1;
+  if (total == 0) return 0;
+  const long long blocks = (total + kPoolWarps * 32 - 1) / (kPoolWarps * 32);
+  pool_k3s2_kernel<T, VEC, Source><<<(unsigned)blocks, kPoolWarps * 32, 0,
+                                     stream>>>(
+      src, static_cast<T*>(y), static_cast<T*>(occ_l), B, D, H, W, C, D1, H1,
+      W1);
+  return (int)cudaGetLastError();
+}
+
+// the volume cell of valid row r (mask set, coordinates inside), or -1
+__device__ __forceinline__ int row_cell(const int32_t* __restrict__ coords,
+                                        const uint8_t* __restrict__ mask,
+                                        int r, int V, int D, int H, int W) {
+  if (!mask[r]) return -1;
+  const int x = coords[3 * r], y = coords[3 * r + 1], z = coords[3 * r + 2];
+  if (x < 0 || x >= D || y < 0 || y >= H || z < 0 || z >= W) return -1;
+  return (((r / V) * D + x) * H + y) * W + z;
+}
+
+// each valid row's cell gets the lowest row index that names it
+__global__ void index_rows_kernel(const int32_t* __restrict__ coords,
+                                  const uint8_t* __restrict__ mask,
+                                  uint32_t* __restrict__ idx, int n, int V,
+                                  int D, int H, int W) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const int cell = row_cell(coords, mask, r, V, D, H, W);
+  if (cell >= 0) atomicMin(idx + cell, (uint32_t)r);
+}
+
+// a cell that more valid rows name: the first of its other rows to get
+// there takes a merge slot for it and records its lowest row
+__global__ void claim_duplicates_kernel(const int32_t* __restrict__ coords,
+                                        const uint8_t* __restrict__ mask,
+                                        uint32_t* __restrict__ idx,
+                                        uint32_t* __restrict__ n_slots,
+                                        uint32_t* __restrict__ slot_row,
+                                        int n, int V, int D, int H, int W) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const int cell = row_cell(coords, mask, r, V, D, H, W);
+  if (cell < 0) return;
+  const uint32_t first = idx[cell];
+  if (first == (uint32_t)r || (first & kMerged)) return;
+  if (atomicCAS(idx + cell, first, kClaimed) != first) return;
+  const uint32_t slot = atomicAdd(n_slots, 1u);
+  slot_row[slot] = first;
+  atomicExch(idx + cell, kMerged | slot);
+}
+
+// one warp a merge slot: the rows of the slot's cell summed in row order
+// (from 0, rounding to T after each add) and counted
+template <typename T>
+__global__ void merge_duplicates_kernel(const int32_t* __restrict__ coords,
+                                        const uint8_t* __restrict__ mask,
+                                        const T* __restrict__ rows,
+                                        const uint32_t* __restrict__ n_slots,
+                                        const uint32_t* __restrict__ slot_row,
+                                        T* __restrict__ merged,
+                                        int* __restrict__ counts, int V,
+                                        int D, int H, int W, int C) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (blockDim.x >> 5);
+  const int slots = (int)*n_slots;
+  for (int s = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       s < slots; s += warps) {
+    const int first = (int)slot_row[s];
+    const int cell = row_cell(coords, mask, first, V, D, H, W);
+    const int end = (first / V + 1) * V;        // the end of its sample
+    for (int c0 = 0; c0 < C; c0 += 128) {       // 4 channels a lane a pass
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      int count = 0;
+      for (int r0 = first; r0 < end; r0 += 32) {
+        const int r = r0 + lane;
+        const bool same = r < end && row_cell(coords, mask, r, V, D, H,
+                                              W) == cell;
+        unsigned hit = __ballot_sync(0xffffffffu, same);
+        count += __popc(hit);
+        while (hit) {
+          const int src = r0 + __ffs(hit) - 1;
+          hit &= hit - 1;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int ch = c0 + q * 32 + lane;
+            if (ch < C)
+              acc[q] = to_float(from_float<T>(
+                  acc[q] + to_float(rows[(size_t)src * C + ch])));
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int ch = c0 + q * 32 + lane;
+        if (ch < C) merged[(size_t)s * C + ch] = from_float<T>(acc[q]);
+      }
+      if (lane == 0) counts[s] = count;
+    }
   }
 }
 
 template <typename T>
-static int launch(const void* x, const void* occ, void* y, int B, int D,
-                  int H, int W, int C, cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);  // 16-byte channel groups
-  if (C % VEC != 0) return kBadShape;
-  const int D1 = (D + 1) / 2, H1 = (H + 1) / 2, W1 = (W + 1) / 2;
-  const long long total = (long long)B * D1 * H1 * W1 * (C / VEC);
-  if (total == 0) return 0;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > (1LL << 30)) blocks = 1LL << 30;  // grid-stride beyond this
-  max_pool_k3s2_kernel<T, VEC><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(occ),
-      static_cast<T*>(y), B, D, H, W, C, D1, H1, W1);
-  return (int)cudaGetLastError();
+static int launch_rows(const void* coords, const void* mask, const void* rows,
+                       void* scratch, void* merged, void* y, void* occ_l,
+                       int B, int V, int D, int H, int W, int C, int slots,
+                       cudaStream_t stream) {
+  const int n = B * V;
+  const size_t cells = (size_t)B * D * H * W;
+  uint32_t* idx = static_cast<uint32_t*>(scratch);
+  uint32_t* n_slots = idx + cells;
+  uint32_t* slot_row = n_slots + 1;
+  int* counts = reinterpret_cast<int*>(slot_row + slots);
+  cudaError_t e = cudaMemsetAsync(idx, 0xff, cells * 4, stream);
+  if (e == cudaSuccess) e = cudaMemsetAsync(n_slots, 0, 4, stream);
+  if (e != cudaSuccess) return (int)e;
+  const auto* cp = static_cast<const int32_t*>(coords);
+  const auto* mp = static_cast<const uint8_t*>(mask);
+  if (n > 0) {
+    const int blocks = (n + 255) / 256;
+    index_rows_kernel<<<blocks, 256, 0, stream>>>(cp, mp, idx, n, V, D, H,
+                                                  W);
+    claim_duplicates_kernel<<<blocks, 256, 0, stream>>>(
+        cp, mp, idx, n_slots, slot_row, n, V, D, H, W);
+    merge_duplicates_kernel<T><<<132, 256, 0, stream>>>(
+        cp, mp, static_cast<const T*>(rows), n_slots, slot_row,
+        static_cast<T*>(merged), counts, V, D, H, W, C);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const RowSource<T> src{idx, static_cast<const T*>(rows),
+                         static_cast<const T*>(merged), counts, C};
+  return launch_pool<T>(src, y, occ_l, B, D, H, W, C, stream);
+}
+
+// the pool's cell indices are 32-bit
+static bool fits(long long B, long long D, long long H, long long W) {
+  return B * D * H * W < 0x7fffffffLL;
 }
 
 }  // namespace dpcr
@@ -101,11 +340,54 @@ static int launch(const void* x, const void* occ, void* y, int B, int D,
 extern "C" int max_pool_k3s2_launch(int dtype, const void* x, const void* occ,
                                     void* y, int B, int D, int H, int W, int C,
                                     void* stream) {
-  if (B < 0 || D < 1 || H < 1 || W < 1 || C < 1) return dpcr::kBadShape;
+  if (B < 0 || D < 1 || H < 1 || W < 1 || C < 1 || !dpcr::fits(B, D, H, W))
+    return dpcr::kBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == dpcr::kFloat32)
-    return dpcr::launch<float>(x, occ, y, B, D, H, W, C, s);
-  if (dtype == dpcr::kBFloat16)
-    return dpcr::launch<__nv_bfloat16>(x, occ, y, B, D, H, W, C, s);
+  if (dtype == dpcr::kFloat32) {
+    if (C % 4) return dpcr::kBadShape;
+    const dpcr::VolumeSource<float> src{static_cast<const float*>(x),
+                                        static_cast<const float*>(occ), C};
+    return dpcr::launch_pool<float>(src, y, nullptr, B, D, H, W, C, s);
+  }
+  if (dtype == dpcr::kBFloat16) {
+    if (C % 8) return dpcr::kBadShape;
+    const dpcr::VolumeSource<__nv_bfloat16> src{
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(occ), C};
+    return dpcr::launch_pool<__nv_bfloat16>(src, y, nullptr, B, D, H, W, C,
+                                            s);
+  }
+  return dpcr::kBadDType;
+}
+
+// coords [B,V,3] int32, mask [B,V] uint8, rows [B,V,C] -> y [B,ceil(D/2),
+// ceil(H/2),ceil(W/2),C] and occ_l [B,ceil(D/2),ceil(H/2),ceil(W/2)] of the
+// rows' dtype; scratch int32 [B*D*H*W + 1 + 2*slots] (the index volume, the
+// slot count, each slot's lowest row and its count), merged [slots, C] of
+// the rows' dtype, slots >= (B*V)/2 (a slot sums two rows or more). rows,
+// merged and y 16-byte aligned, C a whole number of 16-byte groups.
+// Returns 0 on success, a CUDA error code, or a negative dpcr::ArgError.
+extern "C" int max_pool_k3s2_rows_launch(int dtype, const void* coords,
+                                         const void* mask, const void* rows,
+                                         void* scratch, void* merged, void* y,
+                                         void* occ_l, int B, int V, int D,
+                                         int H, int W, int C, int slots,
+                                         void* stream) {
+  if (B < 0 || V < 0 || D < 1 || H < 1 || W < 1 || C < 1 ||
+      !dpcr::fits(B, D, H, W) || (long long)B * V >= 0x40000000LL ||
+      2LL * slots < (long long)B * V)
+    return dpcr::kBadShape;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == dpcr::kFloat32) {
+    if (C % 4) return dpcr::kBadShape;
+    return dpcr::launch_rows<float>(coords, mask, rows, scratch, merged, y,
+                                    occ_l, B, V, D, H, W, C, slots, s);
+  }
+  if (dtype == dpcr::kBFloat16) {
+    if (C % 8) return dpcr::kBadShape;
+    return dpcr::launch_rows<__nv_bfloat16>(coords, mask, rows, scratch,
+                                            merged, y, occ_l, B, V, D, H, W,
+                                            C, slots, s);
+  }
   return dpcr::kBadDType;
 }

@@ -10,11 +10,14 @@ out-of-range inputs excluded (-inf), zeroed where the pooled occupancy is 0
 each occupied output cell to every input that equals its max (ties get
 the full cotangent each), in row space: each row gathers its 1..8 parent
 cells. The volume form (`pallas_max_pool`, the dense level 0) routes alike
-for every input cell of the volume. On CUDA tensors `masked_max_pool`,
-`masked_max_pool_bwd_rows` and `masked_max_pool_bwd_vol` launch the
-hand-written `max_pool_k3s2`, `max_pool_k3s2_bwd` and
-`max_pool_k3s2_bwd_vol` kernels; on CPU tensors they run their plain
-versions."""
+for every input cell of the volume. The rows' forward (`pooled_rows`,
+flavour "dense") reads the rows themselves: `masked_max_pool_rows` equals
+scattering them into the full-resolution volume, `occupancy_pool` and
+`masked_max_pool`, without that volume on the card. On CUDA tensors `masked_max_pool`,
+`masked_max_pool_rows`, `masked_max_pool_bwd_rows` and
+`masked_max_pool_bwd_vol` launch the hand-written `max_pool_k3s2`,
+`max_pool_k3s2_rows`, `max_pool_k3s2_bwd` and `max_pool_k3s2_bwd_vol`
+kernels; on CPU tensors they run their plain versions."""
 from __future__ import annotations
 
 from typing import Sequence, Tuple
@@ -57,6 +60,30 @@ def masked_max_pool(x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
         from .. import kernels
         return kernels.max_pool_k3s2(x, occ)
     return masked_max_pool_plain(x, occ)
+
+
+def masked_max_pool_rows_plain(coords: torch.Tensor, mask: torch.Tensor,
+                               h_rows: torch.Tensor, dims: Sequence[int]
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the `max_pool_k3s2_rows` kernel: the rows
+    scattered into the volume of `dims` (`scatter_to_dense`: masked and
+    out-of-volume rows dropped, duplicate cells summed), then
+    (masked_max_pool_plain, occupancy_pool) of that volume."""
+    hv, occ_v = scatter_to_dense(coords, mask, h_rows, dims)
+    return masked_max_pool_plain(hv, occ_v), occupancy_pool(occ_v)
+
+
+def masked_max_pool_rows(coords: torch.Tensor, mask: torch.Tensor,
+                         h_rows: torch.Tensor, dims: Sequence[int]
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows [B,V,C] (coords int32 [B,V,3], mask bool [B,V]) -> (pooled
+    level-1 volume [B,d1,h1,w1,C], its occupancy [B,d1,h1,w1,1]). The
+    `max_pool_k3s2_rows` kernel on CUDA tensors (no C-wide full-resolution
+    volume), the plain version on CPU ones."""
+    if h_rows.is_cuda:
+        from .. import kernels
+        return kernels.max_pool_k3s2_rows(coords, mask, h_rows, dims)
+    return masked_max_pool_rows_plain(coords, mask, h_rows, dims)
 
 
 def _pool_parents(coords: torch.Tensor, mask: torch.Tensor,
@@ -127,22 +154,24 @@ def masked_max_pool_bwd_rows(coords: torch.Tensor, mask: torch.Tensor,
 
 class _PooledRows(torch.autograd.Function):
     """Forward: the pooled level-1 volume of the rows, in one of three
-    flavours that give identical values: "dense" (scatter,
-    masked_max_pool), "separable" (scatter, three 1-D library window
-    maxes) or "scattermax" (the rows straight into the level-1 volume).
-    Saves only (coords, mask, h_rows, y, occ_l), as the JAX residuals are:
-    the full-resolution volume is freed after the forward."""
+    flavours that give identical values: "dense" (`masked_max_pool_rows`:
+    on the card the rows read straight into the window max, no
+    full-resolution volume), "separable" (scatter, three 1-D library
+    window maxes) or "scattermax" (the rows straight into the level-1
+    volume). Saves only (coords, mask, h_rows, y, occ_l), as the JAX
+    residuals are: no full-resolution volume outlives the forward."""
 
     @staticmethod
     def forward(ctx, coords, mask, h_rows, dims, flavour):
         if flavour == "scattermax":
             from .sparse_stem import scatter_max_pool_batch
             y, occ_l = scatter_max_pool_batch(coords, mask, h_rows, dims)
+        elif flavour == "dense":
+            y, occ_l = masked_max_pool_rows(coords, mask, h_rows, dims)
         else:
             hv, occ_v = scatter_to_dense(coords, mask, h_rows, dims)
             occ_l = occupancy_pool(occ_v)
-            y = masked_max_pool(hv, occ_v) if flavour == "dense" \
-                else dense_max_pool_xla(hv, occ_v, occ_l, separable=True)
+            y = dense_max_pool_xla(hv, occ_v, occ_l, separable=True)
         ctx.save_for_backward(coords, mask, h_rows, y, occ_l)
         ctx.dims = tuple(dims)
         ctx.mark_non_differentiable(occ_l)

@@ -6,7 +6,9 @@ empty mask; and the sums that make a train step repeatable, each run twice
 for the same bits: `stem_sites_dw`, `kpconv_fused_bwd`'s dx and dW, and
 `gather_rows_bwd` (against its plain version too); and a KPConv train
 step that builds each neighbour list's reverse index once and hands it to
-every gather backward. This file imports no
+every gather backward; the two pool forms (`max_pool_k3s2_rows` and the
+volume form) and `stem_sites` against their plain versions at their edges,
+the same bits twice. This file imports no
 JAX, so it runs on the GPU machine:
 
     python -m pytest --noconftest -m cuda tests/test_torch_imports.py \\
@@ -177,3 +179,113 @@ def test_card_train_step_hands_each_list_its_reverse_index(tmp_path,
     assert seen == [True] * 4
     # one index per (level, conv or pool) list: 5 conv lists, 4 pool lists
     assert len(built) == 9, built
+
+
+def _bits_equal(a, b):
+    view = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def _sites(rng, dims, b, v, n_valid):
+    """Unique coordinates for the first n_valid[i] rows of sample i (the
+    rest masked, at coordinates that repeat valid ones)."""
+    d, h, w = dims
+    coords = np.zeros((b, v, 3), np.int32)
+    mask = np.zeros((b, v), bool)
+    for i in range(b):
+        flat = rng.choice(d * h * w, size=v, replace=False)
+        coords[i] = np.stack([flat // (h * w), flat // w % h, flat % w], 1)
+        mask[i, :n_valid[i]] = True
+    return coords, mask
+
+
+@pytest.mark.cuda
+def test_pool_forms_match_their_plain_versions_and_repeat():
+    """max_pool_k3s2_rows against masked_max_pool_rows_plain (y and occ_l)
+    and the volume form against masked_max_pool_plain, exactly, at C 64 and
+    128, f32 and bf16, odd and even dims: an all-empty sample, masked rows,
+    rows outside the volume, duplicate pairs and a triple (values on a
+    1/16 grid: every sum is exact in any order), and 80% occupied volumes;
+    the same bits in two calls."""
+    _card()
+    from dpcr_agb_tpu_torch import kernels
+    from dpcr_agb_tpu_torch.ops import pool
+    from dpcr_agb_tpu_torch.ops.dense_grid import scatter_to_dense
+    rng = np.random.default_rng(14)
+    for dims in ((13, 10, 9), (8, 12, 34)):
+        coords, mask = _sites(rng, dims, 3, 203, (170, 0, 61))
+        coords[0, 170:173] = [[dims[0], 0, 0], [0, -1, 2], [1, 2, dims[2]]]
+        coords[0, 173:178] = coords[0, [0, 1, 2, 3, 3]]  # pairs, a triple
+        mask[0, 170:178] = True
+        c_t, m_t = torch.from_numpy(coords).cuda(), torch.from_numpy(
+            mask).cuda()
+        for c in (64, 128):
+            vals = torch.from_numpy(rng.integers(-64, 64, (3, 203, c))
+                                    / 16.0).float().cuda()
+            for dtype in (torch.float32, torch.bfloat16):
+                h = vals.to(dtype)
+                what = f"{dims} C {c} {dtype}"
+                before = kernels.LAUNCHES["max_pool_k3s2_rows"]
+                y, occ = pool.masked_max_pool_rows(c_t, m_t, h, dims)
+                assert kernels.LAUNCHES["max_pool_k3s2_rows"] == before + 1
+                want_y, want_occ = pool.masked_max_pool_rows_plain(
+                    c_t, m_t, h, dims)
+                torch.testing.assert_close(y, want_y, rtol=0, atol=0,
+                                           msg=what)
+                torch.testing.assert_close(occ, want_occ, rtol=0, atol=0,
+                                           msg=what)
+                assert occ.max().item() == 3.0 and not y[1].any(), what
+                y2, occ2 = pool.masked_max_pool_rows(c_t, m_t, h, dims)
+                assert _bits_equal(y, y2) and _bits_equal(occ, occ2), what
+                hv, occ_v = scatter_to_dense(c_t, m_t, h, dims)
+                dense = (torch.rand(occ_v.shape, device="cuda") < 0.8).to(
+                    dtype)
+                for x, o in ((hv, occ_v), (torch.randn(
+                        hv.shape, device="cuda").to(dtype) * dense, dense)):
+                    got = pool.masked_max_pool(x, o)
+                    torch.testing.assert_close(
+                        got, pool.masked_max_pool_plain(x, o), rtol=0, atol=0,
+                        msg=what)
+                    assert _bits_equal(got, pool.masked_max_pool(x, o)), what
+
+
+@pytest.mark.cuda
+def test_stem_sites_matches_its_plain_version_and_repeats():
+    """Cin 1, 3 and 4, with and without a bias: f32 within rtol 1e-4, atol
+    1e-4 and bf16 within atol 2e-2 of max|plain| (chip_smoke.py's
+    tolerances); sites on all six faces of the volume and past it (read at
+    the clipped site), an all-masked sample, B*V = 3 * 301 sites (not a
+    multiple of a block's); masked rows 0; the same bits in two calls."""
+    _card()
+    from dpcr_agb_tpu_torch.ops.dense_grid import scatter_to_dense
+    from dpcr_agb_tpu_torch.ops.sparse_stem import (stem_conv_sites,
+                                                    stem_conv_sites_plain)
+    rng = np.random.default_rng(15)
+    dims = (9, 11, 37)
+    coords, mask = _sites(rng, dims, 3, 301, (260, 0, 97))
+    coords[0, :8] = [[0, 5, 20], [8, 5, 20], [4, 0, 20], [4, 10, 20],
+                     [4, 5, 0], [4, 5, 36], [0, 0, 0], [8, 10, 36]]
+    coords[2, :2] = [[9, -2, 40], [-1, 11, 3]]
+    c_t, m_t = torch.from_numpy(coords).cuda(), torch.from_numpy(mask).cuda()
+    for cin in (1, 3, 4):
+        feats = torch.from_numpy(rng.normal(size=(3, 301, cin)).astype(
+            np.float32)).cuda()
+        wts = torch.from_numpy((rng.normal(size=(343, cin, 64)) * 0.1)
+                               .astype(np.float32)).cuda()
+        bias = torch.from_numpy(rng.normal(size=64).astype(np.float32)).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            vol, _ = scatter_to_dense(c_t, m_t, feats.to(dtype), dims)
+            for b in (bias.to(dtype), None):
+                args = (vol, c_t, m_t, wts.to(dtype), b)
+                got = stem_conv_sites(*args)
+                want = stem_conv_sites_plain(*args)
+                what = f"Cin {cin} {dtype} bias {b is not None}"
+                if dtype == torch.float32:
+                    torch.testing.assert_close(got, want, rtol=1e-4,
+                                               atol=1e-4, msg=what)
+                else:
+                    torch.testing.assert_close(
+                        got.float(), want.float(), rtol=0, msg=what,
+                        atol=2e-2 * want.float().abs().max().item())
+                assert not got[~m_t].any(), what
+                assert _bits_equal(stem_conv_sites(*args), got), what
