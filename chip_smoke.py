@@ -26,14 +26,17 @@ points as a user would) and SENet50 (bottleneck blocks, sparse level 0):
            kernels (sub_kernels, torch.profiler). Every sum that a train
            step takes in a fixed order is checked to give the same bits in
            two runs (stem_sites_dw, kpconv_fused_bwd's dx and dW,
-           gather_rows_bwd), and so are stem_sites and max_pool_k3s2_rows.
+           gather_rows_bwd), and so are stem_sites, max_pool_k3s2_rows and
+           max_pool_k3s2_bwd_vol.
            SENet14: stem_sites at the first serving batch's shapes;
            max_pool_k3s2_rows, the sparse level 0's pool, at the first
            serving and the first train batch's (y and occ_l exact; timed
            beside the route it replaces, scatter_to_dense +
-           occupancy_pool + the volume form, which is held exact too; the
-           pool forward's own peak memory, which must stay below the
-           C-wide full-resolution volume); stem_sites_dw and
+           occupancy_pool + the volume form, which is held exact too; its
+           device time split by torch.profiler into the index build (a
+           memset and three small kernels) and the pool kernel; the pool
+           forward's own peak memory, which must stay below the C-wide
+           full-resolution volume); stem_sites_dw and
            max_pool_k3s2_bwd at the first train batch's (SENet50 runs the
            same kernels at the same shapes: its rows are SENet14's unless
            it runs alone).
@@ -47,7 +50,12 @@ points as a user would) and SENet50 (bottleneck blocks, sparse level 0):
            first serving and the first train batch, from a contiguous and
            from a permuted (NCDHW-strided) source; max_pool_k3s2 on the
            dense path's pool input of the serving batch and
-           max_pool_k3s2_bwd_vol on that of the train batch
+           max_pool_k3s2_bwd_vol on that of the train batch (exact, the
+           same bits in two calls).
+           max_pool_k3s2_rows and max_pool_k3s2_bwd_vol also
+           fill_device_ms: the device time of torch.zero_ on a tensor of
+           their output's size (y and occ_l; dx), the card's own floor
+           for writing it
   serve    the full-width model (f32, then bf16): 16 synthetic plots dense
            enough that MaxPoints binds (sparse-voxel nets: V bucket 16384;
            KPConv: N bucket 8192) served by
@@ -348,9 +356,9 @@ def device_row(kernel, plain, library, ms: float, plain_ms: float,
             else device_ms_of(library, library_ms, optional=True)}
 
 
-def kernel_ms(fn, reps: int = 5) -> dict:
-    """Device ms per fn() of each of the port's kernels (namespace dpcr)
-    that fn launches, from torch.profiler over reps calls."""
+def _device_events(fn, reps: int) -> dict:
+    """Device ms per fn() of each kernel, memset and copy that fn puts on
+    the card, by name, from torch.profiler over reps calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -359,14 +367,32 @@ def kernel_ms(fn, reps: int = 5) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / reps / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def kernel_ms(fn, reps: int = 5) -> dict:
+    """Device ms per fn() of each of the port's kernels (namespace dpcr)
+    that fn launches, from torch.profiler over reps calls."""
     out = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and "dpcr::" in e.key:
-            name = e.key.split("dpcr::", 1)[1].split("<")[0].split("(")[0]
-            out[name] = out.get(name, 0.0) + e.self_device_time_total \
-                / reps / 1e3
+    for key, ms in _device_events(fn, reps).items():
+        if "dpcr::" in key:
+            name = key.split("dpcr::", 1)[1].split("<")[0].split("(")[0]
+            out[name] = out.get(name, 0.0) + ms
     return out
+
+
+def fill_device_ms(like, numel: int) -> float:
+    """device_ms of torch.zero_ on a tensor of numel elements of like's
+    dtype on its device: the card's own fill rate at the size of a
+    kernel's output, the floor of a kernel that writes all of it."""
+    import torch
+    buf = torch.empty(numel, dtype=like.dtype, device=like.device)
+    ms = device_ms(buf.zero_)
+    del buf
+    torch.cuda.empty_cache()
+    return ms
 
 
 @contextlib.contextmanager
@@ -683,17 +709,7 @@ def profiled_device_ms(fn, reps: int = 5) -> float:
     """Device ms per fn() from torch.profiler: every kernel, memset and
     copy that fn puts on the card, summed (for a route that reads a value
     back to the host, where `device_ms` cannot hold the queue)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / reps / 1e3
+    return sum(_device_events(fn, reps).values())
 
 
 def pool_rows_row(coords, mask, h_rows, dims, dtname: str, smi: str,
@@ -761,6 +777,12 @@ def pool_rows_row(coords, mask, h_rows, dims, dtname: str, smi: str,
     del got_y, got_o, want_y, want_o, prev_y, prev_o
     ms, plain_ms, prev_ms = (time_ms(f) for f in (kernel, plain, previous))
     devs = device_row(kernel, plain, None, ms, plain_ms, None)
+    # the kernel's device time in two parts (profiler sums): its pool
+    # kernel, and the index build (the occupancy bits' memset and three
+    # small kernels)
+    events = _device_events(kernel, 5)
+    pool_dev = sum(t for k, t in events.items() if "pool_rows_kernel" in k)
+    fill = fill_device_ms(h_rows, y_numel + o_numel)
     prev_dev = device_ms_of(previous, prev_ms, optional=True)
     prev_dev_by = "device_ms"
     if prev_dev is None:
@@ -791,6 +813,8 @@ def pool_rows_row(coords, mask, h_rows, dims, dtname: str, smi: str,
         "replaces": POOL_REPLACES, "launches": None, "max_abs_err": err,
         "max_abs_plain": amax, "tolerance": "exact (y and occ_l)",
         "reproducible": True, "ms": ms, "plain_ms": plain_ms, **devs,
+        "index_build_device_ms": sum(events.values()) - pool_dev,
+        "pool_kernel_device_ms": pool_dev, "fill_device_ms": fill,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes > t_ops else "operations",
         "library_ms": None,
@@ -921,6 +945,10 @@ def dense_l0_kernel_rows(bundles: dict, batch, train_batch, smi: str,
                                0.0, 0.0)
             amax, nonzero = _amax(want), int((got != 0).sum())
             del want
+            if not _same_bits(pool.masked_max_pool_bwd_vol(x, occ, y, ct),
+                              got):
+                raise AssertionError(f"max_pool_k3s2_bwd_vol {dtname}: two "
+                                     f"calls give different bits")
             ms = time_ms(lambda: pool.masked_max_pool_bwd_vol(x, occ, y, ct))
             plain_ms = time_ms(lambda: pool.masked_max_pool_bwd_vol_plain(
                 x, occ, y, ct), n=3, warmup=1)
@@ -945,6 +973,7 @@ def dense_l0_kernel_rows(bundles: dict, batch, train_batch, smi: str,
                 ms, plain_ms, lib_ms)
             del x_nc, ct_nc, idx
             torch.cuda.empty_cache()
+            fill = fill_device_ms(x, x.numel())
             # what this data needs: the occupancy of every cell and dx
             # written once; x at the occupied cells, y and ct at the
             # distinct outputs that cover them; a compare and an add per
@@ -964,8 +993,9 @@ def dense_l0_kernel_rows(bundles: dict, batch, train_batch, smi: str,
                 "case": "dense level 0, train batch", "route": "cuda",
                 "source": POOL_BWD_SRC, "replaces": POOL_BWD_REPLACES,
                 "launches": None, "max_abs_err": err, "max_abs_plain": amax,
-                "tolerance": "exact", "ms": ms, "plain_ms": plain_ms,
-                **devs, "bound_ms": max(t_bytes, t_ops),
+                "tolerance": "exact", "reproducible": True, "ms": ms,
+                "plain_ms": plain_ms, **devs, "fill_device_ms": fill,
+                "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes > t_ops else "operations",
                 "library_ms": lib_ms,
                 "library": "aten.max_pool3d_with_indices_backward on the "
@@ -2200,7 +2230,8 @@ def main(argv=None) -> int:
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dtype",
         "case", "max_abs_plain", "launches_by_path", "device_ms",
         "plain_device_ms", "library_device_ms", "sub_kernels",
-        "previous_route_ms", "previous_route_device_ms")}
+        "previous_route_ms", "previous_route_device_ms", "fill_device_ms",
+        "index_build_device_ms", "pool_kernel_device_ms")}
         for r in krows]}
     RECORD.append({"total_seconds": time.perf_counter() - t_start})
     if args.out:

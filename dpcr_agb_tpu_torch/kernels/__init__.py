@@ -175,8 +175,8 @@ def max_pool_k3s2_rows(coords: torch.Tensor, mask: torch.Tensor,
     dtype): what scattering the rows into the volume (masked and
     out-of-volume rows dropped, duplicate cells summed), occupancy_pool and
     `max_pool_k3s2` give, with no C-wide volume. The kernel keeps an int32
-    cell -> row index volume [B,D,H,W] and a slot a duplicated cell in
-    scratch."""
+    cell -> row index volume [B,D,H,W] (never cleared), an occupancy bit a
+    cell and a slot a duplicated cell in scratch."""
     if not h_rows.is_cuda:
         raise ValueError("max_pool_k3s2_rows takes CUDA tensors")
     dev, dt = h_rows.device, h_rows.dtype
@@ -198,8 +198,9 @@ def max_pool_k3s2_rows(coords: torch.Tensor, mask: torch.Tensor,
     y = torch.empty((*l1, c), dtype=dt, device=dev)
     occ_l = torch.empty((*l1, 1), dtype=dt, device=dev)
     slots = max(1, -(-b * v // 2))      # a duplicated cell holds 2 rows+
-    scratch = torch.empty(b * d * h * w + 1 + 2 * slots, dtype=torch.int32,
-                          device=dev)
+    bit_words = b * d * h * -(-w // 32)
+    scratch = torch.empty(b * d * h * w + bit_words + 1 + 2 * slots,
+                          dtype=torch.int32, device=dev)
     merged = torch.empty((slots, c), dtype=dt, device=dev)
     rc = _on_device(dev, build.entry("max_pool_rows"), _DTYPE_CODE[dt],
                     coords.data_ptr(), mask.data_ptr(), h_rows.data_ptr(),

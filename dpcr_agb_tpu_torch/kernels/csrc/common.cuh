@@ -22,6 +22,18 @@ struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
+// a 16-byte pack written with a streaming store (__stcs, evict first):
+// the kernels that use it write each output once and never read it back
+template <typename T, int VEC>
+__device__ __forceinline__ void store_streaming(T* p, const Pack<T, VEC>& v) {
+  static_assert(sizeof(Pack<T, VEC>) == 16 || sizeof(Pack<T, VEC>) == 8,
+                "8- or 16-byte packs only");
+  if constexpr (sizeof(Pack<T, VEC>) == 16)
+    __stcs(reinterpret_cast<uint4*>(p), *reinterpret_cast<const uint4*>(&v));
+  else
+    __stcs(reinterpret_cast<uint2*>(p), *reinterpret_cast<const uint2*>(&v));
+}
+
 template <typename T> __device__ __forceinline__ float to_float(T v);
 template <> __device__ __forceinline__ float to_float<float>(float v) {
   return v;

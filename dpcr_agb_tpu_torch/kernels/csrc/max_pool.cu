@@ -15,9 +15,10 @@
 // What bounds it on an H100: bytes, and of those the output. The volume
 // form reads the occupancy and the occupied inputs' values (~2% of the
 // cells on the main path) and writes all of y ([16,44,44,40,64] at bs16:
-// 317 MB f32). The row form reads the rows once and writes and reads an
-// int32 cell -> row index volume (40 MB at bs16) in place of the C-wide
-// volume (2.54 GB f32) that the scatter route built, zeroed and read.
+// 317 MB f32). The row form reads the rows once, and an occupancy bitmap
+// (1.2 MB at bs16) and an int32 cell -> row index volume (40 MB, read and
+// written at the occupied cells only) in place of the C-wide volume (2.54
+// GB f32) that the scatter route built, zeroed and read.
 //
 // What held the first version back (0.75 / 0.41 ms f32 / bf16 at bs16): a
 // thread per (output cell, 16-byte channel group) read all 27 window
@@ -25,30 +26,46 @@
 // (bf16) times, and it walked the window of outputs that have no occupied
 // child too.
 //
-// Design: one window logic for both forms (window_mask). A warp owns 32
-// consecutive output cells; each lane reads its cell's 27 window cells
-// once into a 27-bit mask, with a bit for "a child is occupied" (and, in
-// the row form, the largest child count: occ_l). The warp then writes the
-// 32 cells' channels as (cell, 16-byte group) items, consecutive lanes on
-// consecutive 16 bytes of y, each item taking its cell's mask by a shuffle:
-// a cell without an occupied child writes zeros and reads nothing, the
-// others read only the occupied inputs' 16-byte groups.
+// Volume form: window_mask. A warp owns 32 consecutive output cells; each
+// lane reads its cell's 27 window cells once into a 27-bit mask, with a
+// bit for "a child is occupied". The warp then writes the 32 cells'
+// channels as (cell, 16-byte group) items, consecutive lanes on
+// consecutive 16 bytes of y, each item taking its cell's mask by a
+// shuffle: a cell without an occupied child writes zeros and reads
+// nothing, the others read only the occupied inputs' 16-byte groups.
 //
-// Row form: the index volume is filled with "empty" (memset), each valid
-// row's cell gets the lowest row index that names it (atomicMin), and a
-// cell that two or more valid rows name (the scatter route summed them)
-// gets a merge slot: one warp sums the cell's rows in row order, rounding
-// to the storage type after each add as index_add_ on the CPU does, and
-// counts them (occupancy_pool keeps the count). No host sync anywhere;
-// with unique coordinates (every production batch) the merge kernel finds
-// no slot and returns.
+// Row form: each valid row sets its cell's bit in an occupancy bitmap (a
+// bit a cell, 1.2 MB at bs16) and the row whose atomicOr sets it writes its
+// index into an int32 cell -> row volume, which is never cleared (it is
+// read only where a bit is set); a cell that two or more valid rows name
+// (the scatter route summed them) gets a merge slot: one warp sums the
+// cell's rows in row order, rounding to the storage type after each add as
+// index_add_ on the CPU does, and counts them (occupancy_pool keeps the
+// count). No host sync anywhere; with unique coordinates (every production
+// batch) the merge kernel finds no slot and returns.
+//
+// What held the row form's first pool kernel at 48% / 37% of its bound
+// (0.233 / 0.153 ms f32 / bf16 at the serving batch), read from a
+// torch.profiler split of it on the card: the pool kernel was 0.20 / 0.12
+// ms of that, against 0.10 / 0.05 ms for torch.zero_ of y. Each output
+// cell probed all 27 window cells in the index volume (whose 40 MB memset
+// took another 0.014 ms); half of the warps hold a cell with an occupied
+// child (4.5 such cells on average), and each occupied window cell then
+// cost two dependent loads (its index again, then its row) in a loop whose
+// trip count differed between the lanes of one instruction, while the
+// warp's block held its other warps' registers. Now (pool_rows_kernel) a
+// lane reads its window from the bitmap, and the index volume only at the
+// occupied window cells of a cell with an occupied child, listing them in
+// the warp's slice of shared memory; the warp stores the other cells'
+// zeros at once and packs the listed cells' items 32 at a time, each lane
+// issuing up to kRowLoads row loads before its max (in bf16 two values at
+// a time, __hmax2); blocks of 4 warps; y written with streaming stores.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace dpcr {
 
-constexpr uint32_t kEmpty = 0xffffffffu;   // index volume: no valid row
 constexpr uint32_t kMerged = 0x80000000u;  // index volume: merge slot | id
 constexpr uint32_t kClaimed = 0xfffffffeu; // a merge slot being taken
 constexpr int kChildBit = 27;              // window mask: a child occupied
@@ -56,15 +73,13 @@ constexpr int kPoolWarps = 8;
 
 // The 27-cell window {2u-1, 2u, 2u+1}^3 of the output cell whose all-lower
 // child (2i, 2j, 2k) is input cell `c0`: bit 9(a+1) + 3(c+1) + (f+1) set
-// where input (2i+a, 2j+c, 2k+f) lies in the volume and probe() gives it a
-// count > 0, bit kChildBit where a child (a, c, f >= 0) does; `most` gets
-// the largest child count.
+// where input (2i+a, 2j+c, 2k+f) lies in the volume and probe() says it is
+// occupied, bit kChildBit where a child (a, c, f >= 0) is.
 template <typename Probe>
 __device__ __forceinline__ uint32_t window_mask(const Probe& probe, int c0,
                                                 int i, int j, int k, int D,
-                                                int H, int W, int& most) {
+                                                int H, int W) {
   uint32_t m = 0;
-  most = 0;
 #pragma unroll
   for (int a = -1; a <= 1; ++a) {
     const int xi = 2 * i + a;
@@ -77,13 +92,9 @@ __device__ __forceinline__ uint32_t window_mask(const Probe& probe, int c0,
       for (int f = -1; f <= 1; ++f) {
         const int zi = 2 * k + f;
         if (zi < 0 || zi >= W) continue;
-        const int n = probe(c0 + (a * H + c) * W + f);
-        if (n > 0) {
+        if (probe(c0 + (a * H + c) * W + f)) {
           m |= 1u << (9 * (a + 1) + 3 * (c + 1) + (f + 1));
-          if (a >= 0 && c >= 0 && f >= 0) {
-            m |= 1u << kChildBit;
-            most = max(most, n);
-          }
+          if (a >= 0 && c >= 0 && f >= 0) m |= 1u << kChildBit;
         }
       }
     }
@@ -97,8 +108,8 @@ struct VolumeSource {
   const T* __restrict__ x;
   const T* __restrict__ occ;
   int C;
-  __device__ int operator()(int cell) const {
-    return to_float(occ[cell]) > 0.f ? 1 : 0;
+  __device__ bool operator()(int cell) const {
+    return to_float(occ[cell]) > 0.f;
   }
   __device__ const T* values(int cell) const {
     return x + (size_t)cell * C;
@@ -107,32 +118,10 @@ struct VolumeSource {
   __device__ static float value(T v) { return to_float(v); }
 };
 
-// row form: the cell's row (or merge slot) from the index volume
-template <typename T>
-struct RowSource {
-  const uint32_t* __restrict__ idx;
-  const T* __restrict__ rows;
-  const T* __restrict__ merged;   // [slots, C] sums of duplicate rows
-  const int* __restrict__ counts; // [slots] how many rows each sums
-  int C;
-  __device__ int operator()(int cell) const {
-    const uint32_t r = idx[cell];
-    if (r == kEmpty) return 0;
-    return (r & kMerged) ? counts[r & ~kMerged] : 1;
-  }
-  __device__ const T* values(int cell) const {
-    const uint32_t r = idx[cell];
-    return (r & kMerged) ? merged + (size_t)(r & ~kMerged) * C
-                         : rows + (size_t)r * C;
-  }
-  // the scatter route's cell held 0 + row: -0 reads as +0
-  __device__ static float value(T v) { return to_float(v) + 0.f; }
-};
-
 template <typename T, int VEC, typename Source>
 __global__ void __launch_bounds__(kPoolWarps * 32)
-pool_k3s2_kernel(Source src, T* __restrict__ y, T* __restrict__ occ_l,
-                 int B, int D, int H, int W, int C, int D1, int H1, int W1) {
+pool_k3s2_kernel(Source src, T* __restrict__ y, int B, int D, int H, int W,
+                 int C, int D1, int H1, int W1) {
   using P = Pack<T, VEC>;
   const int lane = threadIdx.x & 31;
   const int total = B * D1 * H1 * W1;
@@ -149,9 +138,7 @@ pool_k3s2_kernel(Source src, T* __restrict__ y, T* __restrict__ occ_l,
     const int i = t % D1;
     const int b = t / D1;
     c0 = ((b * D + 2 * i) * H + 2 * j) * W + 2 * k;
-    int most;
-    m = window_mask(src, c0, i, j, k, D, H, W, most);
-    if (occ_l != nullptr) occ_l[cell] = from_float<T>((float)most);
+    m = window_mask(src, c0, i, j, k, D, H, W);
   }
   const int groups = C / VEC;
   // the warp's 32 cells x groups items, 32 at a time (the same trip count
@@ -188,8 +175,8 @@ pool_k3s2_kernel(Source src, T* __restrict__ y, T* __restrict__ occ_l,
 }
 
 template <typename T, typename Source>
-static int launch_pool(const Source& src, void* y, void* occ_l, int B, int D,
-                       int H, int W, int C, cudaStream_t stream) {
+static int launch_pool(const Source& src, void* y, int B, int D, int H, int W,
+                       int C, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);  // 16-byte channel groups
   const int D1 = (D + 1) / 2, H1 = (H + 1) / 2, W1 = (W + 1) / 2;
   const long long total = (long long)B * D1 * H1 * W1;
@@ -197,9 +184,183 @@ static int launch_pool(const Source& src, void* y, void* occ_l, int B, int D,
   const long long blocks = (total + kPoolWarps * 32 - 1) / (kPoolWarps * 32);
   pool_k3s2_kernel<T, VEC, Source><<<(unsigned)blocks, kPoolWarps * 32, 0,
                                      stream>>>(
-      src, static_cast<T*>(y), static_cast<T*>(occ_l), B, D, H, W, C, D1, H1,
-      W1);
+      src, static_cast<T*>(y), B, D, H, W, C, D1, H1, W1);
   return (int)cudaGetLastError();
+}
+
+// ---- row form ----
+
+constexpr int kRowWarps = 4;   // warps of a block of pool_rows_kernel
+constexpr int kRowLoads = 8;   // row loads a lane issues before its max
+// window bits (as in window_mask) of the 8 children (a, c, f >= 0)
+constexpr uint32_t kChildMask =
+    (1u << 13) | (1u << 14) | (1u << 16) | (1u << 17) | (1u << 22) |
+    (1u << 23) | (1u << 25) | (1u << 26);
+
+// the max of VEC values over a window's rows, each read as 0 + value (the
+// scatter route's cell held 0 + row, so -0 reads as +0): max as they are,
+// then + 0 once, which changes only a -0 result
+template <typename T, int VEC>
+struct RowMax {
+  float acc[VEC];
+  __device__ void init() {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = -INFINITY;
+  }
+  __device__ void take(const Pack<T, VEC>& p) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = fmaxf(acc[e], to_float(p.v[e]));
+  }
+  __device__ Pack<T, VEC> result() const {
+    Pack<T, VEC> o;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) o.v[e] = from_float<T>(acc[e] + 0.f);
+    return o;
+  }
+};
+
+// bf16: the max of two values at a time in bf16 itself (exact, as a max
+// is; __hmax2 ignores a NaN as fmaxf does), half the registers of floats
+template <>
+struct RowMax<__nv_bfloat16, 8> {
+  __nv_bfloat162 acc[4];
+  __device__ void init() {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] = __float2bfloat162_rn(-INFINITY);
+  }
+  __device__ void take(const Pack<__nv_bfloat16, 8>& p) {
+    const auto* q = reinterpret_cast<const __nv_bfloat162*>(p.v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] = __hmax2(acc[e], q[e]);
+  }
+  __device__ Pack<__nv_bfloat16, 8> result() const {
+    Pack<__nv_bfloat16, 8> o;
+    auto* q = reinterpret_cast<__nv_bfloat162*>(o.v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      q[e] = __hadd2(acc[e], __float2bfloat162_rn(0.f));
+    return o;
+  }
+};
+
+// Row form's pool: a warp of 32 consecutive output cells. Each lane reads
+// its cell's window from the occupancy bits (a word of a column holds its
+// child pair and, but at the word's first bit, the cell below) and, only
+// if a child is occupied, the occupied window cells' indices (a row, or
+// kMerged | a merge slot), listed in window order in the warp's column of
+// `win`; occ_l is the largest child count. The warp writes zeros for the
+// cells without an occupied child, then the other cells' (cell, 16-byte
+// group) items, packed 32 at a time, each item's lane reading its cell's
+// list from shared memory and issuing up to kRowLoads row loads before it
+// takes the max.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kRowWarps * 32)
+pool_rows_kernel(const uint32_t* __restrict__ idx,
+                 const uint32_t* __restrict__ bits, const T* __restrict__ rows,
+                 const T* __restrict__ merged,
+                 const int* __restrict__ counts, T* __restrict__ y,
+                 T* __restrict__ occ_l, int D, int H, int W, int C, int D1,
+                 int H1, int W1, int total) {
+  using P = Pack<T, VEC>;
+  __shared__ uint32_t win[kRowWarps][27][32];
+  __shared__ int order[kRowWarps][32];  // lane | list length << 5
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int base = (blockIdx.x * kRowWarps + warp) * 32;
+  if (base >= total) return;                      // uniform within the warp
+  const int cell = base + lane;
+  int n = 0;
+  if (cell < total) {
+    const int k = cell % W1;
+    int t = cell / W1;
+    const int j = t % H1;
+    t /= H1;
+    const int i = t % D1;
+    const int b = t / D1;
+    const int c0 = ((b * D + 2 * i) * H + 2 * j) * W + 2 * k;
+    const int ww = (W + 31) >> 5, zw = (2 * k) >> 5, zb = (2 * k) & 31;
+    uint32_t m = 0;           // bit 9(a+1) + 3(c+1) + (f+1): occupied
+#pragma unroll
+    for (int a = -1; a <= 1; ++a)
+#pragma unroll
+      for (int c = -1; c <= 1; ++c) {
+        const int xi = 2 * i + a, yi = 2 * j + c;
+        if (xi < 0 || xi >= D || yi < 0 || yi >= H) continue;
+        const uint32_t* col = bits + ((b * D + xi) * H + yi) * ww;
+        const uint32_t w0 = col[zw];
+        const uint32_t lo = zb ? (w0 >> (zb - 1)) & 1u
+                               : (zw ? col[zw - 1] >> 31 : 0u);
+        m |= (lo | ((w0 >> zb) & 3u) << 1) << (9 * (a + 1) + 3 * (c + 1));
+      }
+    int most = 0;
+    if (m & kChildMask) {
+#pragma unroll
+      for (int q = 0; q < 27; ++q) {
+        if (!(m >> q & 1u)) continue;
+        const int a = q / 9 - 1, c = q / 3 % 3 - 1, f = q % 3 - 1;
+        const uint32_t r = idx[c0 + (a * H + c) * W + f];
+        win[warp][n++][lane] = r;
+        if (a >= 0 && c >= 0 && f >= 0)
+          most = max(most, (r & kMerged) ? counts[r & ~kMerged] : 1);
+      }
+    }
+    occ_l[cell] = from_float<T>((float)most);
+  }
+  const unsigned busy = __ballot_sync(0xffffffffu, n > 0);
+  const int groups = C / VEC;
+  const int here = min(32, total - base);
+  uint4* out = reinterpret_cast<uint4*>(y + (size_t)base * C);
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  // this lane's first item (cell cl, group g) and the step of 32 items, so
+  // that the item loops divide nothing
+  const int cl0 = lane / groups, dq = 32 / groups;
+  const int g0 = lane - cl0 * groups, dr = 32 - dq * groups;
+  {  // the items of the cells without an occupied child: zeros
+    int cl = cl0, g = g0;
+    for (int it = lane; it < here * groups; it += 32) {
+      if (!(busy >> cl & 1u)) __stcs(out + it, zero);
+      g += dr;
+      cl += dq;
+      if (g >= groups) {
+        g -= groups;
+        ++cl;
+      }
+    }
+  }
+  if (busy == 0u) return;
+  if (n > 0) order[warp][__popc(busy & ((1u << lane) - 1u))] = lane | n << 5;
+  __syncwarp();
+  // the other cells' items, packed: item j * groups + g is group g of the
+  // warp's j-th cell with an occupied child
+  int j = cl0, g = g0;
+  for (int it = lane; it < __popc(busy) * groups; it += 32) {
+    const int cl = order[warp][j] & 31, nc = order[warp][j] >> 5;
+    RowMax<T, VEC> mx;
+    mx.init();
+    for (int q0 = 0; q0 < nc; q0 += kRowLoads) {
+      P p[kRowLoads];
+#pragma unroll
+      for (int q = 0; q < kRowLoads; ++q) {
+        if (q0 + q >= nc) break;
+        const uint32_t r = win[warp][q0 + q][cl];
+        const T* src = (r & kMerged) ? merged + (size_t)(r & ~kMerged) * C
+                                     : rows + (size_t)r * C;
+        p[q] = *reinterpret_cast<const P*>(src + g * VEC);
+      }
+#pragma unroll
+      for (int q = 0; q < kRowLoads; ++q) {
+        if (q0 + q >= nc) break;
+        mx.take(p[q]);
+      }
+    }
+    store_streaming<T, VEC>(reinterpret_cast<T*>(out + cl * groups + g),
+                            mx.result());
+    g += dr;
+    j += dq;
+    if (g >= groups) {
+      g -= groups;
+      ++j;
+    }
+  }
 }
 
 // the volume cell of valid row r (mask set, coordinates inside), or -1
@@ -212,19 +373,27 @@ __device__ __forceinline__ int row_cell(const int32_t* __restrict__ coords,
   return (((r / V) * D + x) * H + y) * W + z;
 }
 
-// each valid row's cell gets the lowest row index that names it
-__global__ void index_rows_kernel(const int32_t* __restrict__ coords,
-                                  const uint8_t* __restrict__ mask,
-                                  uint32_t* __restrict__ idx, int n, int V,
-                                  int D, int H, int W) {
+// each valid row sets its cell's occupancy bit; the row whose atomicOr
+// sets it writes its index into the cell (the index volume is never
+// cleared: it is read only where a bit is set)
+__global__ void mark_rows_kernel(const int32_t* __restrict__ coords,
+                                 const uint8_t* __restrict__ mask,
+                                 uint32_t* __restrict__ bits,
+                                 uint32_t* __restrict__ idx, int n, int V,
+                                 int D, int H, int W) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const int cell = row_cell(coords, mask, r, V, D, H, W);
-  if (cell >= 0) atomicMin(idx + cell, (uint32_t)r);
+  if (cell < 0) return;
+  const int z = coords[3 * r + 2];
+  const uint32_t bit = 1u << (z & 31);
+  if (!(atomicOr(bits + (cell / W) * ((W + 31) >> 5) + (z >> 5), bit) & bit))
+    idx[cell] = (uint32_t)r;
 }
 
-// a cell that more valid rows name: the first of its other rows to get
-// there takes a merge slot for it and records its lowest row
+// a cell that more valid rows name: the first of the rows that did not
+// write it to get there takes a merge slot for it and records the row that
+// did (any of the cell's rows)
 __global__ void claim_duplicates_kernel(const int32_t* __restrict__ coords,
                                         const uint8_t* __restrict__ mask,
                                         uint32_t* __restrict__ idx,
@@ -243,8 +412,9 @@ __global__ void claim_duplicates_kernel(const int32_t* __restrict__ coords,
   atomicExch(idx + cell, kMerged | slot);
 }
 
-// one warp a merge slot: the rows of the slot's cell summed in row order
-// (from 0, rounding to T after each add) and counted
+// one warp a merge slot: the rows of the slot's cell, from its sample's
+// first row on, summed in row order (from 0, rounding to T after each
+// add) and counted
 template <typename T>
 __global__ void merge_duplicates_kernel(const int32_t* __restrict__ coords,
                                         const uint8_t* __restrict__ mask,
@@ -259,13 +429,13 @@ __global__ void merge_duplicates_kernel(const int32_t* __restrict__ coords,
   const int slots = (int)*n_slots;
   for (int s = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
        s < slots; s += warps) {
-    const int first = (int)slot_row[s];
-    const int cell = row_cell(coords, mask, first, V, D, H, W);
-    const int end = (first / V + 1) * V;        // the end of its sample
+    const int one = (int)slot_row[s];
+    const int cell = row_cell(coords, mask, one, V, D, H, W);
+    const int start = one / V * V, end = start + V;  // its sample's rows
     for (int c0 = 0; c0 < C; c0 += 128) {       // 4 channels a lane a pass
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
       int count = 0;
-      for (int r0 = first; r0 < end; r0 += 32) {
+      for (int r0 = start; r0 < end; r0 += 32) {
         const int r = r0 + lane;
         const bool same = r < end && row_cell(coords, mask, r, V, D, H,
                                               W) == cell;
@@ -298,21 +468,23 @@ static int launch_rows(const void* coords, const void* mask, const void* rows,
                        void* scratch, void* merged, void* y, void* occ_l,
                        int B, int V, int D, int H, int W, int C, int slots,
                        cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);  // 16-byte channel groups
   const int n = B * V;
-  const size_t cells = (size_t)B * D * H * W;
+  const size_t words = (size_t)B * D * H * ((W + 31) / 32);
   uint32_t* idx = static_cast<uint32_t*>(scratch);
-  uint32_t* n_slots = idx + cells;
+  uint32_t* bits = idx + (size_t)B * D * H * W;
+  uint32_t* n_slots = bits + words;
   uint32_t* slot_row = n_slots + 1;
   int* counts = reinterpret_cast<int*>(slot_row + slots);
-  cudaError_t e = cudaMemsetAsync(idx, 0xff, cells * 4, stream);
-  if (e == cudaSuccess) e = cudaMemsetAsync(n_slots, 0, 4, stream);
+  // the occupancy bits and the slot count, cleared in one memset
+  cudaError_t e = cudaMemsetAsync(bits, 0, (words + 1) * 4, stream);
   if (e != cudaSuccess) return (int)e;
   const auto* cp = static_cast<const int32_t*>(coords);
   const auto* mp = static_cast<const uint8_t*>(mask);
   if (n > 0) {
     const int blocks = (n + 255) / 256;
-    index_rows_kernel<<<blocks, 256, 0, stream>>>(cp, mp, idx, n, V, D, H,
-                                                  W);
+    mark_rows_kernel<<<blocks, 256, 0, stream>>>(cp, mp, bits, idx, n, V, D,
+                                                 H, W);
     claim_duplicates_kernel<<<blocks, 256, 0, stream>>>(
         cp, mp, idx, n_slots, slot_row, n, V, D, H, W);
     merge_duplicates_kernel<T><<<132, 256, 0, stream>>>(
@@ -321,9 +493,15 @@ static int launch_rows(const void* coords, const void* mask, const void* rows,
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  const RowSource<T> src{idx, static_cast<const T*>(rows),
-                         static_cast<const T*>(merged), counts, C};
-  return launch_pool<T>(src, y, occ_l, B, D, H, W, C, stream);
+  const int D1 = (D + 1) / 2, H1 = (H + 1) / 2, W1 = (W + 1) / 2;
+  const int total = B * D1 * H1 * W1;
+  if (total == 0) return 0;
+  const int blocks = (total + kRowWarps * 32 - 1) / (kRowWarps * 32);
+  pool_rows_kernel<T, VEC><<<blocks, kRowWarps * 32, 0, stream>>>(
+      idx, bits, static_cast<const T*>(rows), static_cast<const T*>(merged),
+      counts, static_cast<T*>(y), static_cast<T*>(occ_l), D, H, W, C, D1, H1,
+      W1, total);
+  return (int)cudaGetLastError();
 }
 
 // the pool's cell indices are 32-bit
@@ -347,25 +525,25 @@ extern "C" int max_pool_k3s2_launch(int dtype, const void* x, const void* occ,
     if (C % 4) return dpcr::kBadShape;
     const dpcr::VolumeSource<float> src{static_cast<const float*>(x),
                                         static_cast<const float*>(occ), C};
-    return dpcr::launch_pool<float>(src, y, nullptr, B, D, H, W, C, s);
+    return dpcr::launch_pool<float>(src, y, B, D, H, W, C, s);
   }
   if (dtype == dpcr::kBFloat16) {
     if (C % 8) return dpcr::kBadShape;
     const dpcr::VolumeSource<__nv_bfloat16> src{
         static_cast<const __nv_bfloat16*>(x),
         static_cast<const __nv_bfloat16*>(occ), C};
-    return dpcr::launch_pool<__nv_bfloat16>(src, y, nullptr, B, D, H, W, C,
-                                            s);
+    return dpcr::launch_pool<__nv_bfloat16>(src, y, B, D, H, W, C, s);
   }
   return dpcr::kBadDType;
 }
 
 // coords [B,V,3] int32, mask [B,V] uint8, rows [B,V,C] -> y [B,ceil(D/2),
 // ceil(H/2),ceil(W/2),C] and occ_l [B,ceil(D/2),ceil(H/2),ceil(W/2)] of the
-// rows' dtype; scratch int32 [B*D*H*W + 1 + 2*slots] (the index volume, the
-// slot count, each slot's lowest row and its count), merged [slots, C] of
-// the rows' dtype, slots >= (B*V)/2 (a slot sums two rows or more). rows,
-// merged and y 16-byte aligned, C a whole number of 16-byte groups.
+// rows' dtype; scratch int32 [B*D*H*W + B*D*H*ceil(W/32) + 1 + 2*slots]
+// (the index volume, the occupancy bits, the slot count, each slot's row
+// and its count), merged [slots, C] of the rows' dtype, slots >= (B*V)/2
+// (a slot sums two rows or more). rows, merged and y 16-byte aligned, C a
+// whole number of 16-byte groups.
 // Returns 0 on success, a CUDA error code, or a negative dpcr::ArgError.
 extern "C" int max_pool_k3s2_rows_launch(int dtype, const void* coords,
                                          const void* mask, const void* rows,

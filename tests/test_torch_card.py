@@ -7,9 +7,10 @@ for the same bits: `stem_sites_dw`, `kpconv_fused_bwd`'s dx and dW, and
 `gather_rows_bwd` (against its plain version too); and a KPConv train
 step that builds each neighbour list's reverse index once and hands it to
 every gather backward; the two pool forms (`max_pool_k3s2_rows` and the
-volume form) and `stem_sites` against their plain versions at their edges,
-the same bits twice. This file imports no
-JAX, so it runs on the GPU machine:
+volume form), the volume-form pool backward and `stem_sites` against their
+plain versions at their edges (for the row form also whole and childless
+windows; for the backward its warp tiles' edges), the same bits twice.
+This file imports no JAX, so it runs on the GPU machine:
 
     python -m pytest --noconftest -m cuda tests/test_torch_imports.py \\
         tests/test_torch_card.py -q"""
@@ -247,6 +248,96 @@ def test_pool_forms_match_their_plain_versions_and_repeat():
                         got, pool.masked_max_pool_plain(x, o), rtol=0, atol=0,
                         msg=what)
                     assert _bits_equal(got, pool.masked_max_pool(x, o)), what
+
+
+@pytest.mark.cuda
+def test_row_pool_full_and_childless_windows():
+    """max_pool_k3s2_rows at the window cases of its list design, exactly
+    against masked_max_pool_rows_plain (y and occ_l) and the same bits in
+    two calls, C 64 and 128, f32 and bf16 (values on a 1/16 grid), odd and
+    even dims. Sample 0 holds only constructed rows: an output cell whose
+    whole 27-cell window is occupied, with a duplicate pair among its
+    children; one with occupied window cells but no occupied child (y and
+    occ_l 0 there); the volume's far corner. Sample 1 random rows, masked
+    ones and ones outside the volume."""
+    _card()
+    from dpcr_agb_tpu_torch.ops import pool
+    rng = np.random.default_rng(16)
+    full = [(3 + a, 3 + c, 3 + f) for a in range(3) for c in range(3)
+            for f in range(3)]              # the window of output (2, 2, 2)
+    # output (5, 1, 1): children {10,11} x {2,3} x {2,3}; these window
+    # cells each have a coordinate 2u - 1, so none is a child of it
+    childless = [(9, 1, 1), (9, 2, 3), (10, 1, 2), (11, 3, 1)]
+    for dims in ((13, 10, 9), (12, 14, 40)):
+        d, h, w = dims
+        coords, mask = _sites(rng, dims, 2, 160, (0, 90))
+        built = full + childless + [(d - 1, h - 1, w - 1), (4, 4, 4)]
+        coords[0, :len(built)] = built
+        mask[0, :len(built)] = True
+        coords[1, 90:93] = [[d, 0, 0], [0, -1, 2], [1, 2, w]]
+        mask[1, 90:93] = True
+        c_t, m_t = torch.from_numpy(coords).cuda(), torch.from_numpy(
+            mask).cuda()
+        for c in (64, 128):
+            vals = torch.from_numpy(rng.integers(-64, 64, (2, 160, c))
+                                    / 16.0).float().cuda()
+            for dtype in (torch.float32, torch.bfloat16):
+                h_rows = vals.to(dtype)
+                what = f"{dims} C {c} {dtype}"
+                y, occ = pool.masked_max_pool_rows(c_t, m_t, h_rows, dims)
+                want_y, want_occ = pool.masked_max_pool_rows_plain(
+                    c_t, m_t, h_rows, dims)
+                torch.testing.assert_close(y, want_y, rtol=0, atol=0,
+                                           msg=what)
+                torch.testing.assert_close(occ, want_occ, rtol=0, atol=0,
+                                           msg=what)
+                assert occ[0, 2, 2, 2, 0] == 2.0, what   # the duplicate pair
+                assert occ[0, 5, 1, 1, 0] == 0 and not y[0, 5, 1, 1].any(), \
+                    what
+                assert occ[0, -1, -1, -1, 0] == 1.0, what
+                y2, occ2 = pool.masked_max_pool_rows(c_t, m_t, h_rows, dims)
+                assert _bits_equal(y, y2) and _bits_equal(occ, occ2), what
+
+
+@pytest.mark.cuda
+def test_volume_backward_at_tile_edges_and_repeats():
+    """max_pool_k3s2_bwd_vol exactly against masked_max_pool_bwd_vol_plain
+    and the same bits in two calls, C 64 and 128, f32 and bf16, at the
+    edges of its 32-cell warp tiles: cell counts that are not a multiple
+    of 32, tiles that straddle a z row (W 5, 9, 33) and a sample, a volume
+    smaller than one tile, odd and even dims, 1% and 80% occupancy; values
+    on a 1/16 grid, so windows hold ties (every maximizer gets the full
+    cotangent) in both dtypes."""
+    _card()
+    from dpcr_agb_tpu_torch import kernels
+    from dpcr_agb_tpu_torch.ops import pool
+    from dpcr_agb_tpu_torch.ops.dense_grid import occupancy_pool
+    rng = np.random.default_rng(17)
+    for shape in ((3, 5, 6, 7), (2, 9, 4, 33), (2, 24, 20, 9), (1, 1, 2, 5),
+                  (2, 16, 12, 10)):
+        for share in (0.01, 0.8):
+            occ_np = (rng.random((*shape, 1)) < share).astype(np.float32)
+            occ_np.reshape(-1)[-1] = 1.0        # the last cell of the volume
+            for c in (64, 128):
+                x_np = rng.integers(-8, 8, (*shape, c)) / 16.0 * occ_np
+                for dtype in (torch.float32, torch.bfloat16):
+                    what = f"{shape} {share} C {c} {dtype}"
+                    occ = torch.from_numpy(occ_np).cuda().to(dtype)
+                    x = torch.from_numpy(x_np).float().cuda().to(dtype)
+                    y = pool.masked_max_pool_plain(x, occ)
+                    ct = torch.from_numpy(rng.normal(size=tuple(y.shape))
+                                          .astype(np.float32)).cuda() \
+                        .to(dtype) * occupancy_pool(occ)
+                    before = kernels.LAUNCHES["max_pool_k3s2_bwd_vol"]
+                    got = pool.masked_max_pool_bwd_vol(x, occ, y, ct)
+                    assert kernels.LAUNCHES["max_pool_k3s2_bwd_vol"] \
+                        == before + 1, what
+                    want = pool.masked_max_pool_bwd_vol_plain(x, occ, y, ct)
+                    torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                               msg=what)
+                    assert _bits_equal(
+                        pool.masked_max_pool_bwd_vol(x, occ, y, ct), got), \
+                        what
 
 
 @pytest.mark.cuda
