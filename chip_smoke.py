@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch port (dpcr_agb_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--profile] [--out FILE]
-                          [--only SENet14|KPConv|SENet14-denseL0|SENet50]
+                          [--only SENet14|KPConv|SENet14-denseL0|SENet50|
+                                  MPointNet|SimplestNet]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   device   the card's name and power limit, the float32 settings pinned by
@@ -12,7 +13,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 Then for each configuration (`--only` keeps one of them): SENet14 with the
 sparse level 0, KPConv, SENet14 with the dense level 0 (DPCR_L0=dense,
 DPCR_STEM_MODE=zfold2d_firewall, DPCR_POOL_BWD=pallas, set around its entry
-points as a user would) and SENet50 (bottleneck blocks, sparse level 0):
+points as a user would), SENet50 (bottleneck blocks, sparse level 0), and
+MPointNet and SimplestNet (f32 only, as the JAX models; no kernel of the
+port on their path, so no kernels phase, and serve and train must launch
+none):
   kernels  in f32 and bf16, each kernel of the path held against its plain
            PyTorch version (stated tolerances; max|plain| beside each
            error), timed with CUDA events (median after warm-up) beside
@@ -26,8 +30,8 @@ points as a user would) and SENet50 (bottleneck blocks, sparse level 0):
            kernels (sub_kernels, torch.profiler). Every sum that a train
            step takes in a fixed order is checked to give the same bits in
            two runs (stem_sites_dw, kpconv_fused_bwd's dx and dW,
-           gather_rows_bwd), and so are stem_sites, max_pool_k3s2_rows and
-           max_pool_k3s2_bwd_vol.
+           gather_rows_bwd), and so are stem_sites, max_pool_k3s2_rows,
+           max_pool_k3s2_bwd and max_pool_k3s2_bwd_vol.
            SENet14: stem_sites at the first serving batch's shapes;
            max_pool_k3s2_rows, the sparse level 0's pool, at the first
            serving and the first train batch's (y and occ_l exact; timed
@@ -52,9 +56,9 @@ points as a user would) and SENet50 (bottleneck blocks, sparse level 0):
            dense path's pool input of the serving batch and
            max_pool_k3s2_bwd_vol on that of the train batch (exact, the
            same bits in two calls).
-           max_pool_k3s2_rows and max_pool_k3s2_bwd_vol also
-           fill_device_ms: the device time of torch.zero_ on a tensor of
-           their output's size (y and occ_l; dx), the card's own floor
+           max_pool_k3s2_rows, max_pool_k3s2_bwd and max_pool_k3s2_bwd_vol
+           also fill_device_ms: the device time of torch.zero_ on a tensor
+           of their output's size (y and occ_l; dx), the card's own floor
            for writing it
   serve    the full-width model (f32, then bf16): 16 synthetic plots dense
            enough that MaxPoints binds (sparse-voxel nets: V bucket 16384;
@@ -149,6 +153,10 @@ _SPARSE_L0 = {"env": {}, "kernels": "sparse_l0",
               "exact": None, "never": ("max_pool_k3s2",)}
 _ROW_KERNELS = {"stem_sites": 0, "stem_sites_dw": 0, "max_pool_k3s2_bwd": 0,
                 "max_pool_k3s2_rows": 0}
+# MPointNet and SimplestNet: plain PyTorch, f32 only, no launch of any of
+# the port's kernels in a forward or a step
+_NO_KERNELS = {"env": {}, "kernels": None, "forward": (), "backward": (),
+               "exact": None, "launch_none": True}
 # per path: the entry points' model_name, the mode variables, which
 # kernels phase it gets, the kernels serving launches and the ones training
 # adds, the kernels it must never launch (the sparse level 0 pools its
@@ -182,6 +190,8 @@ MODELS = {
                   "step": {"firewall_copy": 3, "max_pool_k3s2": 1,
                            "max_pool_k3s2_bwd_vol": 1, **_ROW_KERNELS}}},
     "SENet50": {"model_name": "SENet50", **_SPARSE_L0},
+    "MPointNet": {"model_name": "MPointNet", **_NO_KERNELS},
+    "SimplestNet": {"model_name": "SimplestNet", **_NO_KERNELS},
 }
 # the KPConv layers whose inputs the kernels phase takes from the first
 # serving batch: (block, case)
@@ -230,10 +240,13 @@ def mode_env(env: dict):
 def model_options(model_name: str) -> dict:
     """The model's `conf/models` entry at f32 and with extra_options.bf16
     (the sparse-voxel nets: bf16 convs; KPConv: bf16 inside the fused
-    convolution only)."""
+    convolution only); MPointNet and SimplestNet at f32 only."""
     from dpcr_agb_tpu_torch import train
-    return {"float32": train.model_option(model_name, bf16=False),
-            "bfloat16": train.model_option(model_name, bf16=True)}
+    from dpcr_agb_tpu_torch.models.factory import f32_only
+    out = {"float32": train.model_option(model_name, bf16=False)}
+    if not f32_only(out["float32"]):
+        out["bfloat16"] = train.model_option(model_name, bf16=True)
+    return out
 
 
 def emit(obj: dict) -> None:
@@ -1125,6 +1138,11 @@ def backward_kernel_rows(net, tb, dtname: str, smi: str, seed: int) -> list:
         torch.cuda.synchronize()
         err_p = _check_close(f"max_pool_k3s2_bwd {dtname}", got, want, 0.0,
                              0.0)
+        # one owner per output value, sums in slot order: the same bits
+        if not _same_bits(masked_max_pool_bwd_rows(
+                coords, mask, h_rows, y, occ_l, ct, dims), got):
+            raise AssertionError(f"max_pool_k3s2_bwd {dtname}: two calls "
+                                 f"give different bits")
         ms_p = time_ms(lambda: masked_max_pool_bwd_rows(
             coords, mask, h_rows, y, occ_l, ct, dims))
         plain_ms_p = time_ms(lambda: masked_max_pool_bwd_rows_plain(
@@ -1171,7 +1189,9 @@ def backward_kernel_rows(net, tb, dtname: str, smi: str, seed: int) -> list:
             "source": POOL_BWD_SRC, "replaces": POOL_BWD_REPLACES,
             "launches": None, "max_abs_err": err_p,
             "max_abs_plain": _amax(want), "tolerance": "exact",
+            "reproducible": True,
             "ms": ms_p, "plain_ms": plain_ms_p, **devs,
+            "fill_device_ms": fill_device_ms(h_rows, got.numel()),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "library_ms": lib_ms_p,
@@ -1544,8 +1564,10 @@ def batch_facts(net, batch) -> dict:
                 "zb": int(len(batch.aux["zcells"])),
                 "dims": list(net.level0_dims(batch)),
                 "occupied_voxels": n_valid}
-    return {"n_bucket": int(batch.mask.shape[1]), "valid_points": n_valid,
-            "level_caps": net.level_caps(int(batch.mask.shape[1]))}
+    out = {"n_bucket": int(batch.mask.shape[1]), "valid_points": n_valid}
+    if hasattr(net, "level_caps"):           # KPConv
+        out["level_caps"] = net.level_caps(int(batch.mask.shape[1]))
+    return out
 
 
 def check_launches(what: str, key: str, launches: dict, part: str) -> None:
@@ -1555,7 +1577,10 @@ def check_launches(what: str, key: str, launches: dict, part: str) -> None:
     spec = MODELS[key]
     exact = spec["exact"]
     names = spec["forward"] + (spec["backward"] if part == "step" else ())
-    if exact is None:
+    if spec.get("launch_none"):
+        bad = {k: n for k, n in launches.items() if n}
+        expected = "no launch of any of the port's kernels"
+    elif exact is None:
         bad = {k: launches[k] for k in names if launches[k] < 1}
         bad.update({k: launches[k] for k in spec.get("never", ())
                     if launches[k] != 0})
@@ -1596,17 +1621,19 @@ def phase_serve(key: str, dtname: str, ckpt: str, plot_dir: str,
     samples, _ = predict.load_samples(bundle, files)
     (batch, _), = predict.make_batches(bundle, samples, N_PLOTS)
     raw = predict.forward_raw(bundle, batch).float()
-    with plain_ops():
-        raw_plain = predict.forward_raw(bundle, batch).float()
-    torch.cuda.synchronize()
-    if dtname == "float32":
-        err = _check_close(f"{what} raw output", raw, raw_plain, 1e-3,
-                           1e-3 * _amax(raw_plain))
-        tol = "rtol 1e-3, atol 1e-3 * max|plain| (TF32 off)"
-    else:
-        err = _check_close(f"{what} raw output", raw, raw_plain, 0.0,
-                           5e-2 * _amax(raw_plain))
-        tol = "atol 5e-2 * max|plain| (bf16)"
+    raw_plain = err = tol = None   # no kernel on the path: nothing to hold
+    if not MODELS[key].get("launch_none"):
+        with plain_ops():
+            raw_plain = predict.forward_raw(bundle, batch).float()
+        torch.cuda.synchronize()
+        if dtname == "float32":
+            err = _check_close(f"{what} raw output", raw, raw_plain, 1e-3,
+                               1e-3 * _amax(raw_plain))
+            tol = "rtol 1e-3, atol 1e-3 * max|plain| (TF32 off)"
+        else:
+            err = _check_close(f"{what} raw output", raw, raw_plain, 0.0,
+                               5e-2 * _amax(raw_plain))
+            tol = "atol 5e-2 * max|plain| (bf16)"
 
     # forward time of the batch (host batch -> device -> raw output)
     times = []
@@ -1660,7 +1687,8 @@ def phase_serve(key: str, dtname: str, ckpt: str, plot_dir: str,
            "plots": N_PLOTS, **batch_facts(bundle.net, batch),
            "launches": launches, "predict_main_seconds": main_seconds,
            "raw_max_abs_err_vs_plain": err,
-           "raw_max_abs_plain": _amax(raw_plain), "tolerance": tol,
+           "raw_max_abs_plain": None if raw_plain is None else
+           _amax(raw_plain), "tolerance": tol,
            "forward_ms": fwd * 1e3, "plots_per_s": N_PLOTS / fwd, **extra,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
@@ -1917,9 +1945,10 @@ def phase_train(key: str, dtname: str, plot_dir: str, out_dir: str,
                       seed=seed)
     host_batch = run.stream.next()
     batch = host_batch.to(run.runner.device)
-    compared = compare_train_steps(
-        run, batch, dtname, STEP_TOL, conditioning=key == "KPConv",
-        stem_order=key == "SENet14" and not bf16)
+    compared = None if MODELS[key].get("launch_none") else \
+        compare_train_steps(run, batch, dtname, STEP_TOL,
+                            conditioning=key == "KPConv",
+                            stem_order=key == "SENet14" and not bf16)
 
     # step time on the device-resident batch
     runner = run.runner
@@ -2130,8 +2159,8 @@ def run_model(key: str, tmp: str, plot_dir: str, smi: str, seed: int,
     shared = [r for r in have if r["kernels_phase"] == spec["kernels"]]
     if spec["kernels"] == "kpconv":
         krows = phase_kpconv_kernels(bundles["float32"], batch, smi, seed)
-    elif shared:
-        krows = []      # the same kernels at the same shapes: timed already
+    elif spec["kernels"] is None or shared:
+        krows = []  # no kernel, or its kernels timed at these shapes already
     else:
         # the first batch that train.main draws from these plots
         train_batch = train.setup(files, model_name, batch_size=N_PLOTS,

@@ -29,67 +29,146 @@
 // reader: neighbouring rows share parents), and writes C values. The
 // compares and adds are a few per byte.
 //
-// Design: one thread per (row, 16-byte channel group), groups innermost,
-// so a warp reads whole 16-byte chunks of neighbouring channels with
-// 128-bit loads. No atomics and no shared memory: each output value is
-// owned by one thread, so the result equals the plain version exactly.
+// What held the first version back (0.066 / 0.044 ms f32 / bf16 at the
+// first SENet14 train batch on an H100, 58% / 44% of the bound): a thread
+// per (row, 16-byte channel group) loaded its row's coordinates and mask,
+// then walked the 8 parent slots, loading occ_l and only then y and ct at
+// each occupied one. Each of those loads waited on the one before it,
+// about 8 round trips to L2 before the row's one store; all 16 (8 in
+// bf16) threads of a row repeated the small loads; each item paid 64-bit
+// divisions; and bf16, at 8 threads a row, had half as many loads in
+// flight over the same chain.
+//
+// Design: a group of G lanes a row (G a power of two from 8 to 32: the
+// row's C / VEC items of VEC values, 16 bytes each in both dtypes; wider
+// rows loop), so a warp takes 32 / G consecutive rows, which share most of
+// their parents:
+//   1. lanes 0-2 of the group load the row's coordinates and lane 3 its
+//      mask; shuffles share them with the group (32-bit arithmetic from
+//      here on: the C entry refuses shapes of 2^31 elements or more). A
+//      masked or out-of-volume row stores its zeros at once;
+//   2. a valid row's lanes 0-7 each load occ_l at one parent slot while
+//      every lane loads its h items; a ballot gives the group the row's
+//      mask of occupied parents;
+//   3. each lane loads y and ct at the occupied parents, one parent at a
+//      time in slot order, and adds.
+// Steps 1 and 2 and the stores cost nothing beyond the write of dx: with
+// step 3's loads taken out the kernel ran at torch.zero_'s rate on dx.
+// What is left is step 3's gathers, bound by the rows in flight, so
+// registers decide: loading every occupied parent before the first
+// compare (up to 16 loads in flight, 93-104 registers) ran slower than the
+// first version; one parent at a time in blocks of 4 warps, with the
+// registers capped for 12 blocks an SM, ran fastest (PERF.md, section 6).
+// The sum stays in the plain version's order: f32, parent slot 0 to 7
+// (bit a of the slot picks the upper parent on axis a). Streaming stores:
+// dx is written once. No atomics and no shared memory: each output value
+// is owned by one lane, so the result equals the plain version exactly.
 #include "common.cuh"
 
 namespace dpcr {
 
-template <typename T, int VEC>
-__global__ void max_pool_k3s2_bwd_kernel(
-    const int32_t* __restrict__ coords, const uint8_t* __restrict__ mask,
-    const T* __restrict__ h, const T* __restrict__ y,
-    const T* __restrict__ occ_l, const T* __restrict__ ct, T* __restrict__ dx,
-    int B, int V, int D, int H, int W, int C) {
+constexpr int kRowWarps = 4;        // warps of a block
+constexpr int kRowMinBlocks = 12;   // blocks an SM the registers leave room for
+
+template <typename T, int VEC, int G>
+__global__ void __launch_bounds__(kRowWarps * 32, kRowMinBlocks)
+max_pool_k3s2_bwd_kernel(const int32_t* __restrict__ coords,
+                         const uint8_t* __restrict__ mask,
+                         const T* __restrict__ h, const T* __restrict__ y,
+                         const T* __restrict__ occ_l,
+                         const T* __restrict__ ct, T* __restrict__ dx,
+                         unsigned rows, unsigned V, int D, int H, int W,
+                         int C) {
+  static_assert(G >= 8 && G <= 32 && (G & (G - 1)) == 0, "8 to 32 lanes");
   using P = Pack<T, VEC>;
-  const int D1 = (D + 1) / 2, H1 = (H + 1) / 2, W1 = (W + 1) / 2;
+  const unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int gl = lane & (G - 1);           // this lane within its row's group
+  const unsigned row = (blockIdx.x * (kRowWarps * 32u) + threadIdx.x) / G;
+  const bool live = row < rows;
+  // round trip 1: the row's coordinates and mask, shared by shuffles
+  int v = 0;
+  if (live && gl < 4) v = gl < 3 ? coords[row * 3 + gl] : (int)mask[row];
+  const int cx = __shfl_sync(all, v, 0, G), cy = __shfl_sync(all, v, 1, G),
+            cz = __shfl_sync(all, v, 2, G);
+  const bool valid = __shfl_sync(all, v, 3, G) != 0 && cx >= 0 && cx < D &&
+                     cy >= 0 && cy < H && cz >= 0 && cz < W;
+  const int D1 = (D + 1) >> 1, H1 = (H + 1) >> 1, W1 = (W + 1) >> 1;
+  // bit a of `up`: axis a has an upper parent (an odd coordinate whose
+  // upper parent lies inside the level-1 extent)
+  const int up = (int)((cx & 1) && (cx >> 1) + 1 < D1) |
+                 (int)((cy & 1) && (cy >> 1) + 1 < H1) << 1 |
+                 (int)((cz & 1) && (cz >> 1) + 1 < W1) << 2;
+  // the lower parent's cell; slot s adds the strides of the axes in s
+  const unsigned sy = (unsigned)W1, sx = (unsigned)H1 * W1;
+  const unsigned lower =
+      valid ? (((row / V) * D1 + (cx >> 1)) * H1 + (cy >> 1)) * W1 + (cz >> 1)
+            : 0u;
   const int groups = C / VEC;
-  const long long total = (long long)B * V * groups;
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += step) {
-    const int g = (int)(idx % groups);
-    const long long row = idx / groups;
-    const long long b = row / V;
+  const unsigned row_at = row * (unsigned)C;
+  // round trip 2: occ_l at slot gl (lanes 0-7) beside the first h items
+  P hv;
+  if (valid && gl < groups)
+    hv = *reinterpret_cast<const P*>(h + row_at + gl * VEC);
+  bool occ = false;
+  if (valid && gl < 8 && (gl & ~up) == 0) {
+    const unsigned u = lower + (gl & 1) * sx + (gl >> 1 & 1) * sy + (gl >> 2);
+    occ = to_float(occ_l[u]) > 0.f;
+  }
+  const unsigned occupied =
+      (__ballot_sync(all, occ) >> (lane & ~(G - 1))) & 0xffu;
+  if (!live) return;
+  if (!valid) {
+    P zero;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) zero.v[e] = from_float<T>(0.f);
+    for (int g = gl; g < groups; g += G)
+      store_streaming<T, VEC>(dx + row_at + g * VEC, zero);
+    return;
+  }
+  for (int g = gl; g < groups; g += G) {
+    if (g != gl) hv = *reinterpret_cast<const P*>(h + row_at + g * VEC);
+    // round trip 3: y and ct at each occupied parent, in slot order
     float acc[VEC];
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
-    const int cx = coords[row * 3 + 0], cy = coords[row * 3 + 1],
-              cz = coords[row * 3 + 2];
-    if (mask[row] && cx >= 0 && cx < D && cy >= 0 && cy < H && cz >= 0 &&
-        cz < W) {
-      const P hv = *reinterpret_cast<const P*>(h + row * C + g * VEC);
-      const int lo[3] = {cx >> 1, cy >> 1, cz >> 1};
-      const int hi[3] = {(cx + 1) >> 1, (cy + 1) >> 1, (cz + 1) >> 1};
-      const int ext[3] = {D1, H1, W1};
+    for (unsigned left = occupied; left; left &= left - 1u) {
+      const int s = __ffs(left) - 1;
+      const unsigned u =
+          (lower + (s & 1) * sx + (s >> 1 & 1) * sy + (s >> 2)) * C + g * VEC;
+      const P yv = *reinterpret_cast<const P*>(y + u);
+      const P cv = *reinterpret_cast<const P*>(ct + u);
 #pragma unroll
-      for (int bits = 0; bits < 8; ++bits) {
-        int u[3];
-        bool ok = true;
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const bool up = (bits >> a) & 1;
-          ok = ok && !(up && hi[a] == lo[a]) && (up ? hi[a] : lo[a]) < ext[a];
-          u[a] = up ? hi[a] : lo[a];
-        }
-        if (!ok) continue;
-        const size_t cell = (((size_t)b * D1 + u[0]) * H1 + u[1]) * W1 + u[2];
-        if (!(to_float(occ_l[cell]) > 0.f)) continue;
-        const P yv = *reinterpret_cast<const P*>(y + cell * C + g * VEC);
-        const P cv = *reinterpret_cast<const P*>(ct + cell * C + g * VEC);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          if (to_float(yv.v[e]) == to_float(hv.v[e]))
-            acc[e] += to_float(cv.v[e]);
-      }
+      for (int e = 0; e < VEC; ++e)
+        if (to_float(yv.v[e]) == to_float(hv.v[e]))
+          acc[e] += to_float(cv.v[e]);
     }
     P out;
 #pragma unroll
     for (int e = 0; e < VEC; ++e) out.v[e] = from_float<T>(acc[e]);
-    *reinterpret_cast<P*>(dx + row * C + g * VEC) = out;
+    store_streaming<T, VEC>(dx + row_at + g * VEC, out);
   }
+}
+
+// the row form's element offsets are 32-bit
+static bool fits_rows(long long B, long long V, long long D1, long long H1,
+                      long long W1, long long C) {
+  return B * V * C < 0x7fffffffLL && B * D1 * H1 * W1 * C < 0x7fffffffLL;
+}
+
+template <typename T, int VEC, int G>
+static void launch_groups(const void* coords, const void* mask,
+                          const void* h, const void* y, const void* occ_l,
+                          const void* ct, void* dx, unsigned rows, int V,
+                          int D, int H, int W, int C, cudaStream_t stream) {
+  constexpr unsigned per_block = kRowWarps * 32 / G;   // rows a block
+  max_pool_k3s2_bwd_kernel<T, VEC, G>
+      <<<(rows + per_block - 1) / per_block, kRowWarps * 32, 0, stream>>>(
+          static_cast<const int32_t*>(coords),
+          static_cast<const uint8_t*>(mask), static_cast<const T*>(h),
+          static_cast<const T*>(y), static_cast<const T*>(occ_l),
+          static_cast<const T*>(ct), static_cast<T*>(dx), rows, (unsigned)V,
+          D, H, W, C);
 }
 
 template <typename T>
@@ -97,18 +176,20 @@ static int launch(const void* coords, const void* mask, const void* h,
                   const void* y, const void* occ_l, const void* ct, void* dx,
                   int B, int V, int D, int H, int W, int C,
                   cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);  // 16-byte channel groups
-  if (C % VEC != 0) return kBadShape;
-  const long long total = (long long)B * V * (C / VEC);
-  if (total == 0) return 0;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > (1LL << 30)) blocks = 1LL << 30;  // grid-stride beyond this
-  max_pool_k3s2_bwd_kernel<T, VEC><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const int32_t*>(coords), static_cast<const uint8_t*>(mask),
-      static_cast<const T*>(h), static_cast<const T*>(y),
-      static_cast<const T*>(occ_l), static_cast<const T*>(ct),
-      static_cast<T*>(dx), B, V, D, H, W, C);
+  constexpr int VEC = 16 / sizeof(T);   // a lane's 16-byte item
+  if ((C * sizeof(T)) % 16 != 0 || C % VEC != 0) return kBadShape;
+  const unsigned rows = (unsigned)B * V;
+  if (rows == 0) return 0;
+  const int groups = C / VEC;     // a row's items: a group of 8 to 32 lanes
+  if (groups <= 8)
+    launch_groups<T, VEC, 8>(coords, mask, h, y, occ_l, ct, dx, rows, V, D,
+                             H, W, C, stream);
+  else if (groups <= 16)
+    launch_groups<T, VEC, 16>(coords, mask, h, y, occ_l, ct, dx, rows, V, D,
+                              H, W, C, stream);
+  else
+    launch_groups<T, VEC, 32>(coords, mask, h, y, occ_l, ct, dx, rows, V, D,
+                              H, W, C, stream);
   return (int)cudaGetLastError();
 }
 
@@ -320,7 +401,8 @@ static int launch_vol(const void* x, const void* occ_in, const void* y,
 // coords [B,V,3] int32, mask [B,V] uint8, h [B,V,C], y and ct
 // [B,ceil(D/2),ceil(H/2),ceil(W/2),C], occ_l [B,ceil(D/2),...,1], dx
 // [B,V,C]; all contiguous, h/y/occ_l/ct/dx of one dtype, h/y/ct/dx 16-byte
-// aligned, C a whole number of 16-byte groups (4 f32 or 8 bf16 values).
+// aligned, C a whole number of 16-byte groups (4 f32 or 8 bf16 values),
+// B*V*C and B*ceil(D/2)*ceil(H/2)*ceil(W/2)*C below 2^31.
 // Returns 0 on success, a CUDA error code, or a negative dpcr::ArgError.
 extern "C" int max_pool_k3s2_bwd_launch(int dtype, const void* coords,
                                         const void* mask, const void* h,
@@ -328,7 +410,8 @@ extern "C" int max_pool_k3s2_bwd_launch(int dtype, const void* coords,
                                         const void* ct, void* dx, int B, int V,
                                         int D, int H, int W, int C,
                                         void* stream) {
-  if (B < 0 || V < 0 || D < 1 || H < 1 || W < 1 || C < 1)
+  if (B < 0 || V < 0 || D < 1 || H < 1 || W < 1 || C < 1 ||
+      !dpcr::fits_rows(B, V, (D + 1) / 2, (H + 1) / 2, (W + 1) / 2, C))
     return dpcr::kBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dpcr::kFloat32)

@@ -1,6 +1,6 @@
 """Model building and collate policy (counterpart of `_build_minkowski`,
-`_build_kpconv`, the dense-path `post_collate` and `_collate_spec` of
-`dpcr_agb_tpu/models/factory.py`)."""
+`_build_simplest`, `_build_kpconv`, the dense-path `post_collate` and
+`_collate_spec` of `dpcr_agb_tpu/models/factory.py`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,26 +12,54 @@ import torch
 from ..data.batch import Batch, CollateSpec, normalize_sparse_rows
 from .kpconv import build_kpconv
 from .minkowski import SparseResNet, build_resnet
+from .pointnet import MPointNet
+from .simplestnet import SimplestNet
 
 _MINKOWSKI = "minkowski.MinkowskiBaselineModel"
 _KPCONV = "kpconv.KPConv"
+_SIMPLEST = "simplestnet.SimplestNet"
+
+
+def f32_only(option: dict) -> bool:
+    """Whether a `conf/models` entry is MPointNet or SimplestNet, which
+    compute in f32 only, as the JAX models do (they have no bf16 form)."""
+    return option["class"] == _SIMPLEST or (
+        option["class"] == _MINKOWSKI
+        and option.get("model_name") == "MinkowskiPointNet")
 
 
 def build_model(option: dict, num_reg_targets: int, in_channels: int,
                 generator: Optional[torch.Generator] = None):
     """(module, conv_type) for one `conf/models` entry; the Minkowski
-    sparse-voxel ResNets and the rigid KPConv net are ported."""
-    if option["class"] == _KPCONV:
+    sparse-voxel ResNets and MPointNet, SimplestNet and the rigid KPConv
+    net are ported. MPointNet takes the JAX factory's defaults (relu, mean
+    pool, no dropout, BN momentum 0.1, no positions) where the entry names
+    none."""
+    cls = option["class"]
+    if f32_only(option) and (option.get("extra_options") or {}).get("bf16"):
+        raise ValueError(f"{option.get('model_name', cls)} runs in f32 only "
+                         f"(the JAX model has no bf16 form): bf16 is not an "
+                         f"option for it")
+    if cls == _KPCONV:
         net = build_kpconv(option, num_reg_targets, in_channels, generator)
         return net, option.get("conv_type", "PARTIAL_DENSE")
-    if option["class"] != _MINKOWSKI:
+    if cls == _SIMPLEST:
+        return SimplestNet(num_reg_targets, in_channels, generator), \
+            "PARTIAL_DENSE"
+    if cls != _MINKOWSKI:
         raise NotImplementedError(
-            f"model class {option['class']!r} is not ported yet (ported: "
-            f"{_MINKOWSKI}, {_KPCONV})")
+            f"model class {cls!r} is not ported yet (ported: "
+            f"{_MINKOWSKI}, {_SIMPLEST}, {_KPCONV})")
     name = option["model_name"]
     if name == "MinkowskiPointNet":
-        raise NotImplementedError("MPointNet is left for a later slice of "
-                                  "the port")
+        return MPointNet(
+            num_reg_targets, in_channels,
+            activation=option.get("activation", "relu"),
+            global_pool=option.get("global_pool", "mean"),
+            dropout=option.get("dropout", 0.0),
+            bn_momentum=option.get("bn_momentum", 0.1),
+            add_pos=option.get("add_pos", False),
+            generator=generator), "SPARSE"
     net = build_resnet(name, option, num_reg_targets, in_channels, generator)
     return net, option.get("conv_type", "SPARSE")
 
@@ -39,8 +67,9 @@ def build_model(option: dict, num_reg_targets: int, in_channels: int,
 def make_post_collate(net) -> Optional[Callable[[Batch], Batch]]:
     """Dense-grid SparseResNet: pick the batch's z bucket (the smallest of
     {48, 64, 80, z_max} that holds its max z + 1), normalize the rows to
-    (D, H, zb) and tag the bucket as aux['zcells'] (length zb). KPCNN has
-    none: its pyramid is built on the device inside the forward."""
+    (D, H, zb) and tag the bucket as aux['zcells'] (length zb). The other
+    models have none (KPCNN builds its pyramid on the device inside the
+    forward; MPointNet and SimplestNet read the rows as they are)."""
     if not isinstance(net, SparseResNet):
         return None
     z_max_dim = net.dense_dims[2]

@@ -5,7 +5,8 @@ input plot file (.npz or .csv, one plot per file) through the model and
 writes de-standardized predictions to csv.
 
     python -m dpcr_agb_tpu_torch.predict checkpoint_dir=outputs/run \\
-        model_name=SENet14|SENet50|...|KPConv input='plots/*.npz' \\
+        model_name=SENet14|SENet50|...|KPConv|MPointNet|SimplestNet \\
+        input='plots/*.npz' \\
         output=preds.csv [batch_size=16] [weight_name=latest] \\
         [centers=centers.csv] [device=cpu]
 

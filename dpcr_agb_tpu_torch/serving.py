@@ -5,7 +5,8 @@ rebuilt from a port checkpoint alone.
 A port checkpoint is `<checkpoint_dir>/<model_name>.pt`, written with
 `torch.save`, holding plain Python objects and tensors only:
   format        CHECKPOINT_FORMAT
-  model_name    the `conf/models` key ("SENet14", "SENet50", "KPConv")
+  model_name    the `conf/models` key ("SENet14", "SENet50", "KPConv",
+                "MPointNet", "SimplestNet")
   option        that model entry (class, model_name, activation, ...)
   in_channels   the model's input feature width
   data          features, scales, centers, first_subsampling and the
@@ -39,8 +40,9 @@ CHECKPOINT_FORMAT = "dpcr_agb_tpu_torch.checkpoint/1"
 
 # The NFI dataset's pre_transform (conf/data/instance/NFI/default.yaml), the
 # sparse_xy train and test chains (conf/data/instance/NFI/transforms/
-# sparse-xy.yaml) and the xy ones (xy.yaml), with the ${data.*} values
-# substituted: the machines that train and serve have no YAML reader.
+# sparse-xy.yaml), the xy ones (xy.yaml) and the fixed_xy ones
+# (fixed-xy.yaml), with the ${data.*} values substituted: the machines that
+# train and serve have no YAML reader.
 _SKIP = ["y_mol", "y_mol_mask", "y_cls", "y_cls_mask", "y_reg", "y_reg_mask"]
 _HEXAGON = [[0., 0.5], [0.25, 0.9330127], [0.75, 0.9330127], [1., 0.5],
             [0.75, 0.0669873], [0.25, 0.0669873]]
@@ -50,22 +52,28 @@ _CENTER = {"transform": "MoveCenterPosPerSample",
            "params": {"center_x": 0.5, "center_y": 0.5}}
 
 
+# the [ones, pos_z, xy_distance] features every NFI chain ends with
+_FEATURES = [
+    {"transform": "XYZFeature",
+     "params": {"add_x": False, "add_y": False, "add_z": True}},
+    {"transform": "AddOnes"},
+    {"transform": "AddXYDistanceToCenter",
+     "params": {"center_x": 0.5, "center_y": 0.5}},
+    {"transform": "AddFeatsByKeys", "params": {
+        "list_add_to_x": [True, True, True],
+        "feat_names": ["ones", "pos_z", "xy_distance"],
+        "delete_feats": [True, True, True],
+        "input_nc_feats": [1, 1, 1]}},
+]
+
+
 def _feats(max_points: int) -> list:
-    """The point caps and the [ones, pos_z, xy_distance] features."""
+    """The point caps and the features."""
     return [
         {"transform": "MaxPoints",
          "params": {"num": max_points, "skip_list": _SKIP}},
         {"transform": "MinPoints", "params": {"num": 500, "skip_list": _SKIP}},
-        {"transform": "XYZFeature",
-         "params": {"add_x": False, "add_y": False, "add_z": True}},
-        {"transform": "AddOnes"},
-        {"transform": "AddXYDistanceToCenter",
-         "params": {"center_x": 0.5, "center_y": 0.5}},
-        {"transform": "AddFeatsByKeys", "params": {
-            "list_add_to_x": [True, True, True],
-            "feat_names": ["ones", "pos_z", "xy_distance"],
-            "delete_feats": [True, True, True],
-            "input_nc_feats": [1, 1, 1]}},
+        *_FEATURES,
     ]
 
 
@@ -141,6 +149,24 @@ NFI_XY = {
 }
 
 
+# The fixed_xy chains of SimplestNet (conf/data/instance/NFI/transforms/
+# fixed-xy.yaml): the same prefixes, then exactly 12000 points
+# (FixedPointsOwn, resampling with the fewest duplicates when a plot has
+# fewer) and the same features; collate pads every batch to 12000.
+_FIXED_SUFFIX = [
+    {"transform": "FixedPointsOwn",
+     "params": {"num": 12000, "skip_list": _SKIP}},
+    *_FEATURES,
+]
+NFI_FIXED_XY = {
+    "transform_type": "fixed_xy",
+    **_NFI,
+    "fixed_xy": {"num_points": 12000},
+    "train_transform": [*_AUG_PREFIX, *_FIXED_SUFFIX],
+    "test_transform": [*_DET_PREFIX, *_FIXED_SUFFIX],
+}
+
+
 def nfi_sparse_xy_data_cfg() -> dict:
     """A fresh copy of the NFI + sparse_xy data config."""
     return copy.deepcopy(NFI_SPARSE_XY)
@@ -149,6 +175,11 @@ def nfi_sparse_xy_data_cfg() -> dict:
 def nfi_xy_data_cfg() -> dict:
     """A fresh copy of the NFI + xy data config (KPConv)."""
     return copy.deepcopy(NFI_XY)
+
+
+def nfi_fixed_xy_data_cfg() -> dict:
+    """A fresh copy of the NFI + fixed_xy data config (SimplestNet)."""
+    return copy.deepcopy(NFI_FIXED_XY)
 
 
 @dataclasses.dataclass

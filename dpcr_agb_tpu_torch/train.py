@@ -1,9 +1,11 @@
 """Training CLI of the port: a few optimizer steps of a sparse-voxel
-ResNet/SENet (SENet14 unless named otherwise) or of the KPConv net on
-`.npz` plots, then a port checkpoint that `predict` serves.
+ResNet/SENet (SENet14 unless named otherwise), of the KPConv net, of
+MPointNet or of SimplestNet on `.npz` plots, then a port checkpoint that
+`predict` serves.
 
     python -m dpcr_agb_tpu_torch.train input='plots/*.npz' \\
-        checkpoint_dir=outputs/run [model_name=SENet14|SENet50|...|KPConv] \\
+        checkpoint_dir=outputs/run \\
+        [model_name=SENet14|SENet50|...|KPConv|MPointNet|SimplestNet] \\
         [steps=100] [batch_size=16] [seed=0] [bf16=false] \\
         [dense_dims=88,88,104] [device=cpu]
 
@@ -13,14 +15,16 @@ Targets are standardized by their mean and standard deviation over the
 training plots (np.nanmean, np.nanstd). Every plot goes through the NFI
 pre_transform once; every step draws `batch_size` plots from a reshuffled
 stream, runs the model's train chain on each (sparse_xy for the
-sparse-voxel nets, xy for KPConv), collates and post-collates them, and takes one step of the
-paper's recipe (the same for both models): AdaBelief (lr 5e-3, weight
+sparse-voxel nets and MPointNet, xy for KPConv, fixed_xy for SimplestNet),
+collates and post-collates them, and takes one step of the paper's recipe
+(the same for every model): AdaBelief (lr 5e-3, weight
 decay 1e-2) behind an elementwise gradient clip at 100, with
 CosineAnnealingWarmRestarts (T_0 10, T_mult 2) stepped per batch. It runs
 on CUDA unless `device=cpu` is given, and raises when there is no CUDA
 device and the CPU was not asked for. `bf16=true` is the bf16 compute dtype
 of the sparse-voxel nets' convs, and for KPConv that of the fused
-kernel-point convolution only. `dense_dims` applies to the sparse-voxel
+kernel-point convolution only; MPointNet and SimplestNet run in f32 only,
+as the JAX models do, and refuse it. `dense_dims` applies to the sparse-voxel
 nets, whose level-0 execution modes are read from DPCR_L0, DPCR_STEM_MODE,
 DPCR_POOL_BWD, DPCR_SPARSE_POOL and DPCR_POOL_FWD when the model is built
 (`models/minkowski.py`). Epochs, validation, trackers, LAS input and the
@@ -41,9 +45,11 @@ import torch
 from .data.batch import Batch, collate
 from .device import resolve_device
 from .models.base import InstanceSpec
-from .models.factory import build_model, collate_spec, make_post_collate
+from .models.factory import (build_model, collate_spec, f32_only,
+                              make_post_collate)
 from .predict import describe_batch, sample_from_file
-from .serving import nfi_sparse_xy_data_cfg, nfi_xy_data_cfg
+from .serving import (nfi_fixed_xy_data_cfg, nfi_sparse_xy_data_cfg,
+                      nfi_xy_data_cfg)
 from .training.optim import AdaBelief, make_lr_fn
 from .training.state import save_train_checkpoint
 from .training.step import StepRunner
@@ -82,8 +88,18 @@ KPCONV = {"class": "kpconv.KPConv", "conv_type": "PARTIAL_DENSE",
               "KP_influence": "linear", "aggregation_mode": "sum",
               "fixed_kernel_points": "center", "modulated": False},
           "extra_options": {"kp_disposition": "auto"}}
+# conf/models/instance/minkowski_baseline.yaml:7-16 (README.md's MPointNet
+# recipe) and conf/models/instance/simplestnet.yaml
+MPOINTNET = {"class": "minkowski.MinkowskiBaselineModel",
+             "conv_type": "SPARSE", "model_name": "MinkowskiPointNet",
+             "D": 3, "activation": "gelu", "first_stride": 1,
+             "dropout": 0.0, "global_pool": "sum", "add_pos": True}
+SIMPLESTNET = {"class": "simplestnet.SimplestNet",
+               "conv_type": "PARTIAL_DENSE"}
 MODELS = {"SENet14": (SENET14, nfi_sparse_xy_data_cfg),
           "KPConv": (KPCONV, nfi_xy_data_cfg),
+          "MPointNet": (MPOINTNET, nfi_sparse_xy_data_cfg),
+          "SimplestNet": (SIMPLESTNET, nfi_fixed_xy_data_cfg),
           **{key: (_resnet_entry(key), nfi_sparse_xy_data_cfg)
              for key in ("SENet18", "SENet34", "SENet50", "SENet101")},
           **{key: (_resnet_entry(key + "_"), nfi_sparse_xy_data_cfg)
@@ -117,9 +133,12 @@ def model_option(model_name: str, bf16: bool, dense_dims=None) -> dict:
     option = copy.deepcopy(MODELS[model_name][0])
     extra = dict(option.get("extra_options", {}))
     if bf16:
+        if f32_only(option):
+            raise ValueError(f"{model_name} runs in f32 only (the JAX model "
+                             f"has no bf16 form): bf16=true is refused")
         extra["bf16"] = True
     if dense_dims is not None:
-        if model_name == "KPConv":
+        if model_name == "KPConv" or f32_only(option):
             raise ValueError("dense_dims applies to the sparse-voxel nets")
         extra["dense_dims"] = [int(n) for n in dense_dims]
     if extra:

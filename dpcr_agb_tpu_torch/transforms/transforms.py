@@ -57,6 +57,7 @@ class StartZFromZero(Transform):
         return sample
 
 
+@register
 class FixedPointsOwn(Transform):
     """Sample exactly `num` points without replacement (minimal duplication
     when fewer and `allow_duplicates`)."""

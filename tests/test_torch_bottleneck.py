@@ -285,4 +285,4 @@ def test_conf_model_names_are_the_entry_points_models():
     assert train.model_option("SENet50", bf16=True)["extra_options"] == {
         "bf16": True}
     with pytest.raises(NotImplementedError, match="trains"):
-        train.model_option("MPointNet", bf16=False)
+        train.model_option("PointNet", bf16=False)

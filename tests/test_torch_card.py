@@ -9,7 +9,13 @@ step that builds each neighbour list's reverse index once and hands it to
 every gather backward; the two pool forms (`max_pool_k3s2_rows` and the
 volume form), the volume-form pool backward and `stem_sites` against their
 plain versions at their edges (for the row form also whole and childless
-windows; for the backward its warp tiles' edges), the same bits twice.
+windows; for the backward its warp tiles' edges), the same bits twice;
+the row-form pool backward (`max_pool_k3s2_bwd`) against its plain
+version with ties, padded rows and rows on the volume's upper edge, the
+same bits twice, and its C entry refusing shapes past 32-bit offsets
+and taking the largest ones below; MPointNet's and SimplestNet's forwards
+on the card, which launch none of the port's kernels and agree with the
+CPU's.
 This file imports no JAX, so it runs on the GPU machine:
 
     python -m pytest --noconftest -m cuda tests/test_torch_imports.py \\
@@ -380,3 +386,163 @@ def test_stem_sites_matches_its_plain_version_and_repeats():
                         atol=2e-2 * want.float().abs().max().item())
                 assert not got[~m_t].any(), what
                 assert _bits_equal(stem_conv_sites(*args), got), what
+
+
+@pytest.mark.cuda
+def test_row_backward_matches_its_plain_version_and_repeats():
+    """max_pool_k3s2_bwd exactly against masked_max_pool_bwd_rows_plain and
+    the same bits in two calls, f32 and bf16, C 32 and 64 (and the
+    smallest C the contract takes, one 16-byte group, and C 256, whose
+    rows loop over their items), odd and even dims: y pooled from the rows
+    with values on a 1/16 grid, so windows hold ties (every maximizer gets
+    the full cotangent); padded rows (a whole sample of them), rows at odd
+    coordinates on the volume's upper edge (no upper parent there when the
+    extent is even), rows outside the volume, a duplicate pair; ct not
+    zero at unoccupied outputs (the kernel masks it by occ_l)."""
+    _card()
+    from dpcr_agb_tpu_torch import kernels
+    from dpcr_agb_tpu_torch.ops import pool
+    rng = np.random.default_rng(19)
+    for dims in ((13, 10, 9), (12, 14, 40)):
+        d, h, w = dims
+        coords, mask = _sites(rng, dims, 3, 170, (150, 0, 97))
+        odd_edge = [(d - 1, h - 1, w - 1), (d - 1, 3, 5), (1, h - 1, 3),
+                    (5, 7, w - 1), ((d - 1) | 1 if d % 2 == 0 else d - 2,
+                                    (h - 1) | 1 if h % 2 == 0 else h - 2, 1)]
+        coords[0, :len(odd_edge)] = odd_edge
+        coords[0, 150:153] = [[d, 0, 0], [0, -1, 2], [1, 2, w]]
+        coords[0, 153] = coords[0, 7]                 # a duplicate pair
+        mask[0, 150:154] = True
+        c_t, m_t = torch.from_numpy(coords).cuda(), torch.from_numpy(
+            mask).cuda()
+        for c in (32, 64, 4, 8, 256):
+            vals = torch.from_numpy(rng.integers(-16, 16, (3, 170, c))
+                                    / 16.0).float().cuda()
+            for dtype in (torch.float32, torch.bfloat16):
+                if c * torch.finfo(dtype).bits // 8 % 16:
+                    continue           # not a whole number of 16-byte groups
+                h_rows = vals.to(dtype)
+                what = f"{dims} C {c} {dtype}"
+                y, occ_l = pool.masked_max_pool_rows_plain(c_t, m_t, h_rows,
+                                                           dims)
+                ct = torch.from_numpy(rng.normal(size=tuple(y.shape)).astype(
+                    np.float32)).cuda().to(dtype)
+                before = kernels.LAUNCHES["max_pool_k3s2_bwd"]
+                got = pool.masked_max_pool_bwd_rows(c_t, m_t, h_rows, y,
+                                                    occ_l, ct, dims)
+                assert kernels.LAUNCHES["max_pool_k3s2_bwd"] == before + 1
+                want = pool.masked_max_pool_bwd_rows_plain(
+                    c_t, m_t, h_rows, y, occ_l, ct, dims)
+                torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                           msg=what)
+                assert got[0, :5].any() and not got[1].any(), what
+                assert not got[~m_t].any() and not got[0, 150:153].any(), what
+                assert _bits_equal(pool.masked_max_pool_bwd_rows(
+                    c_t, m_t, h_rows, y, occ_l, ct, dims), got), what
+
+
+@pytest.mark.cuda
+def test_row_backward_entry_refuses_shapes_past_32_bit_offsets():
+    """The C entry takes 32-bit element offsets: it refuses (before it
+    reads anything) B*V*C or B*ceil(D/2)*ceil(H/2)*ceil(W/2)*C of 2^31 or
+    more, and takes the largest shapes a row of 64 values below, in rows
+    and in parents (bf16, 4 GB a tensor): there the last row, and a row
+    whose one parent is the last cell, are routed right, at offsets just
+    under 2^31, and every other row writes zeros."""
+    _card()
+    from dpcr_agb_tpu_torch.kernels import build
+    fn = build.entry("max_pool_bwd")
+    stream = torch.cuda.current_stream().cuda_stream
+    null = [0] * 7
+    assert fn(0, *null, 1, 2 ** 25, 2, 2, 2, 64, stream) == -2   # rows
+    assert fn(0, *null, 1, 1, 2048, 2048, 2048, 64, stream) == -2  # parents
+    assert fn(1, *null, 2, 2 ** 24, 2, 2, 2, 64, stream) == -2
+    assert fn(1, *null, 1, 1, 64, 2048, 2048, 64, stream) == -2  # 2^25 cells
+    assert fn(0, *null, 0, 0, 2048, 2048, 1024, 8, stream) == 0  # no rows
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    bf = torch.bfloat16
+
+    def run(v, dims, last_cell):
+        """One launch over v rows (all padded but the last two, which lie
+        at the cell whose only parent is `last_cell`: the last one's h
+        equals y there, the one before not), y and ct of `dims`' level 1
+        (read at last_cell only, the one occupied output): dx."""
+        d1, h1, w1 = ((n + 1) // 2 for n in dims)
+        coords = torch.zeros((1, v, 3), dtype=torch.int32, device="cuda")
+        coords[0, -2:] = torch.tensor([2 * n for n in last_cell],
+                                      dtype=torch.int32)
+        mask = torch.zeros((1, v), dtype=torch.uint8, device="cuda")
+        mask[0, -2:] = 1
+        y = torch.empty((1, d1, h1, w1, 64), dtype=bf, device="cuda")
+        ct = torch.empty_like(y)
+        occ = torch.zeros((1, d1, h1, w1, 1), dtype=bf, device="cuda")
+        occ[(0, *last_cell)] = 1
+        y[(0, *last_cell)] = torch.randn(64, generator=gen, device="cuda")
+        ct[(0, *last_cell)] = torch.randn(64, generator=gen, device="cuda")
+        h = torch.zeros((1, v, 64), dtype=bf, device="cuda")
+        h[0, -1] = y[(0, *last_cell)]
+        h[0, -2] = y[(0, *last_cell)] + 1
+        dx = torch.full_like(h, 7.0)
+        assert fn(1, *(t.data_ptr() for t in (coords, mask, h, y, occ, ct,
+                                              dx)),
+                  1, v, *dims, 64, stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(dx[0, -1], ct[(0, *last_cell)])
+        assert not dx[0, :-1].any()
+
+    run(2 ** 25 - 1, (2, 2, 2), (0, 0, 0))          # rows: V*C = 2^31 - 64
+    torch.cuda.empty_cache()
+    # parents: 31 * 601 * 1801 cells = 2^25 - 1, times C = 2^31 - 64
+    run(2, (62, 1202, 3602), (30, 600, 1800))
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["MPointNet", "SimplestNet"])
+def test_pointwise_model_on_the_card_launches_no_kernel_and_matches_the_cpu(
+        name):
+    """MPointNet (the train entry's option: gelu, sum pool, positions
+    added, embedding 1024) on a padded batch, and SimplestNet on a full
+    batch of the fixed_xy preset's 12000 points, at full width: the CUDA
+    forward, in eval and in training mode, launches none of the port's
+    kernels and agrees with the same forward on the CPU, and so do the BN
+    running stats it moves (f32, TF32 off: rtol 1e-4, atol 1e-4 * max|CPU|
+    of each tensor)."""
+    _card()
+    import copy
+    from dpcr_agb_tpu_torch import kernels, train
+    from dpcr_agb_tpu_torch.data.batch import Batch
+    from dpcr_agb_tpu_torch.device import pin_numerics
+    from dpcr_agb_tpu_torch.models.factory import build_model
+    pin_numerics()
+    rng = np.random.default_rng(20)
+    b, n = 4, (3000 if name == "MPointNet" else 12000)
+    mask = np.zeros((b, n), bool)
+    counts = (3000, 2100, 17, 1200) if name == "MPointNet" else (n,) * b
+    for i, k in enumerate(counts):
+        mask[i, :k] = True
+    batch = Batch(pos=rng.uniform(0, 1, (b, n, 3)).astype(np.float32),
+                  x=rng.normal(size=(b, n, 3)).astype(np.float32), mask=mask,
+                  y_reg=np.zeros((b, 2), np.float32),
+                  y_reg_mask=np.ones((b, 2), bool),
+                  area_idx=np.zeros(b, np.int32),
+                  label_idx=np.arange(b, dtype=np.int64),
+                  is_double=np.zeros(b, bool))
+    net, _ = build_model(train.model_option(name, False), 2, 3,
+                         generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(net).cuda()
+    for mode in (False, True):
+        net.train(mode)
+        card.train(mode)
+        kernels.reset_launches()
+        with torch.no_grad():
+            got = card(batch.to("cuda")).cpu()
+            want = net(batch.to("cpu"))
+        assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * want.abs().max().item())
+    for key, t in card.state_dict().items():
+        want = net.state_dict()[key]
+        torch.testing.assert_close(t.cpu(), want, rtol=1e-4,
+                                   atol=1e-4 * want.abs().max().item(),
+                                   msg=key)

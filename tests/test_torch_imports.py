@@ -46,7 +46,9 @@ def test_importing_the_port_loads_no_jax():
             "dpcr_agb_tpu_torch.models.kpconv, dpcr_agb_tpu_torch.ops."
             "neighbors, dpcr_agb_tpu_torch.ops.kernel_points, "
             "dpcr_agb_tpu_torch.ops.dense_stem, dpcr_agb_tpu_torch.ops."
-            "pool, dpcr_agb_tpu_torch.models.minkowski; "
+            "pool, dpcr_agb_tpu_torch.models.minkowski, "
+            "dpcr_agb_tpu_torch.models.pointnet, "
+            "dpcr_agb_tpu_torch.models.simplestnet; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r} or m.split('.')[0] == 'triton']; "
             "assert not bad, bad")
