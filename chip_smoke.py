@@ -96,6 +96,22 @@ none):
            agree; elsewhere a differing run names the parameter where the
            difference starts and whether deterministic algorithms remove
            it)
+  serve_jax_ckpt  (SENet14 with its sparse level 0, and KPConv; f32, full
+           width) the serve phase's plots written as LAZ 1.4 (point
+           format 6, `write_laz14`) and read back by the port's
+           `read_las` (those positions also saved as .npz); the f32 port
+           checkpoint's weights written as a JAX `.ckpt`
+           (`weights.to_flax`, `training.state.Checkpoint.to_bytes`, with a
+           run_config of model_name, models and the data config in the
+           JAX layout, and dataset_properties of target_stats and
+           reg_targets); `predict.main` on the `.ckpt` and the `.laz` plots
+           and on the `.pt` and the `.npz` plots, each with the launch
+           counts set to 0 just before it: the same plots listed, the
+           predictions within 1e-5 * max|pred|, the same launches of every
+           kernel, each of the path's forward kernels launched at least
+           once; prints the `.ckpt`'s bytes and load seconds (decoded to
+           tensors on the card), points per plot, LAZ decode ms per plot,
+           both routes' predict_main_seconds, max_abs_diff and bit_equal
 Then the kernels summary line, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`. Without CUDA (or without the rest of
 the repository) it exits non-zero before printing any result."""
@@ -158,7 +174,8 @@ _ROW_KERNELS = {"stem_sites": 0, "stem_sites_dw": 0, "max_pool_k3s2_bwd": 0,
 _NO_KERNELS = {"env": {}, "kernels": None, "forward": (), "backward": (),
                "exact": None, "launch_none": True}
 # per path: the entry points' model_name, the mode variables, which
-# kernels phase it gets, the kernels serving launches and the ones training
+# kernels phase it gets, whether serve_jax_ckpt serves it from a JAX
+# `.ckpt` and `.laz` plots, the kernels serving launches and the ones training
 # adds, the kernels it must never launch (the sparse level 0 pools its
 # rows without the volume form), and where the count is fixed, the
 # launches of each kernel in one forward and in one train step (KPCNN's 14
@@ -169,8 +186,9 @@ _NO_KERNELS = {"env": {}, "kernels": None, "forward": (), "backward": (),
 # the KPConv step runs in a fixed order; the sparse-voxel nets' f32 steps
 # go through cuDNN's own choice of algorithms)
 MODELS = {
-    "SENet14": {"model_name": "SENet14", **_SPARSE_L0},
+    "SENet14": {"model_name": "SENet14", **_SPARSE_L0, "jax_ckpt": True},
     "KPConv": {"model_name": "KPConv", "env": {}, "kernels": "kpconv",
+               "jax_ckpt": True,
                "forward": ("kpconv_fused",),
                "backward": ("kpconv_fused_bwd", "gather_rows_bwd"),
                "exact": {"forward": {"kpconv_fused": 14,
@@ -1700,6 +1718,127 @@ def phase_serve(key: str, dtname: str, ckpt: str, plot_dir: str,
     return out
 
 
+def jax_data_cfg(data_cfg: dict) -> dict:
+    """A port data config in the JAX run_config layout: the train and test
+    chains under the preset that transform_type names."""
+    tt = data_cfg["transform_type"]
+    out = {k: v for k, v in data_cfg.items()
+           if k not in ("train_transform", "test_transform")}
+    out[tt] = {**(data_cfg.get(tt) or {}),
+               "train_transform": data_cfg["train_transform"],
+               "test_transform": data_cfg["test_transform"]}
+    return out
+
+
+def read_predictions(out_csv: str) -> tuple:
+    """(plot names without their extension, predictions) of a csv of
+    `predict.main`."""
+    with open(out_csv) as f:
+        rows = list(csv.reader(f))[1:]
+    return ([os.path.splitext(r[0])[0] for r in rows],
+            np.array([[float(v) for v in r[1:]] for r in rows]))
+
+
+def phase_serve_jax_ckpt(key: str, pt_dir: str, plot_dir: str, tmp: str,
+                         smi: str) -> dict:
+    """The f32 checkpoint of path `key` served from a JAX `.ckpt` and LAZ
+    plots, against the `.pt` and `.npz` route on the same positions."""
+    import torch
+    from dpcr_agb_tpu_torch import kernels, predict
+    from dpcr_agb_tpu_torch.data.las_io import read_las, write_laz14
+    from dpcr_agb_tpu_torch.training.state import Checkpoint
+    from dpcr_agb_tpu_torch.weights import from_flax, to_flax
+    model_name = MODELS[key]["model_name"]
+    what = f"serve_jax_ckpt {key}"
+    root = os.path.join(tmp, f"jax_ckpt_{key}")
+    dirs = {d: os.path.join(root, d) for d in ("laz", "npz", "ckpt")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    stems = [os.path.splitext(os.path.basename(f))[0] for f in
+             sorted(glob.glob(os.path.join(plot_dir, "*.npz")))]
+    lazs = [os.path.join(dirs["laz"], f"{s}.laz") for s in stems]
+    for s, path in zip(stems, lazs):
+        write_laz14(path, np.load(os.path.join(plot_dir, f"{s}.npz"))["pos"])
+    t0 = time.perf_counter()
+    decoded = [read_las(path)[0] for path in lazs]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(lazs)
+    for s, pos in zip(stems, decoded):
+        np.savez(os.path.join(dirs["npz"], f"{s}.npz"), pos=pos)
+
+    pt = torch.load(os.path.join(pt_dir, f"{model_name}.pt"),
+                    map_location="cpu", weights_only=True)
+    weights = pt["weights"]["latest"]
+    params, stats = to_flax(weights)
+    ck = Checkpoint({"model_name": model_name,
+                     "models": {model_name: pt["option"]},
+                     "data": jax_data_cfg(pt["data"])},
+                    {"target_stats": pt["target_stats"],
+                     "reg_targets": pt["reg_targets"]})
+    ck.models["latest"] = {"params": params, "batch_stats": stats}
+    ckpt_path = os.path.join(dirs["ckpt"], f"{model_name}.ckpt")
+    with open(ckpt_path, "wb") as f:
+        f.write(ck.to_bytes())
+    # the file decoded to tensors on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with open(ckpt_path, "rb") as f:
+        state = Checkpoint.from_bytes(f.read()).get_model_state("latest")
+    on_card = {k: v.to("cuda") for k, v in from_flax(
+        state["params"], state["batch_stats"]).items()}
+    torch.cuda.synchronize()
+    load_seconds = time.perf_counter() - t0
+    moved = [k for k in weights if not torch.equal(on_card[k].cpu(),
+                                                   weights[k])]
+    if moved or set(on_card) != set(weights):
+        raise AssertionError(f"{what}: the .ckpt's weights differ from the "
+                             f".pt's: {moved[:5]}")
+    del on_card
+
+    runs = {}
+    for route, ckpt_dir, inputs in (
+            ("ckpt_laz", dirs["ckpt"], f"{dirs['laz']}/*.laz"),
+            ("pt_npz", pt_dir, f"{dirs['npz']}/*.npz")):
+        out_csv = os.path.join(root, f"preds_{route}.csv")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        predict.main([f"checkpoint_dir={ckpt_dir}",
+                      f"model_name={model_name}", f"input={inputs}",
+                      f"output={out_csv}", f"batch_size={N_PLOTS}"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs[route] = (seconds, dict(kernels.LAUNCHES),
+                       *read_predictions(out_csv))
+    (s_ckpt, l_ckpt, n_ckpt, p_ckpt), (s_pt, l_pt, n_pt, p_pt) = \
+        runs["ckpt_laz"], runs["pt_npz"]
+    if n_ckpt != n_pt or n_ckpt != stems:
+        raise AssertionError(f"{what}: the CSVs list {n_ckpt} and {n_pt}, "
+                             f"the plots are {stems}")
+    if p_ckpt.shape != (N_PLOTS, 2) or not np.isfinite(p_ckpt).all():
+        raise AssertionError(f"{what}: predictions {p_ckpt.shape}, "
+                             f"finite={np.isfinite(p_ckpt).all()}")
+    diff = float(np.abs(p_ckpt - p_pt).max())
+    scale = float(np.abs(p_pt).max())
+    if diff > 1e-5 * scale:
+        raise AssertionError(f"{what}: predictions differ by {diff} "
+                             f"(max|pred| {scale}, tolerance 1e-5 of it)")
+    if l_ckpt != l_pt:
+        raise AssertionError(f"{what}: launches {l_ckpt} on the .ckpt "
+                             f"route, {l_pt} on the .pt route")
+    check_launches(what, key, l_ckpt, "forward")
+    out = {"phase": "serve_jax_ckpt", "model": key, "dtype": "float32",
+           "plots": N_PLOTS, "ckpt_bytes": os.path.getsize(ckpt_path),
+           "ckpt_load_seconds": load_seconds,
+           "points_per_plot": [int(len(p)) for p in decoded],
+           "laz_bytes_per_plot": [os.path.getsize(p) for p in lazs],
+           "laz_decode_ms_per_plot": decode_ms,
+           "predict_main_seconds": {"ckpt_laz": s_ckpt, "pt_npz": s_pt},
+           "launches": l_ckpt, "max_abs_diff": diff, "max_abs_pred": scale,
+           "bit_equal": bool(np.array_equal(p_ckpt, p_pt)),
+           "tolerance": "1e-5 * max|pred|", "card": smi}
+    emit(out)
+    return out
+
+
 def from_default_numerics(run, what: str) -> tuple:
     """run() (an entry point) started from PyTorch's default float32
     settings (TF32 on in cuDNN): returns (its result, the settings it left,
@@ -2192,6 +2331,9 @@ def run_model(key: str, tmp: str, plot_dir: str, smi: str, seed: int,
     for dtname, ckpt in ckpts.items():
         record(phase_serve(key, dtname, ckpt, plot_dir, tmp, smi,
                            with_profile), "serve")
+        torch.cuda.empty_cache()
+    if spec.get("jax_ckpt"):
+        phase_serve_jax_ckpt(key, ckpts["float32"], plot_dir, tmp, smi)
         torch.cuda.empty_cache()
     for dtname in ckpts:
         record(phase_train(key, dtname, plot_dir, tmp, smi, seed,

@@ -1,19 +1,26 @@
 """Label-free inference CLI of the port (counterpart of the root
-`predict.py`): loads a port checkpoint, rebuilds the model and the
-deterministic eval transforms from it alone (`serving.py`), runs every
-input plot file (.npz or .csv, one plot per file) through the model and
-writes de-standardized predictions to csv.
+`predict.py`): loads a checkpoint, the port's `<model_name>.pt` or, when
+there is none, the JAX package's `<model_name>.ckpt`, rebuilds the model
+and the deterministic eval transforms from it alone (`serving.py`), runs
+every input plot file (.las, .laz, .ply, .npz, .npy, .csv, .txt or .xyz,
+one plot per file) through the model and writes de-standardized
+predictions to csv, as the root `predict.py` does.
 
     python -m dpcr_agb_tpu_torch.predict checkpoint_dir=outputs/run \\
         model_name=SENet14|SENet50|...|KPConv|MPointNet|SimplestNet \\
-        input='plots/*.npz' \\
+        input='plots/*.laz' \\
         output=preds.csv [batch_size=16] [weight_name=latest] \\
-        [centers=centers.csv] [device=cpu]
+        [transform_type=sparse_xy] [centers=centers.csv] [device=cpu]
 
-It runs on CUDA unless `device=cpu` is given, and raises when there is no
-CUDA device and the CPU was not asked for. `centers=` (csv with columns
-file,x,y) pins each plot's XY center; without it the XY mean of the
-points is used. Z is always centered on the minimum."""
+`weight_name` names a weight set: a `.pt` holds the ones training wrote
+("latest"); a `.ckpt` resolves it as the JAX package does (the name,
+`best_<name>`, a stage-prefixed best key, else "latest" with a warning).
+`transform_type` picks a `.ckpt`'s eval preset (`<tt>_eval`, else `<tt>`;
+by default the one it was trained with). It runs on CUDA unless
+`device=cpu` is given, and raises when there is no CUDA device and the CPU
+was not asked for. `centers=` (csv with columns file,x,y) pins each
+plot's XY center; without it the XY mean of the points is used. Z is
+always centered on the minimum."""
 from __future__ import annotations
 
 import csv
@@ -141,7 +148,8 @@ def main(overrides=None) -> str:
     args = _parse(list(overrides if overrides is not None else sys.argv[1:]))
     bundle = load_serving_bundle(args["checkpoint_dir"], args["model_name"],
                                  args.get("weight_name", "latest"),
-                                 device=args.get("device"))
+                                 device=args.get("device"),
+                                 transform_type=args.get("transform_type"))
 
     files = sorted(glob.glob(args["input"]))
     if os.path.isdir(args["input"]):

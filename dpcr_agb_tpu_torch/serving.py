@@ -1,6 +1,7 @@
 """Checkpoint-only serving bundle (counterpart of `dpcr_agb_tpu/serving.py`):
 the model, its task spec, the eval transform pipelines and the weights,
-rebuilt from a port checkpoint alone.
+rebuilt from a checkpoint alone: the port's `<model_name>.pt`, or the JAX
+package's `<model_name>.ckpt` (flax msgpack, `training/state.Checkpoint`).
 
 A port checkpoint is `<checkpoint_dir>/<model_name>.pt`, written with
 `torch.save`, holding plain Python objects and tensors only:
@@ -18,8 +19,17 @@ A port checkpoint is `<checkpoint_dir>/<model_name>.pt`, written with
   numerics      the float32 settings the writing process ran with
                 (`device.numerics()`: TF32 off, as the entry points pin it)
 A checkpoint written by training also holds `train_state` (optimizer
-state and counters, `training/state.py`), which serving ignores. Reading
-the JAX package's `.ckpt` files (flax msgpack) is not ported."""
+state and counters, `training/state.py`), which serving ignores.
+
+From a JAX `.ckpt`, as `dpcr_agb_tpu/serving.py` reads it: the option is
+run_config["models"][model_name]; the data config run_config["data"]; the
+preset `{tt}_eval`, else `tt` (tt: `transform_type=`, else the stored
+one) gives the test_transform, and its pre_transform, else the data
+config's, the pre_transform; target_stats and reg_targets come from
+dataset_properties; the weights are the state that `get_model_state`
+names, mapped by `weights.from_flax`, and the model's input width is read
+off them (`weights.in_channels_of`). A stored chain that names a
+transform the port lacks raises with its name."""
 from __future__ import annotations
 
 import copy
@@ -35,6 +45,7 @@ from .device import numerics, resolve_device
 from .models.base import InstanceSpec
 from .models.factory import build_model, collate_spec, make_post_collate
 from .transforms import Compose, instantiate_transforms
+from .weights import from_flax, in_channels_of
 
 CHECKPOINT_FORMAT = "dpcr_agb_tpu_torch.checkpoint/1"
 
@@ -225,23 +236,29 @@ def save_checkpoint(checkpoint_dir: str, model_name: str,
 
 def load_serving_bundle(checkpoint_dir: str, model_name: str,
                         weight_name: str = "latest",
-                        device=None) -> ServingBundle:
+                        device=None,
+                        transform_type: Optional[str] = None
+                        ) -> ServingBundle:
     """Rebuild everything needed for inference from the checkpoint alone,
     with the model in eval mode on `device` (CUDA unless "cpu" is asked
-    for)."""
+    for): `<model_name>.pt` when it is there, else `<model_name>.ckpt`.
+    `transform_type` picks a JAX checkpoint's eval preset; a port
+    checkpoint holds the chains of one preset only."""
     dev = resolve_device(device)
-    path = os.path.join(checkpoint_dir, f"{model_name}.pt")
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if ckpt.get("format") != CHECKPOINT_FORMAT:
-        raise ValueError(f"{path}: not a {CHECKPOINT_FORMAT} checkpoint")
-    if weight_name not in ckpt["weights"]:
-        raise KeyError(f"{path}: no weights {weight_name!r} "
-                       f"(has {sorted(ckpt['weights'])})")
-    option, data_cfg = ckpt["option"], ckpt["data"]
-    ts = ckpt["target_stats"]
+    pt = os.path.join(checkpoint_dir, f"{model_name}.pt")
+    jax_ckpt = os.path.join(checkpoint_dir, f"{model_name}.ckpt")
+    if os.path.exists(pt):
+        stored = _read_port_checkpoint(pt, weight_name, transform_type)
+    elif os.path.exists(jax_ckpt):
+        stored = _read_jax_checkpoint(jax_ckpt, model_name, weight_name,
+                                      transform_type)
+    else:
+        raise FileNotFoundError(f"no checkpoint of {model_name!r}: neither "
+                                f"{pt} nor {jax_ckpt} exists")
+    option, data_cfg, ts = stored.option, stored.data_cfg, stored.target_stats
     n_targets = len(ts["scale"])
-    net, conv_type = build_model(option, n_targets, ckpt["in_channels"])
-    net.load_state_dict(ckpt["weights"][weight_name])
+    net, conv_type = build_model(option, n_targets, stored.in_channels)
+    net.load_state_dict(stored.state_dict)
     net.to(dev).eval()
     spec = InstanceSpec(
         num_reg_targets=n_targets,
@@ -256,9 +273,67 @@ def load_serving_bundle(checkpoint_dir: str, model_name: str,
         net=net, spec=spec, conv_type=conv_type,
         collate_spec=collate_spec(conv_type, data_cfg),
         post_collate=make_post_collate(net),
-        pre_transform=instantiate_transforms(data_cfg.get("pre_transform")),
-        eval_transform=instantiate_transforms(data_cfg["test_transform"]),
-        reg_targets=list(ckpt["reg_targets"])
+        pre_transform=instantiate_transforms(stored.pre_transform),
+        eval_transform=instantiate_transforms(stored.test_transform),
+        reg_targets=list(stored.reg_targets)
         or [f"target_{i}" for i in range(n_targets)],
         feature_cols=list(data_cfg.get("features", []) or []),
         data_cfg=data_cfg, option=option, device=dev)
+
+
+@dataclasses.dataclass
+class _Stored:
+    """What a checkpoint file holds for serving, whichever its format."""
+    option: dict
+    data_cfg: dict
+    pre_transform: Optional[list]
+    test_transform: Optional[list]
+    target_stats: Dict[str, List[float]]
+    reg_targets: List[str]
+    state_dict: Dict[str, torch.Tensor]
+    in_channels: int
+
+
+def _read_port_checkpoint(path: str, weight_name: str,
+                          transform_type: Optional[str]) -> _Stored:
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if ckpt.get("format") != CHECKPOINT_FORMAT:
+        raise ValueError(f"{path}: not a {CHECKPOINT_FORMAT} checkpoint")
+    if weight_name not in ckpt["weights"]:
+        raise KeyError(f"{path}: no weights {weight_name!r} "
+                       f"(has {sorted(ckpt['weights'])})")
+    data_cfg = ckpt["data"]
+    if transform_type not in (None, data_cfg.get("transform_type")):
+        raise ValueError(f"{path} holds the {data_cfg.get('transform_type')}"
+                         f" chains only, not {transform_type!r}")
+    return _Stored(ckpt["option"], data_cfg, data_cfg.get("pre_transform"),
+                   data_cfg["test_transform"], ckpt["target_stats"],
+                   ckpt["reg_targets"], ckpt["weights"][weight_name],
+                   ckpt["in_channels"])
+
+
+def _read_jax_checkpoint(path: str, model_name: str, weight_name: str,
+                         transform_type: Optional[str]) -> _Stored:
+    # imported here: training.state imports this module
+    from .training.state import Checkpoint, check_env_snapshot
+    with open(path, "rb") as f:
+        ckpt = Checkpoint.from_bytes(f.read())
+    rc = ckpt.run_config
+    check_env_snapshot(rc)
+    data_cfg = rc["data"]
+    option = rc["models"][model_name]
+    tt = transform_type or data_cfg["transform_type"]
+    preset = next((c for c in (f"{tt}_eval", tt) if c in data_cfg), None)
+    if preset is None:
+        raise ValueError(f"{path}: transform preset {tt!r} not in the "
+                         "stored config")
+    chains = dict(data_cfg[preset] or {})
+    saved = ckpt.get_model_state(weight_name)
+    state = from_flax(saved["params"], saved.get("batch_stats"))
+    props = ckpt.dataset_properties
+    return _Stored(option, data_cfg,
+                   chains.get("pre_transform") or data_cfg.get(
+                       "pre_transform"),
+                   chains.get("test_transform"), props["target_stats"],
+                   list(props.get("reg_targets", [])), state,
+                   in_channels_of(option, state))

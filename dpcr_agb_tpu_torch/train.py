@@ -27,8 +27,8 @@ kernel-point convolution only; MPointNet and SimplestNet run in f32 only,
 as the JAX models do, and refuse it. `dense_dims` applies to the sparse-voxel
 nets, whose level-0 execution modes are read from DPCR_L0, DPCR_STEM_MODE,
 DPCR_POOL_BWD, DPCR_SPARSE_POOL and DPCR_POOL_FWD when the model is built
-(`models/minkowski.py`). Epochs, validation, trackers, LAS input and the
-YAML configs are not ported."""
+(`models/minkowski.py`). Epochs, validation, trackers, LAS plots with
+their label tables and the YAML configs are not ported."""
 from __future__ import annotations
 
 import copy

@@ -1,22 +1,38 @@
-"""The port's train state and its checkpoint.
+"""The port's train state and its checkpoint, and the JAX package's
+checkpoint file.
 
 The train state is the model's parameters and BN running stats (its
 `state_dict`), the optimizer's state, the update count `step` and
 `num_samples`. It is saved into the serving checkpoint format
 (`serving.save_checkpoint`, `<checkpoint_dir>/<model_name>.pt`) under the
 one extra key `train_state`, so `load_serving_bundle` reads the file
-unchanged. Reading the JAX package's msgpack `.ckpt` is not ported."""
+unchanged.
+
+`Checkpoint` reads and writes the JAX package's `<model_name>.ckpt`
+(`dpcr_agb_tpu/training/state.py` Checkpoint): flax msgpack (the port's
+own codec, `training/msgpack.py`) of `model_pool` (each distinct model
+state once, by content hash), `model_refs` (weight name -> pool id),
+`stats`, `optimizer`, `schedulers`, `run_config` and `dataset_properties`.
+A model state is `{"params": ..., "batch_stats": ...}` as flax nests them;
+`weights.from_flax` maps it onto a `state_dict`."""
 from __future__ import annotations
 
+import hashlib
+import logging
 import os
-from typing import Dict, List
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..serving import save_checkpoint
+from . import msgpack
 from .step import StepRunner
 
+log = logging.getLogger(__name__)
+
 TRAIN_STATE_KEY = "train_state"
+_LATEST = "latest"
 
 
 def save_train_checkpoint(checkpoint_dir: str, model_name: str,
@@ -65,3 +81,151 @@ def load_named_optimizer_state(runner: StepRunner, named: dict) -> None:
             for k in ("exp_avg", "exp_avg_var")}
     for group in runner.optimizer.param_groups:
         group["count"] = int(named["count"])
+
+
+def dpcr_env_snapshot() -> Dict[str, str]:
+    """Every DPCR_* variable of the environment (the JAX trainer stores
+    them in run_config["dpcr_env"]: they select execution paths)."""
+    return {k: os.environ[k] for k in sorted(os.environ)
+            if k.startswith("DPCR_")}
+
+
+def check_env_snapshot(saved_run_config: Optional[dict]) -> List[str]:
+    """Compare a checkpoint's DPCR_* snapshot with the environment; warn
+    and return the names that differ (empty when they match or the
+    checkpoint holds no snapshot). Changes nothing."""
+    saved = (saved_run_config or {}).get("dpcr_env")
+    if saved is None:
+        return []
+    current = dpcr_env_snapshot()
+    diff = sorted({k for k in set(saved) | set(current)
+                   if saved.get(k) != current.get(k)})
+    if diff:
+        log.warning(
+            "DPCR_* environment differs from the checkpoint's snapshot — "
+            "execution paths (and for DPCR_KP_CALIB_PCT the model math) "
+            "may not reproduce: %s",
+            {k: {"saved": saved.get(k), "current": current.get(k)}
+             for k in diff})
+    return diff
+
+
+class Checkpoint:
+    """The contents of a JAX `.ckpt`: `models` {weight name: model state},
+    per-stage `stats`, `optimizer` (name, state), `schedulers`,
+    `run_config` and `dataset_properties`. Names that share a pool entry
+    share one state object."""
+
+    def __init__(self, run_config: Optional[dict] = None,
+                 dataset_properties: Optional[dict] = None):
+        self.models: Dict[str, Any] = {}
+        self.stats: Dict[str, List[dict]] = {"train": [], "val": [],
+                                             "test": []}
+        self.optimizer: Optional[tuple] = None
+        self.schedulers: Dict[str, Any] = {}
+        self.run_config = run_config or {}
+        self.dataset_properties = dataset_properties or {}
+
+    def to_bytes(self) -> bytes:
+        """The JAX layout: each distinct state once in `model_pool` under
+        its content hash (states that are one object are hashed once),
+        `model_refs` naming a pool id for each weight name."""
+        pool: Dict[str, Any] = {}
+        refs: Dict[str, str] = {}
+        ident: Dict[int, str] = {}
+        for name, state in self.models.items():
+            pid = ident.get(id(state))
+            if pid is None:
+                pid = _state_fingerprint(state)
+                pool.setdefault(pid, state)
+                ident[id(state)] = pid
+            refs[name] = pid
+        payload = {
+            "model_pool": pool, "model_refs": refs, "stats": self.stats,
+            "optimizer": {"name": self.optimizer[0],
+                          "state": self.optimizer[1]}
+            if self.optimizer else {},
+            "schedulers": self.schedulers,
+            "run_config": self.run_config,
+            "dataset_properties": self.dataset_properties,
+        }
+        return msgpack.packb(_msgpack_safe(payload))
+
+    @classmethod
+    def from_bytes(cls, data) -> "Checkpoint":
+        payload = msgpack.unpackb(data)
+        ckpt = cls(payload.get("run_config"),
+                   payload.get("dataset_properties"))
+        if "model_pool" in payload:
+            pool = payload["model_pool"]
+            ckpt.models = {name: pool[pid]
+                           for name, pid in payload["model_refs"].items()}
+        else:  # the JAX package's first layout: the states themselves
+            ckpt.models = dict(payload.get("models", {}))
+        ckpt.stats = {k: list(v) for k, v in payload.get("stats",
+                                                         {}).items()}
+        opt = payload.get("optimizer") or {}
+        if opt:
+            ckpt.optimizer = (opt.get("name"), opt.get("state"))
+        ckpt.schedulers = payload.get("schedulers", {})
+        return ckpt
+
+    def get_model_state(self, weight_name: str = _LATEST):
+        """The state of `weight_name`: that name, else `best_<name>`, else
+        the stage-prefixed best keys ending in `_<name>` (the val stage's
+        first), else `latest` with a warning; KeyError without any."""
+        key = weight_name if weight_name in self.models \
+            else f"best_{weight_name}"
+        if key not in self.models:
+            suffix = [k for k in sorted(self.models)
+                      if k.endswith(f"_{weight_name}")]
+            if suffix:
+                key = next((k for k in suffix if k.startswith("best_val_")),
+                           suffix[0])
+        if key not in self.models:
+            if _LATEST in self.models:
+                log.warning(f"weight_name={weight_name!r} not found, using "
+                            f"latest. Available: {sorted(self.models)}")
+                key = _LATEST
+            else:
+                raise KeyError(f"No weights {weight_name!r} in checkpoint "
+                               f"(have {sorted(self.models)})")
+        return self.models[key]
+
+
+def _leaves(tree, path: str = ""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def _state_fingerprint(state) -> str:
+    """Content hash of a model state: every leaf's path, dtype, shape and
+    bytes."""
+    h = hashlib.blake2b(digest_size=16)
+    for path, leaf in _leaves(state):
+        if isinstance(leaf, torch.Tensor):
+            t = leaf.detach().cpu().contiguous()
+            dtype = str(t.dtype)
+            raw = (t.view(torch.int16) if t.dtype == torch.bfloat16
+                   else t).numpy()
+        else:
+            raw = np.ascontiguousarray(leaf)
+            dtype = raw.dtype.str
+        h.update(str((path, dtype, raw.shape)).encode())
+        h.update(raw.reshape(-1).view(np.uint8))
+    return h.hexdigest()
+
+
+def _msgpack_safe(obj):
+    """Trees as the JAX package writes them: str keys, tuples as lists."""
+    if isinstance(obj, dict):
+        return {str(k): _msgpack_safe(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_msgpack_safe(v) for v in obj]
+    return obj

@@ -9,7 +9,10 @@ kernels [in, out]), so the bridge is a rename: the nested path
 `batch_stats` on the flax side and are buffers in the port. Plain nested
 dicts of numpy arrays in, no flax needed. `opt_state_from_optax` carries
 the optax state of the JAX recipe (clip, then AdaBelief) across with the
-same names."""
+same names. `in_channels_of` reads a model's input width off its weights,
+which is how a JAX checkpoint's model is rebuilt: the JAX serving bundle
+builds KPConv's input width from a feature count it leaves at 0 (-> 1),
+and flax infers the other models' from the first batch."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -30,14 +33,35 @@ def _flatten(tree: dict, prefix: str = ""):
 
 
 def from_flax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
-    """{params, batch_stats} nested dicts of arrays -> state_dict."""
+    """{params, batch_stats} nested dicts of arrays (or tensors: a
+    checkpoint's bf16 leaves) -> state_dict."""
     out = {}
     for tree in (params, batch_stats or {}):
         for key, v in _flatten(tree):
             if key in out:
                 raise ValueError(f"duplicate variable {key!r}")
-            out[key] = torch.tensor(np.array(v))
+            out[key] = v.clone() if isinstance(v, torch.Tensor) \
+                else torch.tensor(np.array(v))
     return out
+
+
+def in_channels_of(option: dict, state_dict: Dict[str, torch.Tensor]
+                   ) -> int:
+    """The input feature width of the `conf/models` entry `option` whose
+    weights are `state_dict`, read off its first layer: the sparse-voxel
+    nets' stem kernel [343, Cin, 64]; KPConv's first block, a `simple`
+    KPConv (every architecture in conf/ starts with one), [Kp, Cin, C];
+    MPointNet's first linear [3 + Cin, 64] with its positions added (else
+    [Cin, 64]); SimplestNet's [Cin + 3, 64] over [x, pos]."""
+    cls = option["class"]
+    if cls == "kpconv.KPConv":
+        return int(state_dict["block0_kpconv.weights"].shape[1])
+    if cls == "simplestnet.SimplestNet":
+        return int(state_dict["conv0.kernel"].shape[0]) - 3
+    if option.get("model_name") == "MinkowskiPointNet":
+        return int(state_dict["b1_lin.kernel"].shape[0]) \
+            - (3 if option.get("add_pos", False) else 0)
+    return int(state_dict["stem_conv.kernel"].shape[1])
 
 
 def to_flax(state_dict: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
