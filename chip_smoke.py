@@ -112,7 +112,32 @@ none):
            once; prints the `.ckpt`'s bytes and load seconds (decoded to
            tensors on the card), points per plot, LAZ decode ms per plot,
            both routes' predict_main_seconds, max_abs_diff and bit_equal
-Then the kernels summary line, the nvidia-smi name/power-limit line, and
+Then (`--only trainer` runs it alone):
+  trainer  the README's training command through the port's entry points
+           (`train.main`: SENet14, sparse level 0, data=instance/synthetic/
+           reg, transform sparse_xy, training=nfi/minkowski so bf16 compute
+           through enable_mixed, cosineawr stepped per batch,
+           visualization=eval) on 96 plots that the port's generator
+           writes, bs16, 2 epochs, 4 loader threads: the splits against the
+           seed-42 rule computed here from the generated labels;
+           generate_seconds and process_seconds; per epoch the train
+           batches, finite tracked losses, data and step seconds (and the
+           first batch's wait) and plots/s; the val and test metrics of
+           each epoch in metrics.jsonl under the JAX keys; the .ckpt read
+           back (`latest`, `best_val_*` only, stats of each stage); the
+           launches of stem_sites and max_pool_k3s2_rows equal to the
+           forwards counted at the step runner, of stem_sites_dw and
+           max_pool_k3s2_bwd to its train steps, of every other kernel 0.
+           Then `eval.main` twice on the checkpoint alone (weight_name
+           latest, the train batch size): its test predictions equal to the
+           train run's last test epoch bit for bit, or within 5e-2 of
+           max|pred| if cuDNN chose another algorithm (which case is
+           printed), the rest of each csv row equal, its metrics equal to
+           those recomputed from its csv within 1e-6 relative, the second
+           call the same bits; then `calibrate_bn.main` for one epoch:
+           every weight bit-equal, BN running stats moved, the forward
+           kernels launched once a forward and the backward ones never
+Then a total line with the script's seconds, the kernels summary line, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`. Without CUDA (or without the rest of
 the repository) it exits non-zero before printing any result."""
 from __future__ import annotations
@@ -2341,6 +2366,304 @@ def run_model(key: str, tmp: str, plot_dir: str, smi: str, seed: int,
         torch.cuda.empty_cache()
     return krows
 
+# The trainer phase: the README's training command through the port's own
+# entry points (SENet14, sparse level 0, enable_mixed: bf16 compute), on a
+# synthetic NFI-layout dataset the port generates and processes
+TRAINER_PLOTS = 96
+TRAINER_EPOCHS = 2
+TRAINER_BS = 16
+TRAINER_TARGETS = ("BMag_ha", "V_ha")
+# eval.main's predictions against the train run's, when cuDNN picks
+# another algorithm: the serve tolerance of bf16
+TRAINER_SERVE_TOL = 5e-2
+
+
+def trainer_overrides(root: str) -> list:
+    return ["task=instance", "models=instance/minkowski_baseline",
+            "model_name=SENet14", "data=instance/synthetic/reg",
+            "data.transform_type=sparse_xy", "training=nfi/minkowski",
+            "lr_scheduler=cosineawr", "update_lr_scheduler_on=on_num_batch",
+            f"data.dataroot={root}/data",
+            f"data.synthetic_plots={TRAINER_PLOTS}",
+            f"training.epochs={TRAINER_EPOCHS}",
+            f"training.batch_size={TRAINER_BS}", "training.num_workers=4",
+            "visualization=eval", f"run_dir={root}/run"]
+
+
+def expected_splits(label_file: str) -> dict:
+    """The seed-42 rule on the generated labels, computed here: the rows
+    with every target present shuffled by RandomState(42), the first 80%
+    train, the next 10% val, the rest test (rows missing every target go
+    to train)."""
+    from dpcr_agb_tpu_torch.visualization.gpkg import read_gpkg
+    labels = read_gpkg(label_file)
+    y = np.stack([labels[t] for t in TRAINER_TARGETS], 1)
+    full = np.flatnonzero(~np.isnan(y).all(1))
+    index = full.copy()
+    np.random.RandomState(42).shuffle(index)
+    n = len(index)
+    train_end, val_end = int(n * 0.8), int(n * 0.9)
+    return {"train": len(labels) - n + train_end,
+            "val": val_end - train_end, "test": n - val_end}
+
+
+class StepCounter:
+    """Counts the runner's train steps and forwards (train, evaluate,
+    calibrate) while installed, and each call's kernel launches."""
+
+    def __init__(self):
+        from dpcr_agb_tpu_torch.training.step import StepRunner
+        self.cls = StepRunner
+        self.calls = {"train": 0, "evaluate": 0, "calibrate": 0}
+        self.saved = {k: getattr(StepRunner, k) for k in self.calls}
+
+    def __enter__(self):
+        for name, fn in self.saved.items():
+            def counted(runner, *a, _name=name, _fn=fn, **k):
+                self.calls[_name] += 1
+                return _fn(runner, *a, **k)
+            setattr(self.cls, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+
+    @property
+    def forwards(self) -> int:
+        return sum(self.calls.values())
+
+
+def check_trainer_launches(what: str, launches: dict, counter) -> dict:
+    """The sparse level 0's forward kernels once per forward, its backward
+    kernels once per train step, and nothing else."""
+    want = {"stem_sites": counter.forwards,
+            "max_pool_k3s2_rows": counter.forwards,
+            "stem_sites_dw": counter.calls["train"],
+            "max_pool_k3s2_bwd": counter.calls["train"]}
+    want.update({k: 0 for k in launches if k not in want})
+    bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    if bad or counter.forwards == 0:
+        raise AssertionError(f"{what}: launches (got, counted) {bad}; "
+                             f"calls {counter.calls}")
+    return want
+
+
+def read_pred_csv(path: str, epoch: int = None) -> tuple:
+    """(header, rows) of a `<area>_<stage>_preds.csv`, the rows of one
+    epoch when it is given."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    header, body = rows[0], rows[1:]
+    if epoch is not None:
+        body = [r for r in body if r[header.index("epoch")] == str(epoch)]
+    return header, body
+
+
+def csv_metrics(path: str, stage: str, area: str) -> dict:
+    """RMSE, MAE and R² of each target recomputed from a prediction csv:
+    errors of pred against y (the sample's target), R² against the mean of
+    the label table's values of that stage (the tracker's fixed mean)."""
+    header, rows = read_pred_csv(path)
+    col = {name: np.array([float(r[header.index(name)]) for r in rows])
+           for name in header if name.startswith(("pred_", "y_", "label_"))
+           and name.split("_", 1)[1] in TRAINER_TARGETS}
+    out = {}
+    for t in TRAINER_TARGETS:
+        err = col[f"pred_{t}"] - col[f"y_{t}"]
+        mean = float(np.mean(col[f"label_{t}"]))
+        tot = float(np.sum((col[f"y_{t}"] - mean) ** 2))
+        for who in (area, "total"):
+            key = f"{stage}_{who}_{t}"
+            out[f"{key}_rmse"] = float(np.sqrt(np.sum(err ** 2) / len(err)))
+            out[f"{key}_mae"] = float(np.sum(np.abs(err)) / len(err))
+            out[f"{key}_r2"] = 1.0 - float(np.sum(err ** 2)) / tot
+    return out
+
+
+def phase_trainer(tmp: str, smi: str, krows: list) -> None:
+    """train.main with the README's command on a synthetic NFI dataset,
+    then eval.main and calibrate_bn.main on its checkpoint (see the
+    module docstring)."""
+    import torch
+    from dpcr_agb_tpu_torch import calibrate_bn, eval as ev, kernels, train
+    from dpcr_agb_tpu_torch.data.synthetic import generate_nfi_like_dataset
+    from dpcr_agb_tpu_torch.training.state import Checkpoint
+    root = os.path.join(tmp, "trainer")
+    what = "trainer"
+    t0 = time.perf_counter()
+    label_file = generate_nfi_like_dataset(
+        os.path.join(root, "data", "synthetic"), n_plots=TRAINER_PLOTS)
+    generate_seconds = time.perf_counter() - t0
+    want_splits = expected_splits(label_file)
+
+    kernels.reset_launches()
+    with StepCounter() as counter:
+        t0 = time.perf_counter()
+        trainer, pinned = from_default_numerics(
+            lambda: train.main(trainer_overrides(root)), what)
+        torch.cuda.synchronize()
+        train_seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    counted = check_trainer_launches(f"{what}: train.main", launches,
+                                     counter)
+    splits = {s: len(d) if d is not None else 0
+              for s, d in trainer.dataset.datasets.items()}
+    if splits != want_splits:
+        raise AssertionError(f"{what}: splits {splits}, the seed-42 rule "
+                             f"gives {want_splits}")
+    if not (trainer.option.get("extra_options") or {}).get("bf16"):
+        raise AssertionError(f"{what}: enable_mixed did not give SENet14 "
+                             "its bf16 compute")
+    epochs = []
+    for h in trainer.history:
+        if h["stage"] != "train":
+            continue
+        losses = h["tracked_losses"]
+        if h["batches"] != want_splits["train"] // TRAINER_BS \
+                or not losses or not np.isfinite(losses).all():
+            raise AssertionError(f"{what}: epoch {h}")
+        epochs.append({k: h[k] for k in (
+            "epoch", "batches", "tracked_losses", "seconds", "data_seconds",
+            "first_batch_data_seconds", "step_seconds", "plots_per_s")})
+    if len(epochs) != TRAINER_EPOCHS:
+        raise AssertionError(f"{what}: {len(epochs)} train epochs")
+    run_dir = os.path.join(root, "run")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    stage_metrics = {}
+    for epoch in range(1, TRAINER_EPOCHS + 1):
+        for stage in ("val", "test"):
+            rec = [r for r in records
+                   if r["epoch"] == epoch and r["stage"] == stage]
+            keys = [f"{stage}_loss"] + [
+                f"{stage}_total_{t}_{m}" for t in TRAINER_TARGETS
+                for m in ("rmse", "mae", "r2")]
+            if len(rec) != 1 or not all(
+                    np.isfinite(rec[0].get(k, np.nan)) for k in keys):
+                raise AssertionError(f"{what}: {stage} metrics of epoch "
+                                     f"{epoch}: {rec}")
+            stage_metrics[f"{stage}_{epoch}"] = {k: rec[0][k] for k in keys}
+    ckpt_path = os.path.join(run_dir, "SENet14.ckpt")
+    with open(ckpt_path, "rb") as f:
+        ckpt = Checkpoint.from_bytes(f.read())
+    best = sorted(k for k in ckpt.models if k.startswith("best_val_"))
+    if "latest" not in ckpt.models or not best or \
+            any(k.startswith(("best_test", "best_train"))
+                for k in ckpt.models) or \
+            [len(ckpt.stats[s]) for s in ("train", "val", "test")] != \
+            [TRAINER_EPOCHS] * 3:
+        raise AssertionError(f"{what}: checkpoint models "
+                             f"{sorted(ckpt.models)}, stats "
+                             f"{ {s: len(v) for s, v in ckpt.stats.items()} }")
+    for r in krows:
+        if r["kernels_phase"] == "sparse_l0" and r["dtype"] == "bfloat16" \
+                and r["name"] in counted:
+            r.setdefault("launches_by_path", {})["trainer"] = \
+                launches[r["name"]]
+    process_seconds = trainer.dataset_seconds
+    del trainer
+    torch.cuda.empty_cache()
+
+    # eval.main twice on the checkpoint alone (its own run_config)
+    evals = []
+    for i in (1, 2):
+        kernels.reset_launches()
+        with StepCounter() as ecount:
+            t0 = time.perf_counter()
+            results = ev.main([f"checkpoint_dir={run_dir}",
+                               "model_name=SENet14", "weight_name=latest",
+                               f"batch_size={TRAINER_BS}",
+                               f"run_dir={root}/eval{i}",
+                               "pretty_print=False"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        check_trainer_launches(f"{what}: eval.main {i}",
+                               dict(kernels.LAUNCHES), ecount)
+        evals.append((results, seconds))
+    train_csv = os.path.join(run_dir, "SYNTH_test_preds.csv")
+    header, want_rows = read_pred_csv(train_csv, TRAINER_EPOCHS)
+    eval_csv = os.path.join(root, "eval1", "SYNTH_test_preds.csv")
+    got_header, got_rows = read_pred_csv(eval_csv)
+    pred_cols = [i for i, h in enumerate(header) if h.startswith("pred_")]
+    if got_header != header or len(got_rows) != len(want_rows) \
+            or len(got_rows) != want_splits["test"] or any(
+                [v for i, v in enumerate(g) if i not in pred_cols]
+                != [v for i, v in enumerate(w) if i not in pred_cols]
+                for g, w in zip(got_rows, want_rows)):
+        raise AssertionError(f"{what}: eval's test csv rows differ from the "
+                             "train run's beyond the predictions")
+    got_p = np.array([[float(g[i]) for i in pred_cols] for g in got_rows])
+    want_p = np.array([[float(w[i]) for i in pred_cols] for w in want_rows])
+    bit_equal = bool(np.array_equal(got_p, want_p))
+    max_diff = float(np.abs(got_p - want_p).max())
+    bound = TRAINER_SERVE_TOL * float(np.abs(want_p).max())
+    if not bit_equal and max_diff > bound:
+        raise AssertionError(f"{what}: eval predictions differ by {max_diff}"
+                             f" (> {bound}) from the train run's")
+    recomputed = csv_metrics(eval_csv, "test", "SYNTH")
+    test_metrics = evals[0][0]["test"]
+    worst = max(abs(test_metrics[k] - v) / max(abs(v), 1e-30)
+                for k, v in recomputed.items())
+    if worst > 1e-6:
+        raise AssertionError(f"{what}: eval's test metrics differ from its "
+                             f"csv's by {worst} (relative)")
+    second = read_pred_csv(os.path.join(root, "eval2",
+                                        "SYNTH_test_preds.csv"))[1]
+    if second != got_rows:
+        raise AssertionError(f"{what}: a second eval.main gave other bits")
+
+    # calibrate_bn.main for one epoch
+    kernels.reset_launches()
+    with StepCounter() as ccount:
+        t0 = time.perf_counter()
+        calibrate_bn.main([f"checkpoint_dir={run_dir}", "model_name=SENet14",
+                           f"run_dir={root}/calibrate", "epochs=1",
+                           f"batch_size={TRAINER_BS}", "pretty_print=False"])
+        torch.cuda.synchronize()
+        cal_seconds = time.perf_counter() - t0
+    check_trainer_launches(f"{what}: calibrate_bn.main",
+                           dict(kernels.LAUNCHES), ccount)
+    if ccount.calls["calibrate"] == 0 or ccount.calls["train"]:
+        raise AssertionError(f"{what}: calibrate_bn calls {ccount.calls}")
+    with open(os.path.join(root, "calibrate", "SENet14.ckpt"), "rb") as f:
+        cal = Checkpoint.from_bytes(f.read()).models["latest"]
+    src = ckpt.models["latest"]
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from flat(tree[k], f"{prefix}/{k}")
+        else:
+            yield prefix, np.asarray(tree)
+
+    same_w = all(np.array_equal(a, b) and a.dtype == b.dtype
+                 for (_, a), (_, b) in zip(flat(cal["params"]),
+                                           flat(src["params"])))
+    moved = sum(not np.array_equal(a, b) for (_, a), (_, b) in zip(
+        flat(cal["batch_stats"]), flat(src["batch_stats"])))
+    if not same_w or not moved:
+        raise AssertionError(f"{what}: calibrate_bn changed the weights "
+                             f"({not same_w}) or no BN stat ({moved})")
+    emit({"phase": "trainer", "model": "SENet14", "dtype": "bfloat16",
+          "plots": TRAINER_PLOTS, "batch_size": TRAINER_BS,
+          "splits": splits, "generate_seconds": generate_seconds,
+          "process_seconds": process_seconds,
+          "train_main_seconds": train_seconds, "numerics": pinned,
+          "epochs": epochs, "metrics": stage_metrics,
+          "launches": {k: launches[k] for k in counted if counted[k]},
+          "counted": {"forwards": counter.forwards,
+                      "steps": counter.calls["train"]},
+          "checkpoint_models": sorted(ckpt.models),
+          "eval_main_seconds": [s for _, s in evals],
+          "eval_bit_equal": bit_equal, "eval_max_abs_diff": max_diff,
+          "eval_tolerance": None if bit_equal else bound,
+          "eval_metrics_vs_csv_rel": worst,
+          "eval_repeat_bit_equal": True,
+          "calibrate_main_seconds": cal_seconds,
+          "calibrate_forwards": ccount.calls["calibrate"],
+          "bn_stats_moved": int(moved), "card": smi})
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2350,9 +2673,11 @@ def main(argv=None) -> int:
                          "forward and of the train step")
     ap.add_argument("--out", default=None,
                     help="also write every phase's JSON to this file")
-    ap.add_argument("--only", choices=sorted(MODELS), default=None,
+    ap.add_argument("--only", choices=sorted(MODELS) + ["trainer"],
+                    default=None,
                     help="run the phases of one path only (all the "
-                         "kernels are built either way)")
+                         "kernels are built either way); 'trainer' runs "
+                         "the trainer phase alone, with no kernels rows")
     args = ap.parse_args(argv)
 
     import torch
@@ -2384,6 +2709,12 @@ def main(argv=None) -> int:
                                        args.profile, krows)
                 emit({"phase": "model", "model": key,
                       "seconds": time.perf_counter() - t_model})
+        if args.only in (None, "trainer"):
+            t_model = time.perf_counter()
+            with mode_env({}):
+                phase_trainer(tmp, smi, krows)
+            emit({"phase": "model", "model": "trainer",
+                  "seconds": time.perf_counter() - t_model})
     missing = [f"{r['name']} {r['dtype']} {r.get('case') or ''}"
                for r in krows if not r["launches"]]
     if missing:
@@ -2404,7 +2735,9 @@ def main(argv=None) -> int:
         "previous_route_ms", "previous_route_device_ms", "fill_device_ms",
         "index_build_device_ms", "pool_kernel_device_ms")}
         for r in krows]}
-    RECORD.append({"total_seconds": time.perf_counter() - t_start})
+    total = {"phase": "total", "seconds": time.perf_counter() - t_start,
+             "card": smi}
+    emit(total)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

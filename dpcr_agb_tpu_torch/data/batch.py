@@ -32,6 +32,7 @@ class Batch:
     coords: Any = None            # [B, N, 3] i32 (sparse models only)
     stats: Any = None             # [B, S] f32
     aux: Any = None               # model-specific host arrays (z bucket tag)
+    ready: Any = None             # CUDA event: the copy to the card is done
 
     @property
     def batch_size(self) -> int:
@@ -51,8 +52,58 @@ class Batch:
             if isinstance(v, torch.Tensor):
                 return v.to(device)
             return torch.from_numpy(np.ascontiguousarray(v)).to(device)
-        return Batch(**{f.name: conv(getattr(self, f.name))
+        return Batch(**{f.name: getattr(self, f.name) if f.name == "ready"
+                        else conv(getattr(self, f.name))
                         for f in dataclasses.fields(self)})
+
+
+def device_put(batch: Batch, device: torch.device,
+               stream: "torch.cuda.Stream") -> Batch:
+    """The batch's arrays as tensors on `device`. On a CUDA device they are
+    copied from pinned host memory on `stream` (a stream of the caller's,
+    e.g. a loader's), and `ready` holds an event recorded after the
+    copies: `wait_ready` makes the consuming stream wait on it before the
+    batch is read. On the CPU this is `batch.to(device)`."""
+    if device.type != "cuda":
+        return batch.to(device)
+
+    def conv(v):
+        if v is None:
+            return None
+        if isinstance(v, dict):
+            return {k: conv(a) for k, a in v.items()}
+        host = v if isinstance(v, torch.Tensor) \
+            else torch.from_numpy(np.ascontiguousarray(v))
+        return host.pin_memory().to(device, non_blocking=True)
+
+    with torch.cuda.stream(stream):
+        moved = {f.name: conv(getattr(batch, f.name))
+                 for f in dataclasses.fields(batch) if f.name != "ready"}
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    return Batch(**moved, ready=ready)
+
+
+def wait_ready(batch: Batch) -> Batch:
+    """Make the current CUDA stream wait for a `device_put` batch's copies,
+    and mark its tensors as used on that stream (so the caching allocator
+    does not hand their memory to the copy stream while the step still
+    reads them). A batch without an event is returned as it is."""
+    if batch.ready is None:
+        return batch
+    current = torch.cuda.current_stream(batch.mask.device)
+    current.wait_event(batch.ready)
+
+    def mark(v):
+        if isinstance(v, dict):
+            for a in v.values():
+                mark(a)
+        elif isinstance(v, torch.Tensor):
+            v.record_stream(current)
+    for f in dataclasses.fields(batch):
+        if f.name != "ready":
+            mark(getattr(batch, f.name))
+    return dataclasses.replace(batch, ready=None)
 
 
 def bucket_size(n: int, buckets: Optional[Sequence[int]] = None,

@@ -1,10 +1,16 @@
-"""Synthetic airborne-LiDAR plot generator (numpy only): the plot
-generator of `dpcr_agb_tpu/data/synthetic.py` without its LAS writer and
-label tables. Cylindrical plots of ground + tree-crown points with
-plot-level biomass/volume targets from an allometric model."""
+"""Synthetic airborne-LiDAR forest generator (counterpart of
+`dpcr_agb_tpu/data/synthetic.py`): cylindrical plots of ground + tree-crown
+points with plot-level biomass/volume targets from an allometric model, and
+an NFI-shaped dataset of such plots (per-plot .las files and a label
+table) that `data.synthetic=true` configs generate on first use."""
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from .las_io import write_las
+from .table import Table
 
 
 def generate_plot(rng: np.random.Generator, radius: float = 15.0,
@@ -73,3 +79,42 @@ def generate_plot(rng: np.random.Generator, radius: float = 15.0,
     area_ha = area / 1e4
     return (pts.astype(np.float32), biomass_kg / 1000.0 / area_ha,
             volume_m3 / area_ha)
+
+
+def generate_nfi_like_dataset(root: str, n_plots: int = 60, seed: int = 0,
+                              radius: float = 15.0,
+                              label_format: str = "gpkg",
+                              spatial_signal: bool = False) -> str:
+    """Create `<root>/raw/` with per-plot .las files and a label table
+    (nfi.gpkg, or labels.csv) shaped like the NFI layout: an object-type
+    area, pt_identifier column 'las_file', targets BMag_ha / V_ha, no split
+    column (the dataset's seed-42 splitter makes one). Returns the label
+    file's path. The same seed gives the same files as the JAX package's
+    generator."""
+    rng = np.random.default_rng(seed)
+    raw = os.path.join(root, "raw")
+    os.makedirs(os.path.join(raw, "plots"), exist_ok=True)
+    rows = []
+    for i in range(n_plots):
+        pts, bmag, v = generate_plot(rng, radius=radius,
+                                     spatial_signal=spatial_signal)
+        # place the plot somewhere in a fake projected CRS
+        cx, cy = rng.uniform(5e5, 6e5), rng.uniform(6e6, 6.1e6)
+        world = pts + np.array([cx, cy, rng.uniform(0, 200)],
+                               dtype=np.float32)
+        las_name = f"plots/plot_{i:04d}.las"
+        low = pts[:, 2] < 0.5
+        ground_z = np.median(pts[low, 2]) if low.any() else 0.0
+        cls = np.where(np.abs(pts[:, 2] - ground_z) < 0.3, 2, 5)
+        write_las(os.path.join(raw, las_name), world, classification=cls)
+        rows.append((f"plot_{i:04d}", cx, cy, bmag, v))
+    names = ("las_file", "x", "y", "BMag_ha", "V_ha")
+    df = Table({n: [r[j] for r in rows] for j, n in enumerate(names)})
+    if label_format == "gpkg":
+        from ..visualization.gpkg import write_gpkg
+        label_file = os.path.join(raw, "nfi.gpkg")
+        write_gpkg(label_file, df, layer="nfi")
+    else:
+        label_file = os.path.join(raw, "labels.csv")
+        df.write_csv(label_file)
+    return label_file

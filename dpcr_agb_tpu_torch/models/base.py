@@ -56,6 +56,72 @@ class InstanceSpec:
     double_batch: bool = False
 
 
+def _avg_stat(stats_dict: dict, feat_idx: np.ndarray, default: float
+              ) -> float:
+    """nanmean over every entry (the areas and 'total') that has train
+    stats; `default` when there is none or one target is NaN in all."""
+    vals = [np.asarray(area["train"], dtype=np.float64)[feat_idx]
+            for area in stats_dict.values() if "train" in area]
+    if not vals:
+        return default
+    arr = np.array(vals, dtype=np.float64)
+    if np.isnan(arr).all(axis=0).any():
+        return default
+    return float(np.nanmean(arr, axis=0)[0])
+
+
+def build_instance_spec(dataset, option) -> InstanceSpec:
+    """The task spec of a dataset's regression targets (counterpart of
+    `dpcr_agb_tpu/models/base.build_instance_spec`): per target, weight,
+    normalization (standard: center the averaged train mean, scale the
+    averaged train std; min-max: center the min, scale max - min; other:
+    0 and 1), then center_override, scale_override and scale_mult; the
+    loss names of `reg_loss_fn` and the output activations of the model
+    option."""
+    get = option.get if hasattr(option, "get") else option.__getitem__
+    reg_targets = [t for t in dataset.targets
+                   if dataset.targets[t]["task"] == "regression"]
+    n = len(reg_targets)
+    scale = np.ones(n)
+    center = np.zeros(n)
+    weights = np.ones(n)
+    targets_idx = np.asarray(dataset.reg_targets_idx, dtype=bool)
+    for i, t in enumerate(reg_targets):
+        tcfg = dataset.targets[t]
+        weights[i] = tcfg.get("weight", 1)
+        norm = tcfg.get("normalization", "standard")
+        feat_idx = np.zeros_like(targets_idx)
+        feat_idx[np.flatnonzero(targets_idx)[i]] = True
+        if norm == "standard":
+            center[i] = _avg_stat(dataset.get_mean_targets(), feat_idx, 0.0)
+            scale[i] = _avg_stat(dataset.get_std_targets(), feat_idx, 1.0)
+        elif norm == "min-max":
+            center[i] = _avg_stat(dataset.get_min_targets(), feat_idx, 0.0)
+            scale[i] = _avg_stat(dataset.get_max_targets(), feat_idx,
+                                 1.0) - center[i]
+        center[i] = tcfg.get("center_override", center[i])
+        scale[i] = tcfg.get("scale_override", scale[i])
+        scale[i] *= tcfg.get("scale_mult", 1.0)
+
+    loss_strs = get("reg_loss_fn", "smoothl1") or "smoothl1"
+    loss_names = tuple(s.strip() for s in str(loss_strs).split(",")
+                       if s.strip())
+    for s in loss_names:
+        if s not in REG_LOSSES:
+            raise ValueError(f"Unknown reg loss: {s}")
+    return InstanceSpec(
+        num_reg_targets=n, scale=scale.astype(np.float32),
+        center=center.astype(np.float32), weights=weights.astype(np.float32),
+        loss_names=loss_names,
+        out_activation=str(get("reg_out_activation", "linear")
+                           or "linear").lower(),
+        report_activation=str(get("reg_out_report_activation", "linear")
+                              or "linear").lower(),
+        double_batch=bool(get("double_batch",
+                              getattr(dataset, "double_batch", False))),
+    )
+
+
 def convert_outputs(spec: InstanceSpec, raw: torch.Tensor) -> torch.Tensor:
     """Head output -> standardized regression predictions."""
     return OUT_ACT[spec.out_activation](raw[:, : spec.num_reg_targets])

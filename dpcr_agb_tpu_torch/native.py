@@ -1,11 +1,13 @@
-"""The port's host LASzip codec: `native/laszip.cpp` of this package (a copy
-of the JAX package's `native/laszip.cpp`), compiled with g++ at first use
-into `build/torch_host/liblaszip-<hash of source and flags>.so` at the
-repository root (listed in .gitignore) and bound with ctypes. The build
-writes a temporary file and renames it into place, so processes that build
-at once never load a half-written library. There is no fallback: when the
-library cannot be built, the call raises with g++'s error output; no
-committed binary is ever loaded.
+"""The port's host libraries, compiled with g++ at first use into
+`build/torch_host/lib<name>-<hash of source and flags>.so` at the
+repository root (listed in .gitignore) and bound with ctypes: the LASzip
+codec `native/laszip.cpp` (a copy of the JAX package's
+`native/laszip.cpp`) and the KD-tree `native/kdtree.cpp`, whose radius
+queries return points in scikit-learn's KDTree order. The build writes a
+temporary file and renames it into place, so processes that build at once
+never load a half-written library. There is no fallback: when a library
+cannot be built, the call raises with g++'s error output; no committed
+binary is ever loaded.
 
 C interface (`laszip.cpp`): `laz_decompress` (a point blob, from its
 chunk-table offset on, to raw records) and `laz_compress` (raw records to
@@ -25,33 +27,38 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "native" / "laszip.cpp"
+KDTREE_SRC = SRC.with_name("kdtree.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_host"
-GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
+# no FMA contraction: the KD-tree's distances must round as scikit-learn's
+GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off"]
 
 
-def library_path() -> Path:
-    """Where the codec library of this source and these flags lives."""
-    tag = hashlib.blake2b(SRC.read_bytes() + " ".join(GXX_FLAGS).encode(),
+def library_path(src: Path = None) -> Path:
+    """Where the library of this source (the codec by default) and these
+    flags lives."""
+    src = src or SRC
+    tag = hashlib.blake2b(src.read_bytes() + " ".join(GXX_FLAGS).encode(),
                           digest_size=6).hexdigest()
-    return BUILD_DIR / f"liblaszip-{tag}.so"
+    return BUILD_DIR / f"lib{src.stem}-{tag}.so"
 
 
-def build() -> Path:
-    """The codec library's path, compiled first when it is missing."""
-    path = library_path()
+def build(src: Path = None) -> Path:
+    """The library's path, compiled first when it is missing."""
+    src = src or SRC
+    path = library_path(src)
     if path.exists():
         return path
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError(f"g++ is not on PATH: the LASzip codec ({SRC}) "
-                           f"cannot be built into {path}")
+        raise RuntimeError(f"g++ is not on PATH: {src.name} cannot be "
+                           f"built into {path}")
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
-    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(SRC)],
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed to build {SRC} "
+        raise RuntimeError(f"g++ failed to build {src} "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, path)
     return path
@@ -107,3 +114,63 @@ def laz_compress(records: np.ndarray, item_types, item_sizes,
     if rc < 0:
         raise RuntimeError(f"laz_compress failed (code {rc})")
     return out[:rc].tobytes()
+
+
+@lru_cache(maxsize=None)
+def kdtree_library() -> ctypes.CDLL:
+    """The bound KD-tree (built at the first call of a process)."""
+    lib = ctypes.CDLL(str(build(KDTREE_SRC)))
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    i64, f64 = ctypes.c_int64, ctypes.c_double
+    lib.kd_node_count.restype = i64
+    lib.kd_node_count.argtypes = [i64, i64]
+    lib.kd_build.restype = i64
+    lib.kd_build.argtypes = [f64p, i64, i64, i64p, i64p, i64p, u8p, f64p]
+    lib.kd_query_radius.restype = i64
+    lib.kd_query_radius.argtypes = [f64p, i64p, i64p, i64p, u8p, f64p, i64,
+                                    f64, f64, f64, i64p]
+    return lib
+
+
+class KDTree2D:
+    """A KD-tree over xy points [N, 2] (float64 as scikit-learn stores
+    them), built once; `query_radius` returns what
+    `sklearn.neighbors.KDTree(xy).query_radius([center], r)[0]` returns,
+    the same indices in the same order."""
+
+    LEAF_SIZE = 40
+
+    def __init__(self, xy: np.ndarray):
+        lib = kdtree_library()
+        self.data = np.ascontiguousarray(np.asarray(xy)[:, :2],
+                                         dtype=np.float64)
+        n = len(self.data)
+        if n == 0:
+            raise ValueError("a KD-tree needs at least one point")
+        m = lib.kd_node_count(n, self.LEAF_SIZE)
+        self.idx = np.zeros(n, np.int64)
+        self.start = np.zeros(m, np.int64)
+        self.end = np.zeros(m, np.int64)
+        self.leaf = np.zeros(m, np.uint8)
+        self.bounds = np.zeros(m * 4, np.float64)
+        self.n_nodes = lib.kd_build(self.data, n, self.LEAF_SIZE, self.idx,
+                                    self.start, self.end, self.leaf,
+                                    self.bounds)
+
+    def query_radius(self, center, r: float) -> np.ndarray:
+        cx, cy = (float(v) for v in np.asarray(center, np.float64)
+                  .reshape(-1)[:2])
+        out = np.empty(len(self.data), np.int64)
+        count = kdtree_library().kd_query_radius(
+            self.data, self.idx, self.start, self.end, self.leaf,
+            self.bounds, self.n_nodes, cx, cy, float(r), out)
+        return out[:count].copy()
+
+
+def radius_query_2d(pos_xy: np.ndarray, center, r: float) -> np.ndarray:
+    """Indices of the points within r of center, in scikit-learn's KDTree
+    order (one tree built for one query; build a `KDTree2D` to query
+    several centers)."""
+    return KDTree2D(pos_xy).query_radius(center, r)

@@ -1,7 +1,21 @@
-"""Training CLI of the port: a few optimizer steps of a sparse-voxel
-ResNet/SENet (SENet14 unless named otherwise), of the KPConv net, of
-MPointNet or of SimplestNet on `.npz` plots, then a port checkpoint that
-`predict` serves.
+"""Training CLI of the port, in two forms.
+
+With the root `train.py`'s config grammar (no `input=`), it composes the
+repository's `conf/` tree and runs the trainer (`training/trainer.py`):
+epochs over an NFI-layout dataset (areas, label tables, splits, the
+processed cache), val and test stages, metrics in `<run_dir>/metrics.jsonl`
+and best-metric snapshots in `<run_dir>/<model_name>.ckpt`, the JAX
+package's checkpoint format:
+
+    python -m dpcr_agb_tpu_torch.train task=instance \\
+        models=instance/minkowski_baseline model_name=SENet14 \\
+        data=instance/synthetic/reg data.transform_type=sparse_xy \\
+        training=nfi/minkowski lr_scheduler=cosineawr \\
+        update_lr_scheduler_on=on_num_batch [device=cpu]
+
+With `input=`, a few optimizer steps of a sparse-voxel ResNet/SENet
+(SENet14 unless named otherwise), of the KPConv net, of MPointNet or of
+SimplestNet on `.npz` plots, then a port checkpoint that `predict` serves:
 
     python -m dpcr_agb_tpu_torch.train input='plots/*.npz' \\
         checkpoint_dir=outputs/run \\
@@ -27,8 +41,10 @@ kernel-point convolution only; MPointNet and SimplestNet run in f32 only,
 as the JAX models do, and refuse it. `dense_dims` applies to the sparse-voxel
 nets, whose level-0 execution modes are read from DPCR_L0, DPCR_STEM_MODE,
 DPCR_POOL_BWD, DPCR_SPARSE_POOL and DPCR_POOL_FWD when the model is built
-(`models/minkowski.py`). Epochs, validation, trackers, LAS plots with
-their label tables and the YAML configs are not ported."""
+(`models/minkowski.py`).
+
+Both forms run on CUDA unless `device=cpu` is given, and raise when there
+is no CUDA device and the CPU was not asked for."""
 from __future__ import annotations
 
 import copy
@@ -42,6 +58,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .cli import CONF_DIR, split_device
 from .data.batch import Batch, collate
 from .device import resolve_device
 from .models.base import InstanceSpec
@@ -253,12 +270,31 @@ def setup(files: List[str], model_name: str = "SENet14", bf16: bool = False,
                       data_cfg, stats)
 
 
-def main(overrides=None) -> dict:
-    """Train; returns {"checkpoint": path, "losses": [per-step loss]}."""
+def train_from_config(overrides: List[str]):
+    """The config form: compose `conf/config.yaml` with the overrides and
+    train; returns the Trainer."""
+    from .config import load_config
+    from .training.trainer import Trainer
+    device, overrides = split_device(overrides)
+    dev = resolve_device(device)
+    cfg = load_config(CONF_DIR, "config", overrides)
+    if cfg.get("pretty_print"):
+        print(cfg.pretty())
+    trainer = Trainer(cfg, device=dev)
+    trainer.train()
+    return trainer
+
+
+def main(overrides=None):
+    """Train. The config form returns the Trainer; the `input=` form
+    returns {"checkpoint": path, "losses": [per-step loss]}."""
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    args = _parse(list(overrides if overrides is not None else sys.argv[1:]))
+    overrides = list(overrides if overrides is not None else sys.argv[1:])
+    if not any(o.startswith("input=") for o in overrides):
+        return train_from_config(overrides)
+    args = _parse(overrides)
     files = sorted(glob.glob(args["input"]))
     if os.path.isdir(args["input"]):
         files = sorted(glob.glob(os.path.join(args["input"], "*.npz")))

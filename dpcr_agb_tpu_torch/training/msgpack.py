@@ -243,7 +243,8 @@ def _array_payload(arr) -> bytes:
             raw = t.numpy()
             name = raw.dtype.name
     else:
-        raw = np.ascontiguousarray(arr)
+        # ascontiguousarray alone would make a 0-d array 1-d
+        raw = np.ascontiguousarray(arr).reshape(np.shape(arr))
         if raw.dtype.hasobject or raw.dtype.fields is not None:
             raise ValueError("msgpack: object and structured arrays are "
                              "not supported")

@@ -14,13 +14,20 @@ own codec, `training/msgpack.py`) of `model_pool` (each distinct model
 state once, by content hash), `model_refs` (weight name -> pool id),
 `stats`, `optimizer`, `schedulers`, `run_config` and `dataset_properties`.
 A model state is `{"params": ..., "batch_stats": ...}` as flax nests them;
-`weights.from_flax` maps it onto a `state_dict`."""
+`weights.from_flax` maps it onto a `state_dict`.
+
+`ModelCheckpoint` is the trainer's file-backed manager of such a `.ckpt`
+(counterpart of `ModelCheckpoint` in `dpcr_agb_tpu/training/state.py`):
+`latest` after each train stage, `best_<metric>` snapshots on the
+selection stage only, per-stage stats, and the optimizer's state as the
+leaves of the JAX trainer's optax state (`training/optim.jax_state`)."""
 from __future__ import annotations
 
 import hashlib
 import logging
 import os
-from typing import Any, Dict, List, Optional
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -229,3 +236,101 @@ def _msgpack_safe(obj):
     if isinstance(obj, (list, tuple)):
         return [_msgpack_safe(v) for v in obj]
     return obj
+
+
+class ModelCheckpoint:
+    """The `<check_name>.ckpt` of a run: loaded from `load_dir` on resume
+    (and copied into `save_dir` when that differs, so the original is not
+    overwritten), saved into `save_dir`."""
+
+    def __init__(self, load_dir: str, check_name: str, selection_stage: str,
+                 run_config: Optional[dict] = None,
+                 dataset_properties: Optional[dict] = None,
+                 resume: bool = False, save_dir: Optional[str] = None):
+        self.check_name = check_name
+        self.selection_stage = selection_stage
+        self.save_dir = Path(save_dir or load_dir or ".")
+        self.save_dir.mkdir(parents=True, exist_ok=True)
+        path = Path(load_dir or ".") / f"{check_name}.ckpt"
+        if resume and path.exists():
+            self.checkpoint = Checkpoint.from_bytes(path.read_bytes())
+            if Path(load_dir).resolve() != self.save_dir.resolve():
+                (self.save_dir / f"{check_name}.ckpt").write_bytes(
+                    path.read_bytes())
+        else:
+            self.checkpoint = Checkpoint(run_config, dataset_properties)
+
+    @property
+    def path(self) -> Path:
+        return self.save_dir / f"{self.check_name}.ckpt"
+
+    @property
+    def start_epoch(self) -> int:
+        return len(self.checkpoint.stats.get("train", [])) + 1
+
+    def is_empty(self) -> bool:
+        return not self.checkpoint.models
+
+    def save(self) -> None:
+        tmp = self.path.with_suffix(".ckpt.tmp")
+        tmp.write_bytes(self.checkpoint.to_bytes())
+        os.replace(tmp, self.path)
+
+    def save_best_models_under_current_metrics(
+            self, state, stage: str, epoch: int, metrics: Dict[str, float],
+            metric_funcs: Dict[str, Callable],
+            optimizer_name: str = "AdaBelief",
+            persist: bool = True) -> List[str]:
+        """Record the stage's metrics; returns the names of the metrics
+        that improved. `state` gives `model_state()` (the flax layout),
+        `opt_state_leaves()`, `step`, `epoch` and `num_samples`. The train
+        stage sets `latest`; a metric with "total_" or "loss_" in its name
+        is tracked, and its `best_` snapshot kept on the selection stage
+        only. persist=False updates the checkpoint in memory only (the
+        trainer writes the file once per epoch)."""
+        ckpt = self.checkpoint
+        stats = ckpt.stats.setdefault(stage, [])
+        state_dict = state.model_state()
+        current_stat: Dict[str, Any] = {"epoch": epoch}
+        improved: List[str] = []
+
+        if stage == "train":
+            ckpt.models[_LATEST] = state_dict
+        else:
+            latest_stats = stats[-1] if stats else None
+            for metric_name, value in metrics.items():
+                if all(k not in metric_name for k in ("total_", "loss_")):
+                    continue
+                current_stat[metric_name] = value
+                func = _find_func(metric_name, metric_funcs)
+                if func is None:
+                    continue
+                if latest_stats is None:
+                    current_stat[f"best_{metric_name}"] = value
+                    if self.selection_stage == stage:
+                        ckpt.models[f"best_{metric_name}"] = state_dict
+                else:
+                    prev_best = latest_stats.get(f"best_{metric_name}", value)
+                    best = func(prev_best, value)
+                    current_stat[f"best_{metric_name}"] = best
+                    if (self.selection_stage == stage and value == best
+                            and value != prev_best):
+                        ckpt.models[f"best_{metric_name}"] = state_dict
+                        improved.append(metric_name)
+
+        ckpt.optimizer = (optimizer_name,
+                          {"opt_state": {"flat": state.opt_state_leaves()},
+                           "step": state.step, "epoch": state.epoch,
+                           "num_samples": state.num_samples})
+        stats.append(current_stat)
+        if persist:
+            self.save()
+        return improved
+
+
+def _find_func(metric_name: str, metric_funcs: Dict[str, Callable]):
+    """The first metric function whose key is a substring of the name."""
+    for key, fn in metric_funcs.items():
+        if key in metric_name:
+            return fn
+    return None

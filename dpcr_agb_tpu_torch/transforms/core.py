@@ -7,7 +7,7 @@ is a callable `t(rng, sample) -> sample` with an explicit
 `np.random.Generator`, so a pipeline is a pure function of (seed, sample)."""
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -141,3 +141,23 @@ def instantiate_transforms(cfg_list) -> Compose:
     if cfg_list is None:
         return Compose([])
     return Compose([instantiate_transform(e) for e in _flatten(cfg_list)])
+
+
+def instantiate_batch_transforms(cfg_list) -> Optional[Callable]:
+    """Batch-level transforms (a list of samples in, a list out) from a
+    preset's `pre_batch_collate_transform` list; None when there are none.
+    A transform that is not batch-level raises."""
+    if cfg_list is None:
+        return None
+    ts = [instantiate_transform(e) for e in _flatten(cfg_list)]
+    for t in ts:
+        if not getattr(t, "batch_level", False):
+            raise ValueError(f"{t!r} is not a batch-level transform")
+    if not ts:
+        return None
+
+    def apply(samples):
+        for t in ts:
+            samples = t(samples)
+        return samples
+    return apply

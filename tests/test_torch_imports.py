@@ -1,6 +1,6 @@
 """Import rules of the port: no module of dpcr_agb_tpu_torch, and not
 chip_smoke.py, imports JAX, flax, optax, the JAX package dpcr_agb_tpu, or a
-package the GPU machine lacks (pandas, yaml, msgpack). The kernel wrappers
+package the GPU machine lacks (pandas, yaml, msgpack, sklearn, scipy). The kernel wrappers
 take their plain versions on CPU tensors; tests marked `cuda` hold the
 kernels against them where a card is present (this file imports no JAX,
 so they run on the GPU machine, which has none)."""
@@ -15,7 +15,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "dpcr_agb_tpu", "pandas",
-             "yaml", "msgpack"}
+             "yaml", "msgpack", "sklearn", "scipy"}
 
 
 def _sources():
@@ -40,6 +40,23 @@ def test_no_forbidden_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_data_and_trainer_layers_are_scanned():
+    """The modules of the dataset, the loader, the config reader and the
+    trainer, and the loader of the KD-tree library, are among the sources
+    the import rules read."""
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    for rel in ("config/yaml.py", "config/engine.py", "data/table.py",
+                "data/labels.py", "data/stats.py", "data/dataset.py",
+                "data/loader.py", "metrics/meters.py",
+                "metrics/base_tracker.py", "metrics/instance_tracker.py",
+                "visualization/gpkg.py", "visualization/visualizer.py",
+                "transforms/filters.py", "training/trainer.py", "eval.py",
+                "calibrate_bn.py", "cli.py", "native.py"):
+        assert f"dpcr_agb_tpu_torch/{rel}" in scanned, rel
+    assert "kdtree.cpp" in (ROOT / "dpcr_agb_tpu_torch" / "native.py"
+                            ).read_text()
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, dpcr_agb_tpu_torch.predict, dpcr_agb_tpu_torch."
             "kernels, dpcr_agb_tpu_torch.weights, dpcr_agb_tpu_torch.train, "
@@ -52,7 +69,10 @@ def test_importing_the_port_loads_no_jax():
             "dpcr_agb_tpu_torch.native, dpcr_agb_tpu_torch.data.las_io, "
             "dpcr_agb_tpu_torch.training.msgpack, "
             "dpcr_agb_tpu_torch.training.state, "
-            "dpcr_agb_tpu_torch.transforms.inference; "
+            "dpcr_agb_tpu_torch.transforms.inference, "
+            "dpcr_agb_tpu_torch.eval, dpcr_agb_tpu_torch.calibrate_bn, "
+            "dpcr_agb_tpu_torch.training.trainer, "
+            "dpcr_agb_tpu_torch.data.loader, dpcr_agb_tpu_torch.config; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r} or m.split('.')[0] == 'triton']; "
             "assert not bad, bad")
