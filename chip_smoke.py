@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--profile] [--out FILE]
                           [--only SENet14|KPConv|SENet14-denseL0|SENet50|
-                                  MPointNet|SimplestNet]
+                                  MPointNet|SimplestNet|trainer|
+                                  trainer-kpconv]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   device   the card's name and power limit, the float32 settings pinned by
@@ -71,11 +72,17 @@ none):
            never; KPConv: 14 kpconv_fused; dense level 0: firewall_copy 2,
            max_pool_k3s2 1, the row kernels 0), and that the raw outputs
            equal a run
-           through the plain versions; prints plots/s (KPConv: and the
-           neighbour search's share of the forward, after checking that
-           two pyramids of the batch are bit-identical; dense level 0: and
+           through the plain versions; prints plots/s (dense level 0: and
            that the same checkpoint served through the sparse level 0
-           agrees)
+           agrees). KPConv's batches carry the pyramid that the entry
+           points build on the host: forward_ms is that route's, beside
+           host_pyramid_ms (the batch's post_collate on the host clock,
+           cache off, median of 5; two of them bit-identical); the
+           device route (the batch without aux: the pyramid built in the
+           forward, PRs 3-11's route) under device_route_forward_ms with
+           pyramid_ms and its share, two device pyramids bit-identical,
+           and host_vs_device_route_rel, max|Δ|/max|out| of the two
+           routes' raw outputs (printed, not checked)
   train    the full-width model (f32, then bf16) trained by
            `dpcr_agb_tpu_torch.train.main` (it must pin TF32 off and
            record that in its checkpoint) for 6 steps at bs16 on the same
@@ -89,7 +96,9 @@ none):
            correct reordering of the stem's f32 sum moves that step, a
            reading, not a check: stem_order_witness); train_step_ms
            (median of 5 steps on a device-resident batch), and again with
-           cudnn.deterministic, plots/s and peak memory; then
+           cudnn.deterministic, plots/s and peak memory (KPConv: on the
+           host pyramid's batch, with the batch's host_pyramid_ms and the
+           device route's device_route_train_step_ms beside it); then
            `predict.main` serves the trained checkpoint (16 finite rows);
            then train_reproducible: train.main a second time with the same
            seed, losses and final state compared bit for bit (KPConv must
@@ -137,6 +146,16 @@ Then (`--only trainer` runs it alone):
            call the same bits; then `calibrate_bn.main` for one epoch:
            every weight bit-equal, BN running stats moved, the forward
            kernels launched once a forward and the backward ones never
+  trainer_kpconv (`--only trainer-kpconv`) the same for KPConv's
+           command (`models=instance/kpconv`, `data.transform_type=xy`,
+           `training=nfi/kpconv`, no neighborhood_limits): the limits the
+           trainer calibrated at start-up equal to a call of the port's
+           run_find_neighbour_dist on its dataset and stored in the
+           .ckpt's run_config; kpconv_fused 14 a forward, kpconv_fused_bwd
+           14 and gather_rows_bwd 4 a train step, every other kernel 0;
+           eval.main's test predictions bit-equal to the train run's (no
+           cuDNN on this path); host_pyramid_ms of each batch the train
+           run's loader threads built
 Then a total line with the script's seconds, the kernels summary line, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`. Without CUDA (or without the rest of
 the repository) it exits non-zero before printing any result."""
@@ -321,6 +340,54 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def wall_ms(fn, reps: int = 5, skip: int = 0) -> float:
+    """Median host-clock ms of fn() from an idle card to the end of its
+    device work, over `reps` calls after `skip` warm-up calls."""
+    import torch
+    times = []
+    for i in range(skip + reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= skip:
+            times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def uncached_post_collate(net):
+    """The entry points' post_collate of `net` with its pyramid cache off
+    (DPCR_PYRAMID_CACHE_MB=0 while it is made), so that each call builds
+    the host pyramid anew."""
+    from dpcr_agb_tpu_torch.models.factory import make_post_collate
+    saved = os.environ.get("DPCR_PYRAMID_CACHE_MB")
+    os.environ["DPCR_PYRAMID_CACHE_MB"] = "0"
+    try:
+        return make_post_collate(net)
+    finally:
+        os.environ.pop("DPCR_PYRAMID_CACHE_MB", None)
+        if saved is not None:
+            os.environ["DPCR_PYRAMID_CACHE_MB"] = saved
+
+
+def host_pyramid_facts(net, host_batch, what: str) -> dict:
+    """KPConv's host pyramid of a host batch (its aux removed): the
+    post_collate on the host clock with the cache off, median of 5, and
+    two of them bit-identical."""
+    import dataclasses
+    bare = dataclasses.replace(host_batch, aux=None)
+    post = uncached_post_collate(net)
+    one, two = post(bare).aux, post(bare).aux
+    moved = [k for k in one if not np.array_equal(one[k], two[k])]
+    if moved or set(one) != set(host_batch.aux) or any(
+            not np.array_equal(one[k], host_batch.aux[k]) for k in one):
+        raise AssertionError(f"{what}: host pyramids of one batch differ "
+                             f"(from each other in {moved}, or from the "
+                             "entry point's)")
+    return {"host_pyramid_ms": wall_ms(lambda: post(bare)),
+            "host_pyramid_reproducible": True}
 
 
 _SLEEP_CYCLES_PER_MS = []
@@ -1369,7 +1436,7 @@ def kpconv_layer_sweep(net, tb, convs: dict, smi: str, seed: int) -> dict:
             f"{k}_sum": sum(r[k] for r in layers) for k in (
                 "fwd_ms", "fwd_device_ms", "bwd_ms", "bwd_device_ms")}}
     # the bench's neighbourhood limits on this batch's pyramid
-    pyr = net.device_pyramid(tb.pos, tb.mask)
+    pyr = tb.aux
     wide = []
     for bi, level, k in KP_WIDE_K:
         _, x, _ = convs[bi]
@@ -1610,6 +1677,8 @@ def batch_facts(net, batch) -> dict:
     out = {"n_bucket": int(batch.mask.shape[1]), "valid_points": n_valid}
     if hasattr(net, "level_caps"):           # KPConv
         out["level_caps"] = net.level_caps(int(batch.mask.shape[1]))
+        out["neighborhood_limits"] = list(net.neighborhood_limits
+                                          or [40] * len(net.levels))
     return out
 
 
@@ -1636,6 +1705,42 @@ def check_launches(what: str, key: str, launches: dict, part: str) -> None:
     if bad:
         raise AssertionError(f"{what}: launches {bad} on the main path "
                              f"(expected {expected}): {launches}")
+
+
+def kpconv_serve_routes(bundle, batch, raw, what: str) -> dict:
+    """KPConv's two pyramid routes on the serving batch. The host route
+    (the entry points' since PR 12): `host_pyramid_facts`. The device route
+    (PRs 3-11's: the batch without aux, the pyramid built inside the
+    forward): its forward_ms and plots/s, the pyramid's own time and share
+    of that forward, two of its pyramids bit-identical (no atomics in it).
+    And how far the routes' raw outputs part, max|host - device| /
+    max|host|: a reading, not a check (other level-1+ point orders, other
+    neighbours at the radius boundary)."""
+    import dataclasses
+    import torch
+    from dpcr_agb_tpu_torch import predict
+    out = host_pyramid_facts(bundle.net, batch, what)
+    bare = dataclasses.replace(batch, aux=None)
+    raw_device = predict.forward_raw(bundle, bare).float()
+    fwd = wall_ms(lambda: predict.forward_raw(bundle, bare), 5, 1) / 1e3
+    tb = bare.to(bundle.device)
+    one, two = (bundle.net.device_pyramid(tb.pos, tb.mask)
+                for _ in range(2))
+    moved = [k for k in one if not torch.equal(one[k], two[k])]
+    if moved:
+        raise AssertionError(f"{what}: two device pyramids of one batch "
+                             f"differ in {moved}")
+    del one, two
+    pyramid_ms = time_ms(lambda: bundle.net.device_pyramid(tb.pos, tb.mask),
+                         n=5, warmup=1)
+    del tb
+    return {**out, "device_route_forward_ms": fwd * 1e3,
+            "device_route_plots_per_s": N_PLOTS / fwd,
+            "pyramid_ms": pyramid_ms,
+            "pyramid_share_of_forward": pyramid_ms / (fwd * 1e3),
+            "pyramid_reproducible": True,
+            "host_vs_device_route_rel": ((raw - raw_device).abs().max()
+                                         / raw.abs().max()).item()}
 
 
 def phase_serve(key: str, dtname: str, ckpt: str, plot_dir: str,
@@ -1679,15 +1784,7 @@ def phase_serve(key: str, dtname: str, ckpt: str, plot_dir: str,
             tol = "atol 5e-2 * max|plain| (bf16)"
 
     # forward time of the batch (host batch -> device -> raw output)
-    times = []
-    for i in range(6):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        predict.forward_raw(bundle, batch)
-        torch.cuda.synchronize()
-        if i:
-            times.append(time.perf_counter() - t)
-    fwd = statistics.median(times)
+    fwd = wall_ms(lambda: predict.forward_raw(bundle, batch), 5, 1) / 1e3
     extra = {}
     if MODELS[key]["kernels"] == "dense_l0":
         # the same checkpoint through the sparse level 0 (no mode set)
@@ -1705,22 +1802,7 @@ def phase_serve(key: str, dtname: str, ckpt: str, plot_dir: str,
                      "l0_mode", "stem_mode", "pool_bwd")}}
         del sparse, raw_sparse
     if hasattr(bundle.net, "device_pyramid"):
-        # the neighbour search runs in every forward: its share of it,
-        # and that one cloud always gives one pyramid (no atomics in it)
-        tb = batch.to(bundle.device)
-        one, two = (bundle.net.device_pyramid(tb.pos, tb.mask)
-                    for _ in range(2))
-        moved = [k for k in one if not torch.equal(one[k], two[k])]
-        if moved:
-            raise AssertionError(f"{what}: two pyramids of one batch "
-                                 f"differ in {moved}")
-        del one, two
-        pyramid_ms = time_ms(lambda: bundle.net.device_pyramid(
-            tb.pos, tb.mask), n=5, warmup=1)
-        extra = {"pyramid_ms": pyramid_ms,
-                 "pyramid_share_of_forward": pyramid_ms / (fwd * 1e3),
-                 "pyramid_reproducible": True}
-        del tb
+        extra = kpconv_serve_routes(bundle, batch, raw, what)
     profile = device_profile(lambda: predict.forward_raw(bundle, batch)) \
         if with_profile else None
     torch.cuda.reset_peak_memory_stats()
@@ -2116,30 +2198,16 @@ def phase_train(key: str, dtname: str, plot_dir: str, out_dir: str,
 
     # step time on the device-resident batch
     runner = run.runner
-    times = []
-    for i in range(7):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        runner.train(batch)
-        torch.cuda.synchronize()
-        if i >= 2:
-            times.append(time.perf_counter() - t)
-    step_s = statistics.median(times)
+    step_s = wall_ms(lambda: runner.train(batch), 5, 2) / 1e3
     # the same steps with cuDNN held to its deterministic algorithms (the
     # entry points leave that choice to cuDNN)
     torch.backends.cudnn.deterministic = True
     try:
-        det_times = []
-        for i in range(7):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            runner.train(batch)
-            torch.cuda.synchronize()
-            if i >= 2:
-                det_times.append(time.perf_counter() - t)
+        det_step_s = wall_ms(lambda: runner.train(batch), 5, 2) / 1e3
     finally:
         torch.backends.cudnn.deterministic = pinned["cudnn_deterministic"]
-    det_step_s = statistics.median(det_times)
+    routes = kpconv_train_routes(runner, host_batch, batch, what) \
+        if hasattr(runner.net, "device_pyramid") else {}
     torch.cuda.reset_peak_memory_stats()
     runner.train(batch)
     torch.cuda.synchronize()
@@ -2165,7 +2233,7 @@ def phase_train(key: str, dtname: str, plot_dir: str, out_dir: str,
            "train_step_ms": step_s * 1e3, "plots_per_s": N_PLOTS / step_s,
            "train_step_ms_cudnn_deterministic": det_step_s * 1e3,
            "cudnn_deterministic_cost": det_step_s / step_s - 1.0,
-           "peak_mem_gb": peak, "peak_reserved_gb": reserved,
+           **routes, "peak_mem_gb": peak, "peak_reserved_gb": reserved,
            "served_trained_checkpoint": N_PLOTS, "numerics": pinned,
            **repro, "profile": profile, "card": smi}
     if key == "KPConv" and KP_SWEEP:
@@ -2173,6 +2241,18 @@ def phase_train(key: str, dtname: str, plot_dir: str, out_dir: str,
             k: KP_SWEEP[dtname][f"{k}_device_ms_sum"] for k in ("fwd", "bwd")}
     emit(out)
     return out
+
+
+def kpconv_train_routes(runner, host_batch, batch, what: str) -> dict:
+    """KPConv's train batch: its host pyramid (`host_pyramid_facts`), and
+    the device route's step (the batch without aux, median of 5 steps
+    after 2, as train_step_ms), PRs 3-11's route."""
+    import dataclasses
+    out = host_pyramid_facts(runner.net, host_batch, what)
+    bare = dataclasses.replace(batch, aux=None)
+    step_ms = wall_ms(lambda: runner.train(bare), 5, 2)
+    return {**out, "device_route_train_step_ms": step_ms,
+            "device_route_plots_per_s": N_PLOTS / step_ms * 1e3}
 
 
 def train_reproducible(key: str, dtname: str, args: list, first: dict,
@@ -2366,22 +2446,46 @@ def run_model(key: str, tmp: str, plot_dir: str, smi: str, seed: int,
         torch.cuda.empty_cache()
     return krows
 
-# The trainer phase: the README's training command through the port's own
-# entry points (SENet14, sparse level 0, enable_mixed: bf16 compute), on a
-# synthetic NFI-layout dataset the port generates and processes
+# The trainer phases: the README's training command through the port's
+# own entry points (SENet14, sparse level 0) and its KPConv counterpart
+# (KPConv with no neighborhood_limits: calibrated at start-up, the host
+# pyramid built in the loader's threads), both under enable_mixed (bf16
+# compute), on a synthetic NFI-layout dataset the port generates and
+# processes
 TRAINER_PLOTS = 96
 TRAINER_EPOCHS = 2
 TRAINER_BS = 16
 TRAINER_TARGETS = ("BMag_ha", "V_ha")
 # eval.main's predictions against the train run's, when cuDNN picks
-# another algorithm: the serve tolerance of bf16
+# another algorithm: the serve tolerance of bf16 (KPConv's path has no
+# cuDNN call: its eval must give the same bits)
 TRAINER_SERVE_TOL = 5e-2
+# per phase (`--only` name): the model, its config groups, the launches
+# of each kernel in one forward and in one train step (every other kernel
+# 0), the kernels phase whose bf16 rows get the launches, and whether
+# eval.main must repeat the train run's test predictions bit for bit
+TRAINERS = {
+    "trainer": {
+        "phase": "trainer", "model_name": "SENet14",
+        "groups": ["models=instance/minkowski_baseline",
+                   "data.transform_type=sparse_xy", "training=nfi/minkowski"],
+        "forward": {"stem_sites": 1, "max_pool_k3s2_rows": 1},
+        "step": {"stem_sites_dw": 1, "max_pool_k3s2_bwd": 1},
+        "kernels_phase": "sparse_l0", "eval_bit_equal": False},
+    "trainer-kpconv": {
+        "phase": "trainer_kpconv", "model_name": "KPConv",
+        "groups": ["models=instance/kpconv", "data.transform_type=xy",
+                   "training=nfi/kpconv"],
+        "forward": {"kpconv_fused": 14},
+        "step": {"kpconv_fused_bwd": 14, "gather_rows_bwd": 4},
+        "kernels_phase": "kpconv", "eval_bit_equal": True},
+}
 
 
-def trainer_overrides(root: str) -> list:
-    return ["task=instance", "models=instance/minkowski_baseline",
-            "model_name=SENet14", "data=instance/synthetic/reg",
-            "data.transform_type=sparse_xy", "training=nfi/minkowski",
+def trainer_overrides(root: str, key: str = "trainer") -> list:
+    spec = TRAINERS[key]
+    return ["task=instance", f"model_name={spec['model_name']}",
+            "data=instance/synthetic/reg", *spec["groups"],
             "lr_scheduler=cosineawr", "update_lr_scheduler_on=on_num_batch",
             f"data.dataroot={root}/data",
             f"data.synthetic_plots={TRAINER_PLOTS}",
@@ -2434,19 +2538,49 @@ class StepCounter:
         return sum(self.calls.values())
 
 
-def check_trainer_launches(what: str, launches: dict, counter) -> dict:
-    """The sparse level 0's forward kernels once per forward, its backward
-    kernels once per train step, and nothing else."""
-    want = {"stem_sites": counter.forwards,
-            "max_pool_k3s2_rows": counter.forwards,
-            "stem_sites_dw": counter.calls["train"],
-            "max_pool_k3s2_bwd": counter.calls["train"]}
+def check_trainer_launches(what: str, launches: dict, counter,
+                           spec: dict) -> dict:
+    """The phase's forward kernels their count a forward, its backward
+    kernels their count a train step, and nothing else."""
+    want = {k: n * counter.forwards for k, n in spec["forward"].items()}
+    want.update({k: n * counter.calls["train"]
+                 for k, n in spec["step"].items()})
     want.update({k: 0 for k in launches if k not in want})
     bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
     if bad or counter.forwards == 0:
         raise AssertionError(f"{what}: launches (got, counted) {bad}; "
                              f"calls {counter.calls}")
     return want
+
+
+class PostCollateClock:
+    """While installed, times every post_collate call of the trainers'
+    loaders (in their threads, on the host clock)."""
+
+    def __init__(self):
+        import threading
+        from dpcr_agb_tpu_torch.training import trainer
+        self.module, self.saved = trainer, trainer.make_post_collate
+        self.ms, self.lock = [], threading.Lock()
+
+    def __enter__(self):
+        def timed_factory(net):
+            post = self.saved(net)
+            if post is None:
+                return None
+
+            def timed(batch):
+                t = time.perf_counter()
+                out = post(batch)
+                with self.lock:
+                    self.ms.append((time.perf_counter() - t) * 1e3)
+                return out
+            return timed
+        self.module.make_post_collate = timed_factory
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_post_collate = self.saved
 
 
 def read_pred_csv(path: str, epoch: int = None) -> tuple:
@@ -2481,16 +2615,43 @@ def csv_metrics(path: str, stage: str, area: str) -> dict:
     return out
 
 
-def phase_trainer(tmp: str, smi: str, krows: list) -> None:
-    """train.main with the README's command on a synthetic NFI dataset,
+def calibration_check(trainer, what: str) -> dict:
+    """KPConv's start-up calibration: the trainer's limits against a call
+    of the port's run_find_neighbour_dist on its dataset (16 plots, the
+    entry's calibrate_percentile), and in the checkpoint's run_config."""
+    from dpcr_agb_tpu_torch.utils.neighbor_calibration import \
+        run_find_neighbour_dist
+    option = dict(trainer.option)
+    limits = option["extra_options"]["neighborhood_limits"]
+    option["extra_options"] = {k: v for k, v in option["extra_options"]
+                               .items() if k != "neighborhood_limits"}
+    want = run_find_neighbour_dist(
+        trainer.dataset, option, n_samples=16,
+        percentile=float(option.get("calibrate_percentile", 90.0)))
+    stored = trainer.checkpoint.checkpoint.run_config["models"][
+        trainer.model_name]["extra_options"].get("neighborhood_limits")
+    if limits != want or stored != limits or \
+            trainer.net.neighborhood_limits != limits:
+        raise AssertionError(f"{what}: calibrated {limits}, the script's "
+                             f"call {want}, run_config {stored}, net "
+                             f"{trainer.net.neighborhood_limits}")
+    return {"neighborhood_limits": limits,
+            "calibrate_percentile": option.get("calibrate_percentile")}
+
+
+def phase_trainer(tmp: str, smi: str, krows: list,
+                  key: str = "trainer") -> None:
+    """train.main with the phase's command on a synthetic NFI dataset,
     then eval.main and calibrate_bn.main on its checkpoint (see the
     module docstring)."""
     import torch
     from dpcr_agb_tpu_torch import calibrate_bn, eval as ev, kernels, train
     from dpcr_agb_tpu_torch.data.synthetic import generate_nfi_like_dataset
     from dpcr_agb_tpu_torch.training.state import Checkpoint
-    root = os.path.join(tmp, "trainer")
-    what = "trainer"
+    spec = TRAINERS[key]
+    model_name = spec["model_name"]
+    root = os.path.join(tmp, key)
+    what = spec["phase"]
     t0 = time.perf_counter()
     label_file = generate_nfi_like_dataset(
         os.path.join(root, "data", "synthetic"), n_plots=TRAINER_PLOTS)
@@ -2498,23 +2659,25 @@ def phase_trainer(tmp: str, smi: str, krows: list) -> None:
     want_splits = expected_splits(label_file)
 
     kernels.reset_launches()
-    with StepCounter() as counter:
+    with StepCounter() as counter, PostCollateClock() as clock:
         t0 = time.perf_counter()
         trainer, pinned = from_default_numerics(
-            lambda: train.main(trainer_overrides(root)), what)
+            lambda: train.main(trainer_overrides(root, key)), what)
         torch.cuda.synchronize()
         train_seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     counted = check_trainer_launches(f"{what}: train.main", launches,
-                                     counter)
+                                     counter, spec)
     splits = {s: len(d) if d is not None else 0
               for s, d in trainer.dataset.datasets.items()}
     if splits != want_splits:
         raise AssertionError(f"{what}: splits {splits}, the seed-42 rule "
                              f"gives {want_splits}")
     if not (trainer.option.get("extra_options") or {}).get("bf16"):
-        raise AssertionError(f"{what}: enable_mixed did not give SENet14 "
-                             "its bf16 compute")
+        raise AssertionError(f"{what}: enable_mixed did not give "
+                             f"{model_name} its bf16 compute")
+    calibrated = calibration_check(trainer, what) \
+        if model_name == "KPConv" else {}
     epochs = []
     for h in trainer.history:
         if h["stage"] != "train":
@@ -2544,7 +2707,7 @@ def phase_trainer(tmp: str, smi: str, krows: list) -> None:
                 raise AssertionError(f"{what}: {stage} metrics of epoch "
                                      f"{epoch}: {rec}")
             stage_metrics[f"{stage}_{epoch}"] = {k: rec[0][k] for k in keys}
-    ckpt_path = os.path.join(run_dir, "SENet14.ckpt")
+    ckpt_path = os.path.join(run_dir, f"{model_name}.ckpt")
     with open(ckpt_path, "rb") as f:
         ckpt = Checkpoint.from_bytes(f.read())
     best = sorted(k for k in ckpt.models if k.startswith("best_val_"))
@@ -2556,10 +2719,19 @@ def phase_trainer(tmp: str, smi: str, krows: list) -> None:
         raise AssertionError(f"{what}: checkpoint models "
                              f"{sorted(ckpt.models)}, stats "
                              f"{ {s: len(v) for s, v in ckpt.stats.items()} }")
-    for r in krows:
-        if r["kernels_phase"] == "sparse_l0" and r["dtype"] == "bfloat16" \
-                and r["name"] in counted:
-            r.setdefault("launches_by_path", {})["trainer"] = \
+    if calibrated and ckpt.run_config["models"][model_name][
+            "extra_options"].get("neighborhood_limits") != \
+            calibrated["neighborhood_limits"]:
+        raise AssertionError(f"{what}: the .ckpt's run_config lacks the "
+                             f"calibrated limits {calibrated}")
+    # into the kernels rows of the phase's compute dtype (bf16), or of any
+    # dtype for a kernel that runs in f32 only (gather_rows_bwd)
+    rows = [r for r in krows if r["kernels_phase"] == spec["kernels_phase"]
+            and r["name"] in counted]
+    bf16 = {r["name"] for r in rows if r["dtype"] == "bfloat16"}
+    for r in rows:
+        if r["dtype"] == "bfloat16" or r["name"] not in bf16:
+            r.setdefault("launches_by_path", {})[what] = \
                 launches[r["name"]]
     process_seconds = trainer.dataset_seconds
     del trainer
@@ -2572,14 +2744,15 @@ def phase_trainer(tmp: str, smi: str, krows: list) -> None:
         with StepCounter() as ecount:
             t0 = time.perf_counter()
             results = ev.main([f"checkpoint_dir={run_dir}",
-                               "model_name=SENet14", "weight_name=latest",
+                               f"model_name={model_name}",
+                               "weight_name=latest",
                                f"batch_size={TRAINER_BS}",
                                f"run_dir={root}/eval{i}",
                                "pretty_print=False"])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         check_trainer_launches(f"{what}: eval.main {i}",
-                               dict(kernels.LAUNCHES), ecount)
+                               dict(kernels.LAUNCHES), ecount, spec)
         evals.append((results, seconds))
     train_csv = os.path.join(run_dir, "SYNTH_test_preds.csv")
     header, want_rows = read_pred_csv(train_csv, TRAINER_EPOCHS)
@@ -2597,7 +2770,8 @@ def phase_trainer(tmp: str, smi: str, krows: list) -> None:
     want_p = np.array([[float(w[i]) for i in pred_cols] for w in want_rows])
     bit_equal = bool(np.array_equal(got_p, want_p))
     max_diff = float(np.abs(got_p - want_p).max())
-    bound = TRAINER_SERVE_TOL * float(np.abs(want_p).max())
+    bound = 0.0 if spec["eval_bit_equal"] else \
+        TRAINER_SERVE_TOL * float(np.abs(want_p).max())
     if not bit_equal and max_diff > bound:
         raise AssertionError(f"{what}: eval predictions differ by {max_diff}"
                              f" (> {bound}) from the train run's")
@@ -2617,16 +2791,18 @@ def phase_trainer(tmp: str, smi: str, krows: list) -> None:
     kernels.reset_launches()
     with StepCounter() as ccount:
         t0 = time.perf_counter()
-        calibrate_bn.main([f"checkpoint_dir={run_dir}", "model_name=SENet14",
+        calibrate_bn.main([f"checkpoint_dir={run_dir}",
+                           f"model_name={model_name}",
                            f"run_dir={root}/calibrate", "epochs=1",
                            f"batch_size={TRAINER_BS}", "pretty_print=False"])
         torch.cuda.synchronize()
         cal_seconds = time.perf_counter() - t0
     check_trainer_launches(f"{what}: calibrate_bn.main",
-                           dict(kernels.LAUNCHES), ccount)
+                           dict(kernels.LAUNCHES), ccount, spec)
     if ccount.calls["calibrate"] == 0 or ccount.calls["train"]:
         raise AssertionError(f"{what}: calibrate_bn calls {ccount.calls}")
-    with open(os.path.join(root, "calibrate", "SENet14.ckpt"), "rb") as f:
+    with open(os.path.join(root, "calibrate", f"{model_name}.ckpt"),
+              "rb") as f:
         cal = Checkpoint.from_bytes(f.read()).models["latest"]
     src = ckpt.models["latest"]
 
@@ -2645,24 +2821,30 @@ def phase_trainer(tmp: str, smi: str, krows: list) -> None:
     if not same_w or not moved:
         raise AssertionError(f"{what}: calibrate_bn changed the weights "
                              f"({not same_w}) or no BN stat ({moved})")
-    emit({"phase": "trainer", "model": "SENet14", "dtype": "bfloat16",
-          "plots": TRAINER_PLOTS, "batch_size": TRAINER_BS,
-          "splits": splits, "generate_seconds": generate_seconds,
-          "process_seconds": process_seconds,
-          "train_main_seconds": train_seconds, "numerics": pinned,
-          "epochs": epochs, "metrics": stage_metrics,
-          "launches": {k: launches[k] for k in counted if counted[k]},
-          "counted": {"forwards": counter.forwards,
-                      "steps": counter.calls["train"]},
-          "checkpoint_models": sorted(ckpt.models),
-          "eval_main_seconds": [s for _, s in evals],
-          "eval_bit_equal": bit_equal, "eval_max_abs_diff": max_diff,
-          "eval_tolerance": None if bit_equal else bound,
-          "eval_metrics_vs_csv_rel": worst,
-          "eval_repeat_bit_equal": True,
-          "calibrate_main_seconds": cal_seconds,
-          "calibrate_forwards": ccount.calls["calibrate"],
-          "bn_stats_moved": int(moved), "card": smi})
+    out = {"phase": what, "model": model_name, "dtype": "bfloat16",
+           "plots": TRAINER_PLOTS, "batch_size": TRAINER_BS,
+           "splits": splits, "generate_seconds": generate_seconds,
+           "process_seconds": process_seconds,
+           "train_main_seconds": train_seconds, "numerics": pinned,
+           **calibrated, "epochs": epochs, "metrics": stage_metrics,
+           "launches": {k: launches[k] for k in counted if counted[k]},
+           "counted": {"forwards": counter.forwards,
+                       "steps": counter.calls["train"]},
+           "checkpoint_models": sorted(ckpt.models),
+           "eval_main_seconds": [s for _, s in evals],
+           "eval_bit_equal": bit_equal, "eval_max_abs_diff": max_diff,
+           "eval_tolerance": None if bit_equal else bound,
+           "eval_metrics_vs_csv_rel": worst,
+           "eval_repeat_bit_equal": True,
+           "calibrate_main_seconds": cal_seconds,
+           "calibrate_forwards": ccount.calls["calibrate"],
+           "bn_stats_moved": int(moved), "card": smi}
+    if model_name == "KPConv":
+        # the train run's batches (train, val and test stages), each
+        # timed in its loader thread
+        out["host_pyramid_ms_per_batch"] = clock.ms
+        out["host_pyramid_ms_median"] = statistics.median(clock.ms)
+    emit(out)
 
 
 def main(argv=None) -> int:
@@ -2673,11 +2855,12 @@ def main(argv=None) -> int:
                          "forward and of the train step")
     ap.add_argument("--out", default=None,
                     help="also write every phase's JSON to this file")
-    ap.add_argument("--only", choices=sorted(MODELS) + ["trainer"],
+    ap.add_argument("--only", choices=sorted(MODELS) + sorted(TRAINERS),
                     default=None,
                     help="run the phases of one path only (all the "
-                         "kernels are built either way); 'trainer' runs "
-                         "the trainer phase alone, with no kernels rows")
+                         "kernels are built either way); 'trainer' and "
+                         "'trainer-kpconv' run that trainer phase alone, "
+                         "with no kernels rows")
     args = ap.parse_args(argv)
 
     import torch
@@ -2709,12 +2892,13 @@ def main(argv=None) -> int:
                                        args.profile, krows)
                 emit({"phase": "model", "model": key,
                       "seconds": time.perf_counter() - t_model})
-        if args.only in (None, "trainer"):
-            t_model = time.perf_counter()
-            with mode_env({}):
-                phase_trainer(tmp, smi, krows)
-            emit({"phase": "model", "model": "trainer",
-                  "seconds": time.perf_counter() - t_model})
+        for key in TRAINERS:
+            if args.only in (None, key):
+                t_model = time.perf_counter()
+                with mode_env({}):
+                    phase_trainer(tmp, smi, krows, key)
+                emit({"phase": "model", "model": key,
+                      "seconds": time.perf_counter() - t_model})
     missing = [f"{r['name']} {r['dtype']} {r.get('case') or ''}"
                for r in krows if not r["launches"]]
     if missing:

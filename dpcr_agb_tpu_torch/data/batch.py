@@ -31,7 +31,7 @@ class Batch:
     valid: Any = None             # [B] bool (False = batch-padding sample)
     coords: Any = None            # [B, N, 3] i32 (sparse models only)
     stats: Any = None             # [B, S] f32
-    aux: Any = None               # model-specific host arrays (z bucket tag)
+    aux: Any = None               # model arrays (z tag, KPConv pyramid)
     ready: Any = None             # CUDA event: the copy to the card is done
 
     @property

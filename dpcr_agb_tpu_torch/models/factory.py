@@ -1,6 +1,7 @@
 """Model building and collate policy (counterpart of `_build_minkowski`,
-`_build_simplest`, `_build_kpconv`, the dense-path `post_collate` and
-`_collate_spec` of `dpcr_agb_tpu/models/factory.py`)."""
+`_build_simplest`, `_build_kpconv`, `make_post_collate` (the dense-path
+and KPCNN branches) and `_collate_spec` of
+`dpcr_agb_tpu/models/factory.py`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +11,8 @@ import numpy as np
 import torch
 
 from ..data.batch import Batch, CollateSpec, normalize_sparse_rows
-from .kpconv import build_kpconv
+from ..ops.host_pyramid import kpconv_pyramid_plan, make_kpconv_post_collate
+from .kpconv import DEFAULT_POINT_FRACS, KPCNN, build_kpconv
 from .minkowski import SparseResNet, build_resnet
 from .pointnet import MPointNet
 from .simplestnet import SimplestNet
@@ -67,9 +69,24 @@ def build_model(option: dict, num_reg_targets: int, in_channels: int,
 def make_post_collate(net) -> Optional[Callable[[Batch], Batch]]:
     """Dense-grid SparseResNet: pick the batch's z bucket (the smallest of
     {48, 64, 80, z_max} that holds its max z + 1), normalize the rows to
-    (D, H, zb) and tag the bucket as aux['zcells'] (length zb). The other
-    models have none (KPCNN builds its pyramid on the device inside the
-    forward; MPointNet and SimplestNet read the rows as they are)."""
+    (D, H, zb) and tag the bucket as aux['zcells'] (length zb). KPCNN: its
+    neighbour pyramid built on the host (`ops/host_pyramid.py`) at the
+    net's neighbour caps (40 a level where it names none) and point
+    fractions, into aux. MPointNet and SimplestNet have none (they read the
+    rows as they are)."""
+    if isinstance(net, KPCNN):
+        n_levels = len(net.levels)
+        klims = list(net.neighborhood_limits or [40] * n_levels)
+        deform_levels = [any("deformable" in b for b in lv)
+                         for lv in net.levels]
+
+        def plan_fn(n0: int) -> dict:
+            return kpconv_pyramid_plan(
+                net.first_subsampling_dl, net.conv_radius, n_levels, n0,
+                net.point_fracs or DEFAULT_POINT_FRACS, klims, deform_levels,
+                net.deform_radius / net.conv_radius)
+
+        return make_kpconv_post_collate(plan_fn)
     if not isinstance(net, SparseResNet):
         return None
     z_max_dim = net.dense_dims[2]

@@ -2,11 +2,18 @@
 `dpcr_agb_tpu/models/kpconv.py`: `KPConvOp`, `BatchNormBlock`, `UnaryBlock`,
 `KPCNN`, `build_kpconv`), rigid kernels on the fused path.
 
-The pyramid (points, conv neighbours and pool neighbours of every level) is
-built on the batch's device by `ops/neighbors.py` inside the forward, or
-taken from `batch.aux` when it holds one (`KPCNN.device_pyramid` returns
-that form). Every rigid KPConv runs `ops.kpconv.kpconv_fused`: the relative
-neighbour positions `rel` are computed once per (level, conv or pool
+The pyramid (points, conv neighbours and pool neighbours of every level)
+comes in `batch.aux`: the entry points' loaders build it on the host
+(`ops/host_pyramid.py`, through `models/factory.make_post_collate`), as
+the JAX package's native path does, and the batch carries it to the card.
+A batch without one gets it from `KPCNN.device_pyramid`, built on the
+batch's device by `ops/neighbors.py` inside the forward (the same radius
+schedule; other level-1+ point orders and other neighbours at the radius
+boundary). The host pyramid's reverse lists and edge transposes
+(kp_crev, kp_prev, kp_cperm, kp_coff, kp_pperm, kp_poff), when a plan asks
+for them, are carried and not read, as the JAX fused path ignores them.
+Every rigid KPConv runs `ops.kpconv.kpconv_fused`: the relative neighbour
+positions `rel` are computed once per (level, conv or pool
 geometry) and shared, the influences are computed inside the op, and
 neither the influences nor the gathered or weighted features are built.
 
@@ -27,8 +34,7 @@ gets its reverse edge index (`ops.kpconv.reverse_edges`, once per list, shared b
 every op over it), over which the backward sums dx of every KPConv and of
 the strided shortcut's gather in a fixed order.
 
-Not ported yet: deformable and modulated kernels, the host pyramid (native
-pointops), the neighbour-limit calibration."""
+Not ported yet: deformable and modulated kernels."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -131,7 +137,7 @@ class UnaryBlock(nn.Module):
 
 class KPCNN(nn.Module):
     """Regression encoder built from an architecture string list over the
-    device pyramid."""
+    batch's neighbour pyramid (`batch.aux`, else `device_pyramid`)."""
 
     def __init__(self, architecture: Sequence[str], num_reg_targets: int,
                  in_features_dim: int, first_features_dim: int = 64,
@@ -145,12 +151,15 @@ class KPCNN(nn.Module):
                  point_fracs: Optional[Sequence[float]] = None,
                  neighborhood_limits: Optional[Sequence[int]] = None,
                  kernel_seed: int = 42, kp_disposition: str = "auto",
+                 deform_radius: float = 5.0,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.architecture = list(architecture)
         self.first_subsampling_dl = first_subsampling_dl
         self.conv_radius = conv_radius
+        # the search radius of deformable levels (the host pyramid's plan)
+        self.deform_radius = deform_radius
         self.point_fracs = point_fracs
         self.neighborhood_limits = neighborhood_limits
         self.dtype = dtype
@@ -370,5 +379,6 @@ def build_kpconv(option: dict, num_reg_targets: int, in_channels: int,
         point_fracs=extra.get("point_fracs"),
         neighborhood_limits=extra.get("neighborhood_limits"),
         kp_disposition=extra.get("kp_disposition", "auto"),
+        deform_radius=float(config.get("deform_radius", 5.0)),
         dtype=torch.bfloat16 if extra.get("bf16", False) else torch.float32,
         generator=generator)

@@ -2,12 +2,16 @@
 `build/torch_host/lib<name>-<hash of source and flags>.so` at the
 repository root (listed in .gitignore) and bound with ctypes: the LASzip
 codec `native/laszip.cpp` (a copy of the JAX package's
-`native/laszip.cpp`) and the KD-tree `native/kdtree.cpp`, whose radius
-queries return points in scikit-learn's KDTree order. The build writes a
-temporary file and renames it into place, so processes that build at once
-never load a half-written library. There is no fallback: when a library
-cannot be built, the call raises with g++'s error output; no committed
-binary is ever loaded.
+`native/laszip.cpp`), the KD-tree `native/kdtree.cpp`, whose radius
+queries return points in scikit-learn's KDTree order, and the point ops
+of the KPConv pyramid `native/pointops.cpp` (a copy of the point half of
+the JAX package's `native/pointops.cpp`, built with the JAX package's
+flags, so that both libraries give the same bits on one machine). The
+build writes a temporary file and renames it into place, so processes
+that build at once never load a half-written library, and threads of one
+process build one at a time. There is no fallback: when a library cannot
+be built, the call raises with g++'s error output; no committed binary is
+ever loaded.
 
 C interface (`laszip.cpp`): `laz_decompress` (a point blob, from its
 chunk-table offset on, to raw records) and `laz_compress` (raw records to
@@ -21,46 +25,55 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from functools import lru_cache
 from pathlib import Path
+from typing import Optional, Tuple
 
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "native" / "laszip.cpp"
 KDTREE_SRC = SRC.with_name("kdtree.cpp")
+POINTOPS_SRC = SRC.with_name("pointops.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_host"
 # no FMA contraction: the KD-tree's distances must round as scikit-learn's
 GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off"]
+# the flags the JAX package builds its pointops library with (its
+# native.py), FMA contraction included: a radius test or a near-tie rounds
+# as that library's does
+POINTOPS_FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
+_BUILD_LOCK = threading.Lock()
 
 
-def library_path(src: Path = None) -> Path:
+def library_path(src: Path = None, flags=GXX_FLAGS) -> Path:
     """Where the library of this source (the codec by default) and these
     flags lives."""
     src = src or SRC
-    tag = hashlib.blake2b(src.read_bytes() + " ".join(GXX_FLAGS).encode(),
+    tag = hashlib.blake2b(src.read_bytes() + " ".join(flags).encode(),
                           digest_size=6).hexdigest()
     return BUILD_DIR / f"lib{src.stem}-{tag}.so"
 
 
-def build(src: Path = None) -> Path:
+def build(src: Path = None, flags=GXX_FLAGS) -> Path:
     """The library's path, compiled first when it is missing."""
     src = src or SRC
-    path = library_path(src)
-    if path.exists():
-        return path
-    gxx = shutil.which("g++")
-    if gxx is None:
-        raise RuntimeError(f"g++ is not on PATH: {src.name} cannot be "
-                           f"built into {path}")
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
-    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed to build {src} "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)
+    path = library_path(src, flags)
+    with _BUILD_LOCK:
+        if path.exists():
+            return path
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ is not on PATH: {src.name} cannot be "
+                               f"built into {path}")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
+        proc = subprocess.run([gxx, *flags, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed to build {src} "
+                               f"(exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, path)
     return path
 
 
@@ -174,3 +187,62 @@ def radius_query_2d(pos_xy: np.ndarray, center, r: float) -> np.ndarray:
     order (one tree built for one query; build a `KDTree2D` to query
     several centers)."""
     return KDTree2D(pos_xy).query_radius(center, r)
+
+
+@lru_cache(maxsize=None)
+def pointops_library() -> ctypes.CDLL:
+    """The bound point ops (built at the first call of a process)."""
+    lib = ctypes.CDLL(str(build(POINTOPS_SRC, POINTOPS_FLAGS)))
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    i64, f32 = ctypes.c_int64, ctypes.c_float
+    lib.grid_subsample.restype = i64
+    lib.grid_subsample.argtypes = [f32p, i64, ctypes.c_void_p, i64, f32,
+                                   f32p, ctypes.c_void_p, i64]
+    lib.radius_neighbors.restype = None
+    lib.radius_neighbors.argtypes = [f32p, i64, f32p, i64, f32,
+                                     ctypes.c_int32, i32p]
+    lib.batch_grid_subsample.restype = None
+    lib.batch_grid_subsample.argtypes = [f32p, i64p, i64, f32, f32p, i64p,
+                                         i64]
+    return lib
+
+
+def grid_subsample(points: np.ndarray, dl: float,
+                   feats: Optional[np.ndarray] = None
+                   ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Voxel-barycentre subsampling of points [N,3] (and feats [N,C]) on
+    cells of size dl: one point a cell, the f64 mean of its members, cells
+    in the order of their first point -> (points [M,3] f32, feats [M,C]
+    f32 or None)."""
+    lib = pointops_library()
+    points = np.ascontiguousarray(points, np.float32)
+    n = len(points)
+    out_p = np.empty((n, 3), np.float32)
+    if feats is None:
+        n_out = lib.grid_subsample(points, n, None, 0, dl, out_p, None, n)
+        return out_p[:n_out], None
+    feats = np.ascontiguousarray(feats, np.float32)
+    if len(feats) != n:
+        raise ValueError(f"grid_subsample: {n} points, {len(feats)} rows "
+                         "of features")
+    out_f = np.empty((n, feats.shape[1]), np.float32)
+    n_out = lib.grid_subsample(
+        points, n, feats.ctypes.data_as(ctypes.c_void_p), feats.shape[1], dl,
+        out_p, out_f.ctypes.data_as(ctypes.c_void_p), n)
+    return out_p[:n_out], out_f[:n_out]
+
+
+def radius_neighbors(queries: np.ndarray, supports: np.ndarray,
+                     radius: float, max_k: int) -> np.ndarray:
+    """[Nq, max_k] int32: the supports within radius of each query (squared
+    distance below radius^2), ascending by distance, padded with
+    len(supports)."""
+    lib = pointops_library()
+    queries = np.ascontiguousarray(queries, np.float32).reshape(-1, 3)
+    supports = np.ascontiguousarray(supports, np.float32).reshape(-1, 3)
+    out = np.empty((len(queries), max_k), np.int32)
+    lib.radius_neighbors(queries, len(queries), supports, len(supports),
+                         radius, max_k, out)
+    return out

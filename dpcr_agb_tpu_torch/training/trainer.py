@@ -15,15 +15,24 @@ gives bf16 compute to the models that have a bf16 form (the sparse-voxel
 nets and KPConv); MPointNet and SimplestNet stay f32, as the JAX trainer
 leaves models without a `dtype`.
 
-Not ported, and refused by name: KPConv's start-up neighbour-limit
-calibration (give `extra_options.neighborhood_limits`; ROADMAP.md §1 item
-5), per-group optimizer settings (`head_optim_settings`,
-`backbone_optim_settings`), parameter regularizers and multi-process
-runs."""
+KPConv's neighbour caps are calibrated at start-up, before the model is
+built, as the JAX trainer does: 16 training plots through the host
+pyramid's schedule, each level capped at the `calibrate_percentile` (90;
+the DPCR_KP_CALIB_PCT variable overrides it) of its neighbour counts. The
+caps go into the model option and the checkpoint's run_config, so that
+eval, calibrate_bn and predict rebuild the same caps. Explicit
+`extra_options.neighborhood_limits` win, and `auto_calibrate_limits:
+False` keeps the default 40 a level. `debugging.find_neighbour_dist` logs
+the caps of `num_find_neighbour_samples` plots at the start of `train`.
+
+Not ported, and refused by name: per-group optimizer settings
+(`head_optim_settings`, `backbone_optim_settings`), parameter
+regularizers and multi-process runs."""
 from __future__ import annotations
 
 import copy
 import logging
+import os
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -38,6 +47,7 @@ from ..models.base import build_instance_spec
 from ..models.factory import (build_model, collate_spec, f32_only,
                               make_post_collate)
 from ..nn.norm import MaskedBatchNorm
+from ..utils.neighbor_calibration import run_find_neighbour_dist
 from ..visualization.visualizer import Visualizer
 from .optim import Accumulator, bn_momentum_fn, make_lr_fn, make_optimizer
 from .state import ModelCheckpoint, check_env_snapshot, dpcr_env_snapshot
@@ -79,10 +89,10 @@ class Trainer:
         self.num_batches_stop = dbg.get("num_batches", 0) or 0
         self.profiling = bool(dbg.get("profiling", False))
         self.progress_batches = int(dbg.get("progress_batches", 0) or 0)
-        if dbg.get("find_neighbour_dist", False):
-            raise NotImplementedError(
-                "debugging.find_neighbour_dist: the neighbour-limit "
-                "calibration needs the host pyramid (ROADMAP.md §1 item 5)")
+        self.find_neighbour_dist = bool(dbg.get("find_neighbour_dist",
+                                                False))
+        self.num_find_neighbour_samples = int(
+            dbg.get("num_find_neighbour_samples", 32))
 
         checkpoint_dir = str(get_t("checkpoint_dir", "") or "")
         self.resume = bool(checkpoint_dir)
@@ -120,6 +130,7 @@ class Trainer:
                              f"config. Available: {sorted(cfg['models'])}")
         self.option = copy.deepcopy(_plain(cfg["models"][self.model_name]))
         self._check_ported(self.option)
+        self._auto_calibrate_kpconv_limits()
         if bool(get_t("enable_mixed", False)) and not f32_only(self.option):
             self.option["extra_options"] = {
                 **(self.option.get("extra_options") or {}), "bf16": True}
@@ -192,21 +203,43 @@ class Trainer:
                                      self.run_dir)
 
     def _check_ported(self, option: dict) -> None:
-        extra = option.get("extra_options") or {}
-        if "kpconv" in str(option.get("class", "")).lower() and \
-                option.get("auto_calibrate_limits", True) and \
-                not extra.get("neighborhood_limits"):
-            raise NotImplementedError(
-                f"{self.model_name}: the port does not calibrate KPConv's "
-                "neighbour limits at start-up (it needs the host pyramid, "
-                "ROADMAP.md §1 item 5); set models."
-                f"{self.model_name}.extra_options.neighborhood_limits")
         for key in ("head_optim_settings", "backbone_optim_settings"):
             if option.get(key):
                 raise NotImplementedError(f"{key}: per-group optimizer "
                                           "settings are not ported")
         if option.get("regularizers"):
             raise NotImplementedError("model regularizers are not ported")
+
+    def _auto_calibrate_kpconv_limits(self) -> None:
+        """KPConv's per-level neighbour caps from 16 training plots (see the
+        module docstring), written into the model option and into the
+        checkpoint's run_config; nothing for other models, for explicit
+        limits or with auto_calibrate_limits False."""
+        option = self.option
+        if "kpconv" not in str(option.get("class", "")).lower() or \
+                not option.get("auto_calibrate_limits", True):
+            return
+        extra = dict(option.get("extra_options") or {})
+        if extra.get("neighborhood_limits"):
+            return
+        env_pct = os.environ.get("DPCR_KP_CALIB_PCT")
+        pct = (float(env_pct) if env_pct
+               else float(option.get("calibrate_percentile", 90.0)))
+        limits = run_find_neighbour_dist(self.dataset, option, n_samples=16,
+                                         percentile=pct)
+        if not limits:
+            return
+        extra["neighborhood_limits"] = [int(x) for x in limits]
+        option["extra_options"] = extra
+        # run_config was taken before the dataset existed
+        rc = self.checkpoint.checkpoint.run_config
+        try:
+            rc["models"][self.model_name].setdefault("extra_options", {})
+            rc["models"][self.model_name]["extra_options"][
+                "neighborhood_limits"] = extra["neighborhood_limits"]
+        except (KeyError, TypeError):
+            pass
+        log.info(f"auto-calibrated neighborhood_limits: {limits}")
 
     def _create_loaders(self) -> None:
         self.loaders: Dict[str, Optional[Loader]] = {}
@@ -295,6 +328,12 @@ class Trainer:
                 _b(c) * _s)
 
     def train(self) -> None:
+        if self.find_neighbour_dist:
+            limits = run_find_neighbour_dist(
+                self.dataset, self.option, self.num_find_neighbour_samples)
+            log.info(f"calibrated neighborhood_limits: {limits} "
+                     "(pass via models.<name>.extra_options."
+                     "neighborhood_limits)")
         start = self.start_epoch
         if start > self.epochs:
             # finished run resumed: one final test epoch

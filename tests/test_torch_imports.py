@@ -57,6 +57,21 @@ def test_the_data_and_trainer_layers_are_scanned():
                             ).read_text()
 
 
+def test_the_host_pyramid_layers_are_scanned():
+    """KPConv's host pyramid, the neighbour-limit calibration and the
+    loader of the point-ops library are among the sources the import rules
+    read."""
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    for rel in ("ops/host_pyramid.py", "utils/__init__.py",
+                "utils/neighbor_calibration.py", "models/factory.py",
+                "native.py"):
+        assert f"dpcr_agb_tpu_torch/{rel}" in scanned, rel
+    native = (ROOT / "dpcr_agb_tpu_torch" / "native.py").read_text()
+    assert '"pointops.cpp"' in native
+    assert (ROOT / "dpcr_agb_tpu_torch" / "native" / "pointops.cpp"
+            ).exists()
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, dpcr_agb_tpu_torch.predict, dpcr_agb_tpu_torch."
             "kernels, dpcr_agb_tpu_torch.weights, dpcr_agb_tpu_torch.train, "
@@ -72,7 +87,9 @@ def test_importing_the_port_loads_no_jax():
             "dpcr_agb_tpu_torch.transforms.inference, "
             "dpcr_agb_tpu_torch.eval, dpcr_agb_tpu_torch.calibrate_bn, "
             "dpcr_agb_tpu_torch.training.trainer, "
-            "dpcr_agb_tpu_torch.data.loader, dpcr_agb_tpu_torch.config; "
+            "dpcr_agb_tpu_torch.data.loader, dpcr_agb_tpu_torch.config, "
+            "dpcr_agb_tpu_torch.ops.host_pyramid, "
+            "dpcr_agb_tpu_torch.utils.neighbor_calibration; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r} or m.split('.')[0] == 'triton']; "
             "assert not bad, bad")

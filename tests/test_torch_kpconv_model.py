@@ -254,7 +254,14 @@ def test_factory_builds_kpconv_with_the_dense_collate():
     option = train.model_option("KPConv", bf16=False)
     net, conv_type = build_model(option, 2, 3)
     assert isinstance(net, KPCNN) and conv_type == "PARTIAL_DENSE"
-    assert make_post_collate(net) is None
+    # the entry points' batches carry the pyramid built on the host: five
+    # levels, 40 neighbours a level where the option names no limits
+    aux = make_post_collate(net)(
+        Batch(**_fields(np.random.default_rng(0)))).aux
+    assert sorted(aux) == sorted(
+        [f"kp_{k}{l}" for k in ("pts", "mask", "conv") for l in range(5)]
+        + [f"kp_pool{l}" for l in range(4)])
+    assert aux["kp_conv0"].shape == (2, 64, 40)
     spec = collate_spec(conv_type, nfi_xy_data_cfg())
     assert (spec.conv_type, spec.num_points, spec.min_bucket,
             spec.use_coords) == ("dense", None, 1024, False)
@@ -312,8 +319,9 @@ def _write_plots(root, n=3):
 
 def test_predict_serves_a_kpconv_checkpoint_on_the_cpu(tmp_path):
     """A full-width checkpoint with seeded weights through `predict.main`:
-    finite rows, the batch padded to a power-of-two bucket without coords, and
-    the same raw output as the module called directly."""
+    finite rows, the batch padded to a power-of-two bucket without coords,
+    with its host pyramid in aux, and the same raw output as the module
+    called directly."""
     plots, ckpt = str(tmp_path / "plots"), str(tmp_path / "ck")
     _write_plots(plots)
     option = train.model_option("KPConv", bf16=False)
@@ -331,15 +339,17 @@ def test_predict_serves_a_kpconv_checkpoint_on_the_cpu(tmp_path):
     assert preds.shape == (3, 2) and np.isfinite(preds).all()
 
     bundle = load_serving_bundle(ckpt, "KPConv", device="cpu")
-    assert bundle.conv_type == "PARTIAL_DENSE" and bundle.post_collate is None
+    assert bundle.conv_type == "PARTIAL_DENSE" \
+        and bundle.post_collate is not None
     files = sorted(os.path.join(plots, f) for f in os.listdir(plots))
     samples, _ = predict.load_samples(bundle, files)
     (batch, n), _ = predict.make_batches(bundle, samples, 2)
-    assert n == 2 and batch.coords is None and batch.aux is None
+    assert n == 2 and batch.coords is None
     n_max = max(len(s["pos"]) for s in samples[:2])
     bucket = 1024 if n_max <= 1024 else 2048
     assert 500 <= n_max <= 2048
     assert batch.pos.shape == batch.x.shape == (2, bucket, 3)
+    assert batch.aux["kp_conv0"].shape == (2, bucket, 40)
     assert predict.describe_batch(batch) == f"N bucket {bucket}"
     got = predict.predictions(bundle, predict.forward_raw(bundle, batch))
     assert got.shape == (2, 2)

@@ -408,14 +408,31 @@ def test_entry_points_refuse_without_cuda(main, extra):
         main(extra)
 
 
-def test_kpconv_without_limits_raises_naming_the_roadmap(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttrain.main([
-            "task=instance", "models=instance/kpconv", "model_name=KPConv",
-            "data=instance/synthetic/reg", "data.transform_type=xy",
-            "data.synthetic_plots=8", f"data.dataroot={tmp_path}",
-            "training=nfi/kpconv", f"run_dir={tmp_path / 'run'}",
-            "device=cpu"])
+def test_kpconv_without_limits_calibrates_them_at_start_up(tmp_path):
+    """The repository's KPConv entry (full width, no neighborhood_limits)
+    through the root grammar: the trainer calibrates one cap a level from
+    16 training plots at the entry's calibrate_percentile (90), builds its
+    net with them, and writes them into its
+    checkpoint's run_config (tests/test_torch_kpconv_calibration.py holds
+    them against the JAX trainer's and the pyramid's lists against them)."""
+    from dpcr_agb_tpu_torch.utils.neighbor_calibration import \
+        run_find_neighbour_dist
+    cfg = tload(CONF, "config", [
+        "task=instance", "models=instance/kpconv", "model_name=KPConv",
+        "data=instance/synthetic/reg", "data.transform_type=xy",
+        "data.synthetic_plots=8", f"data.dataroot={tmp_path}",
+        "training=nfi/kpconv", "training.batch_size=4",
+        f"run_dir={tmp_path / 'run'}"])
+    option = cfg["models"]["KPConv"].to_dict()
+    assert "neighborhood_limits" not in option["extra_options"]
+    trainer = TTrainer(cfg, device=CPU)
+    limits = trainer.option["extra_options"]["neighborhood_limits"]
+    assert limits == run_find_neighbour_dist(trainer.dataset, option, 16,
+                                             90.0)
+    assert len(limits) == 5 and limits != [40] * 5
+    assert trainer.net.neighborhood_limits == limits
+    assert trainer.checkpoint.checkpoint.run_config["models"]["KPConv"][
+        "extra_options"]["neighborhood_limits"] == limits
 
 
 def test_visualizer_exports_equal_jax(tmp_path):
