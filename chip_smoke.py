@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--seed 0] [--profile] [--out FILE]
                           [--only SENet14|KPConv|SENet14-denseL0|SENet50|
-                                  MPointNet|SimplestNet|trainer|
-                                  trainer-kpconv]
+                                  MPointNet|SimplestNet|PointNeXt|PointNet|
+                                  trainer|trainer-kpconv|trainer-pointnext|
+                                  trainer-pointnet]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   device   the card's name and power limit, the float32 settings pinned by
@@ -17,7 +18,9 @@ DPCR_STEM_MODE=zfold2d_firewall, DPCR_POOL_BWD=pallas, set around its entry
 points as a user would), SENet50 (bottleneck blocks, sparse level 0), and
 MPointNet and SimplestNet (f32 only, as the JAX models; no kernel of the
 port on their path, so no kernels phase, and serve and train must launch
-none):
+none), and PointNeXt-S and the PointNet encoder (the `PointNext` and
+`PointNet` entries, f32 only, `fixed_xy`: 12000 points a plot; their one
+kernel is `fps`):
   kernels  in f32 and bf16, each kernel of the path held against its plain
            PyTorch version (stated tolerances; max|plain| beside each
            error), timed with CUDA events (median after warm-up) beside
@@ -56,7 +59,16 @@ none):
            from a permuted (NCDHW-strided) source; max_pool_k3s2 on the
            dense path's pool input of the serving batch and
            max_pool_k3s2_bwd_vol on that of the train batch (exact, the
-           same bits in two calls).
+           same bits in two calls). PointNeXt / PointNet: fps at each
+           sampling of the serving batch's forward (the input's 12000 ->
+           8192, then PointNeXt's four set abstractions, 8192 -> 2048 ->
+           512 -> 128 -> 32), its indices equal to fps_plain's (the plain
+           loop on the card) and the same bits in two calls, and on the
+           input's shapes with padded rows, a sample with fewer valid
+           rows than it samples and an all-masked one; timed beside the
+           plain loop (its device time from torch.profiler: a loop of
+           ~8 kernels a step does not fit behind the spin); bound_ms from
+           B (n - 1) N ~10 f32 operations, beside the serial steps.
            max_pool_k3s2_rows, max_pool_k3s2_bwd and max_pool_k3s2_bwd_vol
            also fill_device_ms: the device time of torch.zero_ on a tensor
            of their output's size (y and occ_l; dx), the card's own floor
@@ -74,10 +86,12 @@ none):
            equal a run
            through the plain versions; prints plots/s (dense level 0: and
            that the same checkpoint served through the sparse level 0
-           agrees). KPConv's batches carry the pyramid that the entry
-           points build on the host: forward_ms is that route's, beside
-           host_pyramid_ms (the batch's post_collate on the host clock,
-           cache off, median of 5; two of them bit-identical); the
+           agrees; PointNeXt: the mean number of in-range ball-query
+           neighbours of a valid query at each stage). KPConv's batches
+           carry the pyramid that the entry points build on the host:
+           forward_ms is that route's, beside host_pyramid_ms (the
+           batch's post_collate on the host clock, cache off, median of
+           5; two of them bit-identical); the
            device route (the batch without aux: the pyramid built in the
            forward, PRs 3-11's route) under device_route_forward_ms with
            pyramid_ms and its share, two device pyramids bit-identical,
@@ -105,9 +119,9 @@ none):
            agree; elsewhere a differing run names the parameter where the
            difference starts and whether deterministic algorithms remove
            it)
-  serve_jax_ckpt  (SENet14 with its sparse level 0, and KPConv; f32, full
-           width) the serve phase's plots written as LAZ 1.4 (point
-           format 6, `write_laz14`) and read back by the port's
+  serve_jax_ckpt  (SENet14 with its sparse level 0, KPConv and
+           PointNeXt; f32, full width) the serve phase's plots written as
+           LAZ 1.4 (point format 6, `write_laz14`) and read back by the port's
            `read_las` (those positions also saved as .npz); the f32 port
            checkpoint's weights written as a JAX `.ckpt`
            (`weights.to_flax`, `training.state.Checkpoint.to_bytes`, with a
@@ -156,6 +170,13 @@ Then (`--only trainer` runs it alone):
            eval.main's test predictions bit-equal to the train run's (no
            cuDNN on this path); host_pyramid_ms of each batch the train
            run's loader threads built
+  trainer_pointnext, trainer_pointnet (`--only trainer-pointnext`,
+           `trainer-pointnet`) the same for the two PointNeXt entries
+           (`models=instance/pointnext model_name=PointNext` and
+           `models=instance/pointnet model_name=PointNet`,
+           `data.transform_type=fixed_xy`, `training=nfi/pointnet`), on 48
+           plots: f32 under enable_mixed (no bf16 form), fps 5 (PointNet
+           1) a forward and no other kernel, eval.main bit-equal
 Then a total line with the script's seconds, the kernels summary line, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`. Without CUDA (or without the rest of
 the repository) it exits non-zero before printing any result."""
@@ -199,6 +220,15 @@ KP_BWD_REPLACES = "dpcr_agb_tpu/ops/pallas_kpconv.py:249"
 # no Pallas kernel: the JAX package's gather backward is XLA autodiff of
 # its row gather
 GATHER_REPLACES = "dpcr_agb_tpu/models/kpconv.py:59"
+FPS_SRC = "dpcr_agb_tpu_torch/kernels/csrc/fps.cu"
+# no Pallas kernel: the JAX package's farthest point sampling is a
+# lax.fori_loop that XLA compiles
+FPS_REPLACES = "dpcr_agb_tpu/ops/neighbors.py:108"
+# every kernel of the port (kernels.LAUNCHES)
+ALL_KERNELS = ("stem_sites", "max_pool_k3s2", "stem_sites_dw",
+               "max_pool_k3s2_bwd", "kpconv_fused", "kpconv_fused_bwd",
+               "firewall_copy", "max_pool_k3s2_bwd_vol", "gather_rows_bwd",
+               "max_pool_k3s2_rows", "fps")
 N_PLOTS = 16     # one serving batch of bench.py's size, the train batch
 DENSITY = 60.0   # points per m^2: MaxPoints binds (16000 and 6144)
 TRAIN_STEPS = 6
@@ -217,6 +247,11 @@ _ROW_KERNELS = {"stem_sites": 0, "stem_sites_dw": 0, "max_pool_k3s2_bwd": 0,
 # the port's kernels in a forward or a step
 _NO_KERNELS = {"env": {}, "kernels": None, "forward": (), "backward": (),
                "exact": None, "launch_none": True}
+
+
+def _only(**counts) -> dict:
+    """Launch counts of every kernel: those given, the others 0."""
+    return {k: counts.get(k, 0) for k in ALL_KERNELS}
 # per path: the entry points' model_name, the mode variables, which
 # kernels phase it gets, whether serve_jax_ckpt serves it from a JAX
 # `.ckpt` and `.laz` plots, the kernels serving launches and the ones training
@@ -240,7 +275,7 @@ MODELS = {
                          "step": {"kpconv_fused": 14,
                                   "kpconv_fused_bwd": 14,
                                   "gather_rows_bwd": 4}},
-               "reproducible": True},
+               "reproducible": True, "conditioned": True},
     "SENet14-denseL0": {
         "model_name": "SENet14", "kernels": "dense_l0",
         "env": {"DPCR_L0": "dense", "DPCR_STEM_MODE": "zfold2d_firewall",
@@ -254,6 +289,19 @@ MODELS = {
     "SENet50": {"model_name": "SENet50", **_SPARSE_L0},
     "MPointNet": {"model_name": "MPointNet", **_NO_KERNELS},
     "SimplestNet": {"model_name": "SimplestNet", **_NO_KERNELS},
+    # PointNeXt-S: the input's sampling and four set abstractions; the
+    # PointNet encoder: the input's sampling. No kernel in the backward.
+    # Their steps are as ill-conditioned as KPConv's (BN over the batch's
+    # rows in the head, over neighbourhoods): the step check is widened
+    # the same way
+    "PointNeXt": {"model_name": "PointNext", "env": {}, "kernels": "fps",
+                  "jax_ckpt": True, "forward": ("fps",), "backward": (),
+                  "exact": {"forward": _only(fps=5), "step": _only(fps=5)},
+                  "conditioned": True},
+    "PointNet": {"model_name": "PointNet", "env": {}, "kernels": "fps",
+                 "shares": "input:", "forward": ("fps",), "backward": (),
+                 "exact": {"forward": _only(fps=1), "step": _only(fps=1)},
+                 "conditioned": True},
 }
 # the KPConv layers whose inputs the kernels phase takes from the first
 # serving batch: (block, case)
@@ -520,13 +568,15 @@ def fill_device_ms(like, numel: int) -> float:
 
 @contextlib.contextmanager
 def plain_ops():
-    """Route the models' ten kernel ops to their plain PyTorch versions
+    """Route the models' eleven kernel ops to their plain PyTorch versions
     (the reference runs of the serve and train phases); raises if a kernel
     launched inside, i.e. if the reference did not really take the plain
     path."""
     from dpcr_agb_tpu_torch import kernels
-    from dpcr_agb_tpu_torch.ops import dense_stem, kpconv, pool, sparse_stem
-    routes = [(sparse_stem, "stem_conv_sites", "stem_conv_sites_plain"),
+    from dpcr_agb_tpu_torch.ops import (dense_stem, kpconv, neighbors, pool,
+                                        sparse_stem)
+    routes = [(neighbors, "fps", "fps_plain"),
+              (sparse_stem, "stem_conv_sites", "stem_conv_sites_plain"),
               (sparse_stem, "stem_conv_sites_dw", "stem_conv_sites_dw_plain"),
               (pool, "masked_max_pool", "masked_max_pool_plain"),
               (pool, "masked_max_pool_rows", "masked_max_pool_rows_plain"),
@@ -1666,6 +1716,140 @@ def phase_kpconv_kernels(bundle, batch, smi: str, seed: int) -> list:
     return rows
 
 
+def fps_work(b: int, n: int, n_samples: int) -> tuple:
+    """bound_ms of one fps call and what binds it: the larger of its
+    operations (each of the n_samples - 1 steps takes ~10 f32 operations
+    at each of the B x N points: three differences, three products, two
+    sums, the minimum, the comparison) over the card's f32 peak, and its
+    bytes (pos and mask read once, the int64 indices written once) over
+    its memory rate."""
+    ops_ms = b * (n_samples - 1) * n * 10 / PEAK_FLOPS["float32"] * 1e3
+    bytes_ms = (b * n * 13 + b * n_samples * 8) / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), \
+        "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def plain_loop_device_ms(fn) -> float:
+    """The device time of one call of a plain loop that queues thousands
+    of small kernels (no spin outlasts their enqueueing): the sum of its
+    kernels' device times, torch.profiler over one call."""
+    return sum(_device_events(fn, 1).values())
+
+
+def _fps_row(what: str, pos, mask, n_samples: int, smi: str,
+             timed: bool = True) -> tuple:
+    """fps on one input against fps_plain on the card: the indices equal,
+    the same bits in two calls; with `timed`, timed beside the plain loop
+    (whose first call above is its warm-up). Returns (row, the kernel's
+    indices)."""
+    import torch
+    from dpcr_agb_tpu_torch import kernels
+    from dpcr_agb_tpu_torch.ops.neighbors import fps_plain
+    idx = kernels.fps(pos, mask, n_samples)
+    again = kernels.fps(pos, mask, n_samples)
+    want = fps_plain(pos, mask, n_samples)
+    torch.cuda.synchronize()
+    if not torch.equal(idx, want):
+        bad = (idx != want).any(0).nonzero()
+        raise AssertionError(f"fps {what}: indices differ from fps_plain's "
+                             f"from step {int(bad[0])} on")
+    if not torch.equal(idx, again):
+        raise AssertionError(f"fps {what}: two calls gave other indices")
+    b, n = mask.shape
+    row = {"phase": "kernels", "name": "fps", "route": "cuda",
+           "source": FPS_SRC, "replaces": FPS_REPLACES, "dtype": "float32",
+           "case": f"{what}: [{b},{n}] -> {n_samples}", "launches": None,
+           "max_abs_err": 0.0, "indices_equal": True, "reproducible": True,
+           "serial_steps": n_samples - 1, "plan": kernels.fps_plan(n),
+           "card": smi}
+    if not timed:
+        return row, idx
+    bound, by = fps_work(b, n, n_samples)
+    ms = time_ms(lambda: kernels.fps(pos, mask, n_samples))
+    row.update(
+        ms=ms, device_ms=device_ms_of(
+            lambda: kernels.fps(pos, mask, n_samples), ms),
+        plain_ms=time_ms(lambda: fps_plain(pos, mask, n_samples), n=2,
+                         warmup=0),
+        plain_device_ms=plain_loop_device_ms(
+            lambda: fps_plain(pos, mask, n_samples)),
+        plain_device_ms_from="torch.profiler: the sum of the plain loop's "
+                             "kernels",
+        bound_ms=bound, bound_by=by, library_ms=None,
+        library_device_ms=None)
+    return row, idx
+
+
+def phase_fps_kernels(key: str, bundle, batch, smi: str) -> list:
+    """fps at each sampling that the forward of the first serving batch
+    takes (the input's, then PointNeXt's set abstractions, each on the
+    points the one before kept): the path's rows. And, printed as a check
+    of its own, on the input's shapes with padded rows (sample 1's last
+    2000 masked and far), a sample with fewer valid rows than it samples
+    (sample 0: 5000) and an all-masked one (sample 2)."""
+    import torch
+    from dpcr_agb_tpu_torch.models import pointnext
+    net = bundle.net
+    tb = batch.to(bundle.device)
+    pos, mask = tb.pos.float().contiguous(), tb.mask.contiguous()
+    rows = []
+    if net.num_points and pos.shape[1] > net.num_points:
+        padded_pos, padded = pos.clone(), mask.clone()
+        padded[0, 5000:] = False
+        padded[1, -2000:] = False
+        padded_pos[1, -2000:] = 1e6
+        padded[2] = False
+        row, _ = _fps_row("input, padded", padded_pos, padded,
+                          net.num_points, smi, timed=False)
+        emit({**row, "phase": "kernels_check", "model": key})
+        row, idx = _fps_row("input", pos, mask, net.num_points, smi)
+        rows.append(row)
+        pos = pointnext._gather_rows(pos, idx).contiguous()
+        mask = pointnext._gather_rows(mask, idx).contiguous()
+    for name in getattr(net, "order", ()):
+        block = getattr(net, name)
+        if isinstance(block, pointnext._SetAbstraction):
+            n_out = max(pos.shape[1] // block.stride, 1)
+            row, idx = _fps_row(name, pos, mask, n_out, smi)
+            rows.append(row)
+            pos = pointnext._gather_rows(pos, idx).contiguous()
+            mask = pointnext._gather_rows(mask, idx).contiguous()
+    for r in rows:
+        r["model"] = key
+        emit(r)
+    del tb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ball_query_fill(bundle, batch) -> list:
+    """PointNeXt's ball queries in the forward of one batch, in order: the
+    queries and supports, the radius and nsample, the mean number of
+    in-range neighbours of a valid query and the share of valid queries
+    whose nsample slots are all filled."""
+    from dpcr_agb_tpu_torch import predict
+    from dpcr_agb_tpu_torch.ops import neighbors
+    real, seen = neighbors.radius_neighbors, []
+
+    def counted(q_pts, q_mask, s_pts, s_mask, radius, k, *args, **kw):
+        nbr = real(q_pts, q_mask, s_pts, s_mask, radius, k, *args, **kw)
+        filled = (nbr < s_pts.shape[1]).sum(-1)
+        n_q = max(int(q_mask.sum()), 1)
+        seen.append({"queries": list(q_pts.shape[:2]),
+                     "supports": int(s_pts.shape[1]), "radius": radius,
+                     "nsample": k,
+                     "mean_in_range": float(filled[q_mask].sum()) / n_q,
+                     "full_share": float((filled[q_mask] == k).sum()) / n_q})
+        return nbr
+
+    neighbors.radius_neighbors = counted
+    try:
+        predict.forward_raw(bundle, batch)
+    finally:
+        neighbors.radius_neighbors = real
+    return seen
+
+
 def batch_facts(net, batch) -> dict:
     """The padded sizes of a host batch and what fills them."""
     n_valid = int(np.asarray(batch.mask).sum())
@@ -1803,6 +1987,8 @@ def phase_serve(key: str, dtname: str, ckpt: str, plot_dir: str,
         del sparse, raw_sparse
     if hasattr(bundle.net, "device_pyramid"):
         extra = kpconv_serve_routes(bundle, batch, raw, what)
+    if MODELS[key]["kernels"] == "fps":
+        extra = {"ball_query": ball_query_fill(bundle, batch)}
     profile = device_profile(lambda: predict.forward_raw(bundle, batch)) \
         if with_profile else None
     torch.cuda.reset_peak_memory_stats()
@@ -2193,7 +2379,8 @@ def phase_train(key: str, dtname: str, plot_dir: str, out_dir: str,
     batch = host_batch.to(run.runner.device)
     compared = None if MODELS[key].get("launch_none") else \
         compare_train_steps(run, batch, dtname, STEP_TOL,
-                            conditioning=key == "KPConv",
+                            conditioning=MODELS[key].get("conditioned",
+                                                         False),
                             stem_order=key == "SENet14" and not bf16)
 
     # step time on the device-resident batch
@@ -2400,9 +2587,13 @@ def run_model(key: str, tmp: str, plot_dir: str, smi: str, seed: int,
           "rows_per_plot": [int(s["pos"].shape[0]) for s in samples],
           **batch_facts(bundles["float32"].net, batch)})
     # rows that an earlier path of the same kind measured at these shapes
-    shared = [r for r in have if r["kernels_phase"] == spec["kernels"]]
+    # (of the fps rows, PointNet's forward shares the input's sampling)
+    shared = [r for r in have if r["kernels_phase"] == spec["kernels"]
+              and (r.get("case") or "").startswith(spec.get("shares", ""))]
     if spec["kernels"] == "kpconv":
         krows = phase_kpconv_kernels(bundles["float32"], batch, smi, seed)
+    elif spec["kernels"] == "fps" and not shared:
+        krows = phase_fps_kernels(key, bundles["float32"], batch, smi)
     elif spec["kernels"] is None or shared:
         krows = []  # no kernel, or its kernels timed at these shapes already
     else:
@@ -2462,8 +2653,10 @@ TRAINER_TARGETS = ("BMag_ha", "V_ha")
 TRAINER_SERVE_TOL = 5e-2
 # per phase (`--only` name): the model, its config groups, the launches
 # of each kernel in one forward and in one train step (every other kernel
-# 0), the kernels phase whose bf16 rows get the launches, and whether
-# eval.main must repeat the train run's test predictions bit for bit
+# 0), the kernels phase whose bf16 rows get the launches (of those, the
+# ones `rows` picks), whether eval.main must repeat the train run's test
+# predictions bit for bit, the compute dtype enable_mixed gives (the
+# PointNeXt models have no bf16 form) and the plots generated
 TRAINERS = {
     "trainer": {
         "phase": "trainer", "model_name": "SENet14",
@@ -2479,6 +2672,20 @@ TRAINERS = {
         "forward": {"kpconv_fused": 14},
         "step": {"kpconv_fused_bwd": 14, "gather_rows_bwd": 4},
         "kernels_phase": "kpconv", "eval_bit_equal": True},
+    "trainer-pointnext": {
+        "phase": "trainer_pointnext", "model_name": "PointNext",
+        "groups": ["models=instance/pointnext",
+                   "data.transform_type=fixed_xy", "training=nfi/pointnet"],
+        "forward": {"fps": 5}, "step": {}, "kernels_phase": "fps",
+        "rows": lambda r: r.get("model") == "PointNeXt",
+        "eval_bit_equal": True, "dtype": "float32", "plots": 48},
+    "trainer-pointnet": {
+        "phase": "trainer_pointnet", "model_name": "PointNet",
+        "groups": ["models=instance/pointnet",
+                   "data.transform_type=fixed_xy", "training=nfi/pointnet"],
+        "forward": {"fps": 1}, "step": {}, "kernels_phase": "fps",
+        "rows": lambda r: r["case"].startswith("input:"),
+        "eval_bit_equal": True, "dtype": "float32", "plots": 48},
 }
 
 
@@ -2488,7 +2695,7 @@ def trainer_overrides(root: str, key: str = "trainer") -> list:
             "data=instance/synthetic/reg", *spec["groups"],
             "lr_scheduler=cosineawr", "update_lr_scheduler_on=on_num_batch",
             f"data.dataroot={root}/data",
-            f"data.synthetic_plots={TRAINER_PLOTS}",
+            f"data.synthetic_plots={spec.get('plots', TRAINER_PLOTS)}",
             f"training.epochs={TRAINER_EPOCHS}",
             f"training.batch_size={TRAINER_BS}", "training.num_workers=4",
             "visualization=eval", f"run_dir={root}/run"]
@@ -2653,8 +2860,9 @@ def phase_trainer(tmp: str, smi: str, krows: list,
     root = os.path.join(tmp, key)
     what = spec["phase"]
     t0 = time.perf_counter()
+    n_plots = spec.get("plots", TRAINER_PLOTS)
     label_file = generate_nfi_like_dataset(
-        os.path.join(root, "data", "synthetic"), n_plots=TRAINER_PLOTS)
+        os.path.join(root, "data", "synthetic"), n_plots=n_plots)
     generate_seconds = time.perf_counter() - t0
     want_splits = expected_splits(label_file)
 
@@ -2673,9 +2881,11 @@ def phase_trainer(tmp: str, smi: str, krows: list,
     if splits != want_splits:
         raise AssertionError(f"{what}: splits {splits}, the seed-42 rule "
                              f"gives {want_splits}")
-    if not (trainer.option.get("extra_options") or {}).get("bf16"):
+    dtname = spec.get("dtype", "bfloat16")
+    if bool((trainer.option.get("extra_options") or {}).get("bf16")) != \
+            (dtname == "bfloat16"):
         raise AssertionError(f"{what}: enable_mixed did not give "
-                             f"{model_name} its bf16 compute")
+                             f"{model_name} its {dtname} compute")
     calibrated = calibration_check(trainer, what) \
         if model_name == "KPConv" else {}
     epochs = []
@@ -2727,7 +2937,7 @@ def phase_trainer(tmp: str, smi: str, krows: list,
     # into the kernels rows of the phase's compute dtype (bf16), or of any
     # dtype for a kernel that runs in f32 only (gather_rows_bwd)
     rows = [r for r in krows if r["kernels_phase"] == spec["kernels_phase"]
-            and r["name"] in counted]
+            and r["name"] in counted and spec.get("rows", bool)(r)]
     bf16 = {r["name"] for r in rows if r["dtype"] == "bfloat16"}
     for r in rows:
         if r["dtype"] == "bfloat16" or r["name"] not in bf16:
@@ -2821,8 +3031,8 @@ def phase_trainer(tmp: str, smi: str, krows: list,
     if not same_w or not moved:
         raise AssertionError(f"{what}: calibrate_bn changed the weights "
                              f"({not same_w}) or no BN stat ({moved})")
-    out = {"phase": what, "model": model_name, "dtype": "bfloat16",
-           "plots": TRAINER_PLOTS, "batch_size": TRAINER_BS,
+    out = {"phase": what, "model": model_name, "dtype": dtname,
+           "plots": n_plots, "batch_size": TRAINER_BS,
            "splits": splits, "generate_seconds": generate_seconds,
            "process_seconds": process_seconds,
            "train_main_seconds": train_seconds, "numerics": pinned,
@@ -2914,7 +3124,8 @@ def main(argv=None) -> int:
     summary = {"kernels": [{k: r.get(k) for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dtype",
-        "case", "max_abs_plain", "launches_by_path", "device_ms",
+        "case", "max_abs_plain", "launches_by_path", "serial_steps",
+        "device_ms",
         "plain_device_ms", "library_device_ms", "sub_kernels",
         "previous_route_ms", "previous_route_device_ms", "fill_device_ms",
         "index_build_device_ms", "pool_kernel_device_ms")}

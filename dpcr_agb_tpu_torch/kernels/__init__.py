@@ -16,7 +16,7 @@ from . import build
 LAUNCHES = {"stem_sites": 0, "max_pool_k3s2": 0, "stem_sites_dw": 0,
             "max_pool_k3s2_bwd": 0, "kpconv_fused": 0, "kpconv_fused_bwd": 0,
             "firewall_copy": 0, "max_pool_k3s2_bwd_vol": 0,
-            "gather_rows_bwd": 0, "max_pool_k3s2_rows": 0}
+            "gather_rows_bwd": 0, "max_pool_k3s2_rows": 0, "fps": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INFLUENCE_CODE = {"linear": 0, "gaussian": 1, "constant": 2}
@@ -639,3 +639,54 @@ def gather_rows_bwd(g: torch.Tensor, rev: Tuple[torch.Tensor, torch.Tensor],
     _check_rc(rc, "gather_rows_bwd")
     LAUNCHES["gather_rows_bwd"] += 1
     return dx
+
+
+FPS_MAX_POINTS = 16384      # csrc/fps.cu: 32 points a thread, 512 threads
+# points a thread -> the most threads a block may have (csrc/fps.cu: the
+# registers of its running distances)
+_FPS_THREADS = {1: 1024, 2: 1024, 4: 1024, 8: 1024, 16: 768, 32: 512}
+
+
+def fps_plan(n: int) -> dict:
+    """How `fps` holds a sample of n points (pure): the fewest points a
+    thread (1 to 32, in registers) whose most threads cover n, the threads
+    a multiple of 32, the positions in shared memory (12 bytes a point,
+    padded to threads x points a thread). Raises, naming n, past
+    FPS_MAX_POINTS."""
+    if not 1 <= n <= FPS_MAX_POINTS:
+        raise ValueError(f"fps: a sample of {n} points; the kernel holds "
+                         f"1 to {FPS_MAX_POINTS} (positions in shared "
+                         f"memory, 32 distances a thread in registers)")
+    per = next(p for p, t in _FPS_THREADS.items() if -(-n // p) <= t)
+    threads = 32 * -(-(-(-n // per)) // 32)
+    return {"per": per, "threads": threads,
+            "smem_bytes": 3 * 4 * threads * per}
+
+
+def fps(pos: torch.Tensor, mask: torch.Tensor, n_samples: int,
+        start: int = 0) -> torch.Tensor:
+    """Farthest point sampling (`ops.neighbors.fps_plain`'s function and
+    bits): pos [B,N,3] f32, mask [B,N] bool -> [B,n_samples] int64, one
+    block a sample, one launch."""
+    if not pos.is_cuda:
+        raise ValueError("fps takes CUDA tensors")
+    dev = pos.device
+    _require(pos, "pos", torch.float32, 3, dev)
+    _require(mask, "mask", torch.bool, 2, dev)
+    b, n, c = pos.shape
+    if c != 3 or mask.shape != (b, n):
+        raise ValueError(f"fps: pos {tuple(pos.shape)}, mask "
+                         f"{tuple(mask.shape)} (need [B,N,3] and [B,N])")
+    plan = fps_plan(n)
+    if n_samples < 1 or not 0 <= start < n:
+        raise ValueError(f"fps: n_samples {n_samples}, start {start} for "
+                         f"{n} points")
+    out = torch.empty((b, n_samples), dtype=torch.int64, device=dev)
+    if b == 0:
+        return out
+    rc = _on_device(dev, build.entry("fps"), pos.data_ptr(),
+                    mask.data_ptr(), out.data_ptr(), b, n, n_samples, start,
+                    plan["per"], plan["threads"])
+    _check_rc(rc, "fps")
+    LAUNCHES["fps"] += 1
+    return out

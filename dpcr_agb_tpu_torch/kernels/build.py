@@ -56,6 +56,7 @@ LIBRARIES = {
                          [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "firewall_copy": ("firewall_copy.cu", "firewall_copy_launch",
                       [_I, _P, _P, *[_L] * 10, _P]),
+    "fps": ("fps.cu", "fps_launch", [_P, _P, _P, *[_I] * 6, _P]),
 }
 
 _ENTRY: Dict[str, object] = {}

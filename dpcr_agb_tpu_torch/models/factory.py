@@ -1,7 +1,7 @@
 """Model building and collate policy (counterpart of `_build_minkowski`,
-`_build_simplest`, `_build_kpconv`, `make_post_collate` (the dense-path
-and KPCNN branches) and `_collate_spec` of
-`dpcr_agb_tpu/models/factory.py`)."""
+`_build_simplest`, `_build_kpconv`, `_build_pointnext`,
+`make_post_collate` (the dense-path and KPCNN branches) and
+`_collate_spec` of `dpcr_agb_tpu/models/factory.py`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,28 +15,38 @@ from ..ops.host_pyramid import kpconv_pyramid_plan, make_kpconv_post_collate
 from .kpconv import DEFAULT_POINT_FRACS, KPCNN, build_kpconv
 from .minkowski import SparseResNet, build_resnet
 from .pointnet import MPointNet
+from .pointnext import build_pointnext
 from .simplestnet import SimplestNet
 
 _MINKOWSKI = "minkowski.MinkowskiBaselineModel"
 _KPCONV = "kpconv.KPConv"
 _SIMPLEST = "simplestnet.SimplestNet"
+_POINTNEXT = "pointnext.PointNext"
 
 
 def f32_only(option: dict) -> bool:
-    """Whether a `conf/models` entry is MPointNet or SimplestNet, which
-    compute in f32 only, as the JAX models do (they have no bf16 form)."""
-    return option["class"] == _SIMPLEST or (
+    """Whether a `conf/models` entry is MPointNet, SimplestNet or a
+    PointNeXt / PointNet encoder, which compute in f32 only, as the JAX
+    models do (they have no bf16 form)."""
+    return option["class"] in (_SIMPLEST, _POINTNEXT) or (
         option["class"] == _MINKOWSKI
         and option.get("model_name") == "MinkowskiPointNet")
+
+
+def has_bn_schedule(option: dict) -> bool:
+    """Whether the BN-momentum schedule reaches the entry's model: the JAX
+    trainer sets a model's `bn_momentum` field, which SimplestNet and the
+    PointNeXt models do not have."""
+    return option["class"] not in (_SIMPLEST, _POINTNEXT)
 
 
 def build_model(option: dict, num_reg_targets: int, in_channels: int,
                 generator: Optional[torch.Generator] = None):
     """(module, conv_type) for one `conf/models` entry; the Minkowski
-    sparse-voxel ResNets and MPointNet, SimplestNet and the rigid KPConv
-    net are ported. MPointNet takes the JAX factory's defaults (relu, mean
-    pool, no dropout, BN momentum 0.1, no positions) where the entry names
-    none."""
+    sparse-voxel ResNets and MPointNet, SimplestNet, the rigid KPConv net
+    and PointNeXt (with the PointNet encoder) are ported. MPointNet takes
+    the JAX factory's defaults (relu, mean pool, no dropout, BN momentum
+    0.1, no positions) where the entry names none."""
     cls = option["class"]
     if f32_only(option) and (option.get("extra_options") or {}).get("bf16"):
         raise ValueError(f"{option.get('model_name', cls)} runs in f32 only "
@@ -48,10 +58,13 @@ def build_model(option: dict, num_reg_targets: int, in_channels: int,
     if cls == _SIMPLEST:
         return SimplestNet(num_reg_targets, in_channels, generator), \
             "PARTIAL_DENSE"
+    if cls == _POINTNEXT:
+        return build_pointnext(option, num_reg_targets, in_channels,
+                               generator), "PARTIAL_DENSE"
     if cls != _MINKOWSKI:
         raise NotImplementedError(
             f"model class {cls!r} is not ported yet (ported: "
-            f"{_MINKOWSKI}, {_SIMPLEST}, {_KPCONV})")
+            f"{_MINKOWSKI}, {_SIMPLEST}, {_KPCONV}, {_POINTNEXT})")
     name = option["model_name"]
     if name == "MinkowskiPointNet":
         return MPointNet(
@@ -72,8 +85,8 @@ def make_post_collate(net) -> Optional[Callable[[Batch], Batch]]:
     (D, H, zb) and tag the bucket as aux['zcells'] (length zb). KPCNN: its
     neighbour pyramid built on the host (`ops/host_pyramid.py`) at the
     net's neighbour caps (40 a level where it names none) and point
-    fractions, into aux. MPointNet and SimplestNet have none (they read the
-    rows as they are)."""
+    fractions, into aux. MPointNet, SimplestNet and the PointNeXt models
+    have none (they read the rows as they are)."""
     if isinstance(net, KPCNN):
         n_levels = len(net.levels)
         klims = list(net.neighborhood_limits or [40] * n_levels)

@@ -1,7 +1,7 @@
-"""Neighbourhood ops of the KPConv pyramid on the batch's device (counterpart
-of `radius_neighbors` and `grid_subsample` in `dpcr_agb_tpu/ops/
-neighbors.py`), batched over a leading axis. Farthest point sampling waits
-for PointNeXt.
+"""Neighbourhood ops on the batch's device (counterpart of
+`radius_neighbors`, `grid_subsample` and `fps` in `dpcr_agb_tpu/ops/
+neighbors.py`), batched over a leading axis: the KPConv pyramid's search
+and subsampling, PointNeXt's ball query and farthest point sampling.
 
   * `radius_neighbors`: brute-force squared distances as a matrix product
     (|q|^2 + |s|^2 - 2 q.s), over query tiles of 1024 so that the [Nq, Ns]
@@ -12,6 +12,9 @@ for PointNeXt.
     matmul, which is PyTorch's default and is checked here.
   * `grid_subsample`: voxel-barycentre downsampling (mean position per
     cell) on the sort and segment machinery of `voxel.py`.
+
+  * `fps`: farthest point sampling, the `fps` kernel on CUDA tensors
+    (`kernels/csrc/fps.cu`) and `fps_plain` on CPU ones.
 
 `torch.topk` and `jax.lax.top_k` may order exact distance ties differently;
 clouds without exact ties give the same lists."""
@@ -72,3 +75,45 @@ def grid_subsample(pos: torch.Tensor, mask: torch.Tensor, dl: float,
                                 mode="mean")
     bary = torch.where(out_grid.mask[..., None], bary, _FAR)
     return bary, out_grid.mask
+
+
+def fps_plain(pos: torch.Tensor, mask: torch.Tensor, n_samples: int,
+              start: int = 0) -> torch.Tensor:
+    """Farthest point sampling, the JAX package's loop batched: pos
+    [B,N,3] f32, mask [B,N] bool -> [B,n_samples] int64 indices. The
+    running distance starts at +inf on valid rows and -inf on masked ones;
+    idx[0] = start; each step takes d = (dx*dx + dy*dy) + dz*dz to the last
+    pick (separate elementwise ops: no fused multiply-add, no reduction
+    kernel's order), -inf on masked rows, the running minimum, and picks
+    its argmax (the first maximal index). A sample with fewer valid rows
+    than n_samples repeats valid indices once every valid distance is 0;
+    an all-masked one gives index 0 throughout."""
+    b = pos.shape[0]
+    ninf = torch.full((), float("-inf"), dtype=pos.dtype, device=pos.device)
+    dists = torch.where(mask, float("inf"), ninf)
+    idx = torch.zeros((b, n_samples), dtype=torch.int64, device=pos.device)
+    idx[:, 0] = start
+    px, py, pz = (pos[..., a].contiguous() for a in range(3))
+    rows = torch.arange(b, device=pos.device)
+    last = idx[:, 0]
+    for i in range(1, n_samples):
+        lp = pos[rows, last]                                      # [B,3]
+        dx = px - lp[:, 0:1]
+        dy = py - lp[:, 1:2]
+        dz = pz - lp[:, 2:3]
+        d = (dx * dx + dy * dy) + dz * dz
+        dists = torch.minimum(dists, torch.where(mask, d, ninf))
+        last = torch.argmax(dists, dim=1)
+        idx[:, i] = last
+    return idx
+
+
+def fps(pos: torch.Tensor, mask: torch.Tensor, n_samples: int,
+        start: int = 0) -> torch.Tensor:
+    """`fps_plain`'s function: the `fps` kernel on CUDA tensors (it raises
+    for a shape it cannot take), the plain version on CPU ones."""
+    if pos.is_cuda:
+        from .. import kernels
+        return kernels.fps(pos.contiguous(), mask.contiguous(), n_samples,
+                           start)
+    return fps_plain(pos, mask, n_samples, start)

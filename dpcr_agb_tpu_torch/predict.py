@@ -7,7 +7,7 @@ one plot per file) through the model and writes de-standardized
 predictions to csv, as the root `predict.py` does.
 
     python -m dpcr_agb_tpu_torch.predict checkpoint_dir=outputs/run \\
-        model_name=SENet14|SENet50|...|KPConv|MPointNet|SimplestNet \\
+        model_name=SENet14|...|KPConv|SimplestNet|PointNext|PointNet \\
         input='plots/*.laz' \\
         output=preds.csv [batch_size=16] [weight_name=latest] \\
         [transform_type=sparse_xy] [centers=centers.csv] [device=cpu]

@@ -7,7 +7,7 @@ A port checkpoint is `<checkpoint_dir>/<model_name>.pt`, written with
 `torch.save`, holding plain Python objects and tensors only:
   format        CHECKPOINT_FORMAT
   model_name    the `conf/models` key ("SENet14", "SENet50", "KPConv",
-                "MPointNet", "SimplestNet")
+                "MPointNet", "SimplestNet", "PointNext", "PointNet")
   option        that model entry (class, model_name, activation, ...)
   in_channels   the model's input feature width
   data          features, scales, centers, first_subsampling and the
@@ -160,8 +160,8 @@ NFI_XY = {
 }
 
 
-# The fixed_xy chains of SimplestNet (conf/data/instance/NFI/transforms/
-# fixed-xy.yaml): the same prefixes, then exactly 12000 points
+# The fixed_xy chains of SimplestNet and PointNeXt (conf/data/instance/NFI/
+# transforms/fixed-xy.yaml): the same prefixes, then exactly 12000 points
 # (FixedPointsOwn, resampling with the fewest duplicates when a plot has
 # fewer) and the same features; collate pads every batch to 12000.
 _FIXED_SUFFIX = [
@@ -189,7 +189,8 @@ def nfi_xy_data_cfg() -> dict:
 
 
 def nfi_fixed_xy_data_cfg() -> dict:
-    """A fresh copy of the NFI + fixed_xy data config (SimplestNet)."""
+    """A fresh copy of the NFI + fixed_xy data config (SimplestNet,
+    PointNeXt)."""
     return copy.deepcopy(NFI_FIXED_XY)
 
 

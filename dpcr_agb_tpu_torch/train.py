@@ -14,12 +14,13 @@ package's checkpoint format:
         update_lr_scheduler_on=on_num_batch [device=cpu]
 
 With `input=`, a few optimizer steps of a sparse-voxel ResNet/SENet
-(SENet14 unless named otherwise), of the KPConv net, of MPointNet or of
-SimplestNet on `.npz` plots, then a port checkpoint that `predict` serves:
+(SENet14 unless named otherwise), of the KPConv net, of MPointNet, of
+SimplestNet or of PointNeXt (`PointNext`, `PointNet`) on `.npz` plots,
+then a port checkpoint that `predict` serves:
 
     python -m dpcr_agb_tpu_torch.train input='plots/*.npz' \\
         checkpoint_dir=outputs/run \\
-        [model_name=SENet14|SENet50|...|KPConv|MPointNet|SimplestNet] \\
+        [model_name=SENet14|...|MPointNet|SimplestNet|PointNext|PointNet] \\
         [steps=100] [batch_size=16] [seed=0] [bf16=false] \\
         [dense_dims=88,88,104] [device=cpu]
 
@@ -29,7 +30,8 @@ Targets are standardized by their mean and standard deviation over the
 training plots (np.nanmean, np.nanstd). Every plot goes through the NFI
 pre_transform once; every step draws `batch_size` plots from a reshuffled
 stream, runs the model's train chain on each (sparse_xy for the
-sparse-voxel nets and MPointNet, xy for KPConv, fixed_xy for SimplestNet),
+sparse-voxel nets and MPointNet, xy for KPConv, fixed_xy for SimplestNet
+and PointNeXt),
 collates and post-collates them, and takes one step of the paper's recipe
 (the same for every model): AdaBelief (lr 5e-3, weight
 decay 1e-2) behind an elementwise gradient clip at 100, with
@@ -37,11 +39,11 @@ CosineAnnealingWarmRestarts (T_0 10, T_mult 2) stepped per batch. It runs
 on CUDA unless `device=cpu` is given, and raises when there is no CUDA
 device and the CPU was not asked for. `bf16=true` is the bf16 compute dtype
 of the sparse-voxel nets' convs, and for KPConv that of the fused
-kernel-point convolution only; MPointNet and SimplestNet run in f32 only,
-as the JAX models do, and refuse it. `dense_dims` applies to the sparse-voxel
-nets, whose level-0 execution modes are read from DPCR_L0, DPCR_STEM_MODE,
-DPCR_POOL_BWD, DPCR_SPARSE_POOL and DPCR_POOL_FWD when the model is built
-(`models/minkowski.py`).
+kernel-point convolution only; MPointNet, SimplestNet and PointNeXt run
+in f32 only, as the JAX models do, and refuse it. `dense_dims` applies to
+the sparse-voxel nets, whose level-0 execution modes are read from
+DPCR_L0, DPCR_STEM_MODE, DPCR_POOL_BWD, DPCR_SPARSE_POOL and DPCR_POOL_FWD
+when the model is built (`models/minkowski.py`).
 
 Both forms run on CUDA unless `device=cpu` is given, and raise when there
 is no CUDA device and the CPU was not asked for."""
@@ -113,10 +115,21 @@ MPOINTNET = {"class": "minkowski.MinkowskiBaselineModel",
              "dropout": 0.0, "global_pool": "sum", "add_pos": True}
 SIMPLESTNET = {"class": "simplestnet.SimplestNet",
                "conv_type": "PARTIAL_DENSE"}
+# conf/models/instance/pointnext.yaml and pointnet.yaml with
+# data.first_subsampling substituted
+POINTNEXT = {"class": "pointnext.PointNext", "conv_type": "PARTIAL_DENSE",
+             "arch": "pointnext_s", "radius": 0.0125, "radius_scaling": 2,
+             "nsample": 32, "stride": 4, "activation": "relu",
+             "num_points": 8192, "use_mlps": True}
+POINTNET = {"class": "pointnext.PointNext", "conv_type": "PARTIAL_DENSE",
+            "arch": "pointnet", "radius": 0.0125, "stride": 4,
+            "num_points": 8192}
 MODELS = {"SENet14": (SENET14, nfi_sparse_xy_data_cfg),
           "KPConv": (KPCONV, nfi_xy_data_cfg),
           "MPointNet": (MPOINTNET, nfi_sparse_xy_data_cfg),
           "SimplestNet": (SIMPLESTNET, nfi_fixed_xy_data_cfg),
+          "PointNext": (POINTNEXT, nfi_fixed_xy_data_cfg),
+          "PointNet": (POINTNET, nfi_fixed_xy_data_cfg),
           **{key: (_resnet_entry(key), nfi_sparse_xy_data_cfg)
              for key in ("SENet18", "SENet34", "SENet50", "SENet101")},
           **{key: (_resnet_entry(key + "_"), nfi_sparse_xy_data_cfg)

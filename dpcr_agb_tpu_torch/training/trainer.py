@@ -12,8 +12,8 @@ It runs on `device` (CUDA unless the entry point was asked for the CPU).
 On CUDA the loaders copy each batch to the card on their own stream, from
 pinned memory, and the step waits on the batch's event. `enable_mixed`
 gives bf16 compute to the models that have a bf16 form (the sparse-voxel
-nets and KPConv); MPointNet and SimplestNet stay f32, as the JAX trainer
-leaves models without a `dtype`.
+nets and KPConv); MPointNet, SimplestNet and the PointNeXt models stay f32
+(logged), as the JAX trainer leaves models without a `dtype`.
 
 KPConv's neighbour caps are calibrated at start-up, before the model is
 built, as the JAX trainer does: 16 training plots through the host
@@ -45,7 +45,7 @@ from ..data.dataset import instantiate_dataset
 from ..data.loader import Loader
 from ..models.base import build_instance_spec
 from ..models.factory import (build_model, collate_spec, f32_only,
-                              make_post_collate)
+                              has_bn_schedule, make_post_collate)
 from ..nn.norm import MaskedBatchNorm
 from ..utils.neighbor_calibration import run_find_neighbour_dist
 from ..visualization.visualizer import Visualizer
@@ -131,9 +131,13 @@ class Trainer:
         self.option = copy.deepcopy(_plain(cfg["models"][self.model_name]))
         self._check_ported(self.option)
         self._auto_calibrate_kpconv_limits()
-        if bool(get_t("enable_mixed", False)) and not f32_only(self.option):
-            self.option["extra_options"] = {
-                **(self.option.get("extra_options") or {}), "bf16": True}
+        if bool(get_t("enable_mixed", False)):
+            if f32_only(self.option):
+                log.info(f"enable_mixed: {self.model_name} has no bf16 form "
+                         "and trains in f32, as the JAX trainer leaves it")
+            else:
+                self.option["extra_options"] = {
+                    **(self.option.get("extra_options") or {}), "bf16": True}
         in_channels = self.dataset.feature_dimension
         net, self.conv_type = build_model(
             self.option, self.dataset.num_reg_classes, in_channels,
@@ -379,9 +383,9 @@ class Trainer:
 
     def _apply_bn_schedule(self, epoch: int) -> None:
         """The BN-momentum schedule: every masked BN of the model takes the
-        epoch's momentum (SimplestNet, which names none, excepted)."""
-        if self.bn_momentum_fn is None or \
-                self.option.get("class") == "simplestnet.SimplestNet":
+        epoch's momentum (SimplestNet and the PointNeXt models, which have
+        no momentum field in the JAX package, excepted)."""
+        if self.bn_momentum_fn is None or not has_bn_schedule(self.option):
             return
         m = self.bn_momentum_fn(epoch)
         bns = [b for b in self.net.modules()

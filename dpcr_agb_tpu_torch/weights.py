@@ -52,12 +52,18 @@ def in_channels_of(option: dict, state_dict: Dict[str, torch.Tensor]
     nets' stem kernel [343, Cin, 64]; KPConv's first block, a `simple`
     KPConv (every architecture in conf/ starts with one), [Kp, Cin, C];
     MPointNet's first linear [3 + Cin, 64] with its positions added (else
-    [Cin, 64]); SimplestNet's [Cin + 3, 64] over [x, pos]."""
+    [Cin, 64]); SimplestNet's [Cin + 3, 64] over [x, pos]; PointNeXt's
+    stem [Cin, 32]; the PointNet encoder's first linear [3 + Cin, 64] over
+    [pos, x]."""
     cls = option["class"]
     if cls == "kpconv.KPConv":
         return int(state_dict["block0_kpconv.weights"].shape[1])
     if cls == "simplestnet.SimplestNet":
         return int(state_dict["conv0.kernel"].shape[0]) - 3
+    if cls == "pointnext.PointNext":
+        if option.get("arch", "pointnext_s") == "pointnet":
+            return int(state_dict["enc0.conv.kernel"].shape[0]) - 3
+        return int(state_dict["stem.conv.kernel"].shape[0])
     if option.get("model_name") == "MinkowskiPointNet":
         return int(state_dict["b1_lin.kernel"].shape[0]) \
             - (3 if option.get("add_pos", False) else 0)

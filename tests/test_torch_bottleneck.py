@@ -284,5 +284,10 @@ def test_conf_model_names_are_the_entry_points_models():
     assert train.MODELS["SENet101"][0]["model_name"] == "SENet101"
     assert train.model_option("SENet50", bf16=True)["extra_options"] == {
         "bf16": True}
+    for name in ("PointNet", "PointNext"):
+        assert train.model_option(name, bf16=False)["class"] == \
+            "pointnext.PointNext"
+    assert train.model_option("PointNet", False)["arch"] == "pointnet"
+    assert train.model_option("PointNext", False)["arch"] == "pointnext_s"
     with pytest.raises(NotImplementedError, match="trains"):
-        train.model_option("PointNet", bf16=False)
+        train.model_option("PointTransformer", bf16=False)

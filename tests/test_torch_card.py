@@ -15,7 +15,8 @@ version with ties, padded rows and rows on the volume's upper edge, the
 same bits twice, and its C entry refusing shapes past 32-bit offsets
 and taking the largest ones below; MPointNet's and SimplestNet's forwards
 on the card, which launch none of the port's kernels and agree with the
-CPU's.
+CPU's; `fps` against its plain version, indices exactly and the same bits
+twice, at PointNeXt's samplings and its edges.
 This file imports no JAX, so it runs on the GPU machine:
 
     python -m pytest --noconftest -m cuda tests/test_torch_imports.py \\
@@ -546,3 +547,45 @@ def test_pointwise_model_on_the_card_launches_no_kernel_and_matches_the_cpu(
         torch.testing.assert_close(t.cpu(), want, rtol=1e-4,
                                    atol=1e-4 * want.abs().max().item(),
                                    msg=key)
+
+
+@pytest.mark.cuda
+def test_fps_matches_its_plain_version_and_repeats():
+    """`fps` against `fps_plain` on the card, indices exactly, the same
+    bits in two calls: PointNeXt's samplings (12000 -> 8192, then / 4 down
+    to 32), the kernel's largest N (16384), one point, padded rows (far
+    values), a sample with fewer valid rows than it samples, an all-masked
+    one, exact duplicates and a start other than 0; one launch a call. N
+    past the kernel's shared memory and CPU tensors raise."""
+    _card()
+    from dpcr_agb_tpu_torch import kernels
+    from dpcr_agb_tpu_torch.ops.neighbors import fps, fps_plain
+    rng = np.random.default_rng(13)
+    cases = [(4, 12000, 8192, 0), (4, 8192, 2048, 0), (3, 2048, 512, 0),
+             (3, 512, 128, 5), (3, 128, 32, 0), (2, 16384, 4096, 0),
+             (2, 1, 3, 0), (5, 3000, 2000, 0)]
+    for b, n, ns, start in cases:
+        pos = rng.uniform(0, 1, (b, n, 3)).astype(np.float32)
+        mask = np.ones((b, n), bool)
+        if b == 5:
+            mask[1, 2000:] = False
+            pos[1, 2000:] = 1e6
+            mask[2, 700:] = False
+            mask[3] = False
+            pos[4, 1000:2000] = pos[4, :1000]
+        p = torch.from_numpy(pos).cuda()
+        m = torch.from_numpy(mask).cuda()
+        kernels.reset_launches()
+        got = fps(p, m, ns, start)
+        again = kernels.fps(p, m, ns, start)
+        assert kernels.LAUNCHES["fps"] == 2
+        want = fps_plain(p, m, ns, start)
+        assert got.dtype == torch.int64 and got.shape == (b, ns)
+        assert torch.equal(got, want), (b, n, ns)
+        assert torch.equal(got, again), (b, n, ns)
+    with pytest.raises(ValueError, match="16385 points"):
+        kernels.fps(torch.zeros(1, 16385, 3, device="cuda"),
+                    torch.ones(1, 16385, dtype=torch.bool, device="cuda"), 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.fps(torch.zeros(1, 8, 3), torch.ones(1, 8, dtype=torch.bool),
+                    4)
