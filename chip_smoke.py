@@ -65,10 +65,17 @@ kernel is `fps`):
            512 -> 128 -> 32), its indices equal to fps_plain's (the plain
            loop on the card) and the same bits in two calls, and on the
            input's shapes with padded rows, a sample with fewer valid
-           rows than it samples and an all-masked one; timed beside the
-           plain loop (its device time from torch.profiler: a loop of
-           ~8 kernels a step does not fit behind the spin); bound_ms from
-           B (n - 1) N ~10 f32 operations, beside the serial steps.
+           rows than it samples and an all-masked one, duplicates in
+           other CTAs of a sample's cluster and an integer grid (exact
+           ties); timed beside the plain loop (its device time from
+           torch.profiler: a loop of ~8 kernels a step does not fit
+           behind the spin); bound_ms from B (n - 1) N ~10 f32
+           operations, beside the serial steps and step_us; each row
+           with its plan (cluster, CTAs, threads, points a thread), the
+           clusters the card holds at once and the SMs its CTAs ran on;
+           the input's device time also from torch.profiler on the same
+           calls as its CUDA events; fps_plans: each sampling's
+           device_ms under every cluster size (indices checked too).
            max_pool_k3s2_rows, max_pool_k3s2_bwd and max_pool_k3s2_bwd_vol
            also fill_device_ms: the device time of torch.zero_ on a tensor
            of their output's size (y and occ_l; dx), the card's own floor
@@ -188,6 +195,7 @@ import csv
 import glob
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -642,22 +650,57 @@ def make_checkpoint(root: str, name: str, model_name: str, option: dict,
     return ckpt
 
 
+def ptxas_by_width(log: str, kernel: str) -> dict:
+    """`nvcc -Xptxas=-v`'s report of each instance of `kernel` (templated
+    on an int width and a bool): {"<width>" or "<width>/one_warp" (the
+    bool set): registers, stack, spill bytes}."""
+    out, width = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            w = re.search(kernel + r"ILi(\d+)ELb([01])E", m.group(1))
+            width = None if not w else \
+                w.group(1) + ("/one_warp" if w.group(2) == "1" else "")
+            continue
+        if width is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(width, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(width, {})["registers"] = int(m.group(1))
+    return out
+
+
 def phase_device(pinned: dict) -> dict:
     import torch
+    from dpcr_agb_tpu_torch import kernels
     from dpcr_agb_tpu_torch.kernels import build
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
     report = build.build(ptxas_verbose=True)
     seconds = time.perf_counter() - t0
     ptxas = {k: [ln for ln in v["log"].splitlines() if "ptxas" in ln][-6:]
-             for k, v in report.items()}
+             for k, v in report.items() if not k.startswith("fps")}
+    fps_ptxas = None
+    if not report["fps"]["cached"]:
+        fps_ptxas = ptxas_by_width(report["fps"]["log"], "fps_kernel")
+        spilled = {w: r for w, r in fps_ptxas.items()
+                   if r["spill_stores"] or r["spill_loads"]}
+        if len(fps_ptxas) != 2 * len(kernels.FPS_WIDTHS) or spilled:
+            raise AssertionError(f"fps: ptxas -v per width {fps_ptxas} "
+                                 f"(every width, no spill)")
     out = {"phase": "device", "name": torch.cuda.get_device_name(0),
            "nvidia_smi": smi, "count": torch.cuda.device_count(),
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "numerics": pinned,
            "build_seconds": round(seconds, 3),
            "built": {k: not v["cached"] for k, v in report.items()},
-           "ptxas": ptxas}
+           "ptxas": ptxas, "fps_ptxas": fps_ptxas}
     emit(out)
     return out
 
@@ -1736,18 +1779,52 @@ def plain_loop_device_ms(fn) -> float:
     return sum(_device_events(fn, 1).values())
 
 
+def fps_events_and_profiler_ms(fn, n: int = 10) -> dict:
+    """One fps launch's device ms read two ways on the same n calls,
+    queued behind a spin: CUDA events around them, and torch.profiler's
+    sum of their kernels' durations (the two disagreed when taken on
+    different calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(int(50 * _sleep_cycles_per_ms()))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    seen = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "fps_kernel" in e.key]
+    # None where the profiler recorded no fps launch at all
+    kernels_ms = sum(e.self_device_time_total for e in seen) / 1e3
+    return {"events_ms": start.elapsed_time(end) / n,
+            "profiler_ms": kernels_ms / n if seen else None,
+            "profiler_launches": sum(e.count for e in seen), "calls": n}
+
+
 def _fps_row(what: str, pos, mask, n_samples: int, smi: str,
-             timed: bool = True) -> tuple:
+             timed: bool = True, start: int = 0) -> tuple:
     """fps on one input against fps_plain on the card: the indices equal,
-    the same bits in two calls; with `timed`, timed beside the plain loop
-    (whose first call above is its warm-up). Returns (row, the kernel's
-    indices)."""
+    the same bits in two calls, the plan with the clusters the card holds
+    at once (at least B: one wave) and the distinct SMs of each sample's
+    CTAs; with `timed`, timed beside the plain loop (whose first call
+    above is its warm-up) and the device ms a serial step (step_us).
+    Returns (row, the kernel's indices)."""
     import torch
     from dpcr_agb_tpu_torch import kernels
     from dpcr_agb_tpu_torch.ops.neighbors import fps_plain
-    idx = kernels.fps(pos, mask, n_samples)
-    again = kernels.fps(pos, mask, n_samples)
-    want = fps_plain(pos, mask, n_samples)
+    b, n = mask.shape
+    plan = kernels.fps_plan(n, b)
+    smid = torch.full((plan["ctas"],), -1, dtype=torch.int32,
+                      device=pos.device)
+    idx = kernels.fps(pos, mask, n_samples, start, smid=smid)
+    again = kernels.fps(pos, mask, n_samples, start)
+    want = fps_plain(pos, mask, n_samples, start)
     torch.cuda.synchronize()
     if not torch.equal(idx, want):
         bad = (idx != want).any(0).nonzero()
@@ -1755,20 +1832,31 @@ def _fps_row(what: str, pos, mask, n_samples: int, smi: str,
                              f"from step {int(bad[0])} on")
     if not torch.equal(idx, again):
         raise AssertionError(f"fps {what}: two calls gave other indices")
-    b, n = mask.shape
+    per_sample = smid.view(b, plan["cluster"]).cpu()
+    resident = kernels.fps_active_clusters(plan)
+    if b > resident:
+        raise AssertionError(f"fps {what}: {b} clusters of {plan} do not "
+                             f"fit on the card at once ({resident})")
     row = {"phase": "kernels", "name": "fps", "route": "cuda",
            "source": FPS_SRC, "replaces": FPS_REPLACES, "dtype": "float32",
-           "case": f"{what}: [{b},{n}] -> {n_samples}", "launches": None,
+           "case": f"{what}: [{b},{n}] -> {n_samples}"
+                   + (f", start {start}" if start else ""), "launches": None,
            "max_abs_err": 0.0, "indices_equal": True, "reproducible": True,
-           "serial_steps": n_samples - 1, "plan": kernels.fps_plan(n),
+           "serial_steps": n_samples - 1,
+           "plan": {**plan,
+                    "max_active_clusters": resident,
+                    "sms_used": len(set(smid.tolist())),
+                    "min_sms_a_sample": min(len(set(r.tolist()))
+                                            for r in per_sample)},
            "card": smi}
     if not timed:
         return row, idx
     bound, by = fps_work(b, n, n_samples)
     ms = time_ms(lambda: kernels.fps(pos, mask, n_samples))
+    dev_ms = device_ms_of(lambda: kernels.fps(pos, mask, n_samples), ms)
     row.update(
-        ms=ms, device_ms=device_ms_of(
-            lambda: kernels.fps(pos, mask, n_samples), ms),
+        ms=ms, device_ms=dev_ms,
+        step_us=dev_ms / max(n_samples - 1, 1) * 1e3,
         plain_ms=time_ms(lambda: fps_plain(pos, mask, n_samples), n=2,
                          warmup=0),
         plain_device_ms=plain_loop_device_ms(
@@ -1780,19 +1868,61 @@ def _fps_row(what: str, pos, mask, n_samples: int, smi: str,
     return row, idx
 
 
+def fps_plans_row(what: str, pos, mask, n_samples: int, want, smi: str
+                  ) -> dict:
+    """The device ms of one sampling under every cluster size that holds
+    its points (the plan's threads for each), each checked against the
+    plan's indices: what fps_plan's choice of cluster rests on."""
+    import torch
+    from dpcr_agb_tpu_torch import kernels
+    b, n = mask.shape
+    out = {}
+    for c in kernels.FPS_CLUSTERS:
+        try:
+            plan = kernels.fps_plan(n, b, cluster=c)
+        except ValueError:
+            continue   # too few CTAs' registers for n
+        got = kernels.fps(pos, mask, n_samples, plan=plan)
+        if not torch.equal(got, want):
+            raise AssertionError(f"fps {what}: a cluster of {c} gave other "
+                                 f"indices than the plan's")
+        fn = (lambda p=plan: kernels.fps(pos, mask, n_samples, plan=p))
+        dev = device_ms_of(fn, time_ms(fn, n=3, warmup=1))
+        out[c] = {"threads": plan["threads"], "per": plan["per"],
+                  "device_ms": dev,
+                  "step_us": dev / max(n_samples - 1, 1) * 1e3}
+    return {"phase": "fps_plans", "case": f"{what}: [{b},{n}] -> "
+            f"{n_samples}", "chosen": kernels.fps_plan(n, b)["cluster"],
+            "by_cluster": out, "card": smi}
+
+
 def phase_fps_kernels(key: str, bundle, batch, smi: str) -> list:
     """fps at each sampling that the forward of the first serving batch
     takes (the input's, then PointNeXt's set abstractions, each on the
-    points the one before kept): the path's rows. And, printed as a check
-    of its own, on the input's shapes with padded rows (sample 1's last
-    2000 masked and far), a sample with fewer valid rows than it samples
-    (sample 0: 5000) and an all-masked one (sample 2)."""
+    points the one before kept): the path's rows, each followed by its
+    fps_plans line; the input's timed also by torch.profiler on the same
+    calls as CUDA events. And, printed as checks of their own, on the
+    input's shapes: padded rows (sample 1's last 2000 masked and far), a
+    sample with fewer valid rows than it samples (sample 0: 5000) and an
+    all-masked one (sample 2); each sample's last quarter a copy of its
+    first (duplicates in other CTAs of the cluster), started at 7777;
+    and an integer grid of 12^3 cells (exact ties everywhere)."""
     import torch
+    from dpcr_agb_tpu_torch import kernels
     from dpcr_agb_tpu_torch.models import pointnext
     net = bundle.net
     tb = batch.to(bundle.device)
     pos, mask = tb.pos.float().contiguous(), tb.mask.contiguous()
     rows = []
+
+    def sampled(name, pos, mask, n_out):
+        row, idx = _fps_row(name, pos, mask, n_out, smi)
+        row["model"] = key
+        rows.append(row)
+        emit(row)
+        emit(fps_plans_row(name, pos, mask, n_out, idx, smi))
+        return idx
+
     if net.num_points and pos.shape[1] > net.num_points:
         padded_pos, padded = pos.clone(), mask.clone()
         padded[0, 5000:] = False
@@ -1802,21 +1932,33 @@ def phase_fps_kernels(key: str, bundle, batch, smi: str) -> list:
         row, _ = _fps_row("input, padded", padded_pos, padded,
                           net.num_points, smi, timed=False)
         emit({**row, "phase": "kernels_check", "model": key})
-        row, idx = _fps_row("input", pos, mask, net.num_points, smi)
-        rows.append(row)
+        quarter = pos.shape[1] // 4
+        cross = pos.clone()
+        cross[:, -quarter:] = pos[:, :quarter]
+        row, _ = _fps_row("input, duplicates across CTAs", cross, mask,
+                          net.num_points, smi, timed=False, start=7777)
+        emit({**row, "phase": "kernels_check", "model": key})
+        gen = torch.Generator(device=pos.device).manual_seed(0)
+        grid = torch.randint(0, 12, pos.shape, generator=gen,
+                             device=pos.device).float()
+        row, _ = _fps_row("input, integer grid", grid, mask,
+                          net.num_points, smi, timed=False)
+        emit({**row, "phase": "kernels_check", "model": key})
+        idx = sampled("input", pos, mask, net.num_points)
+        emit({"phase": "fps_timing", "model": key,
+              "case": f"input: {list(mask.shape)} -> {net.num_points}",
+              **fps_events_and_profiler_ms(
+                  lambda: kernels.fps(pos, mask, net.num_points)),
+              "card": smi})
         pos = pointnext._gather_rows(pos, idx).contiguous()
         mask = pointnext._gather_rows(mask, idx).contiguous()
     for name in getattr(net, "order", ()):
         block = getattr(net, name)
         if isinstance(block, pointnext._SetAbstraction):
             n_out = max(pos.shape[1] // block.stride, 1)
-            row, idx = _fps_row(name, pos, mask, n_out, smi)
-            rows.append(row)
+            idx = sampled(name, pos, mask, n_out)
             pos = pointnext._gather_rows(pos, idx).contiguous()
             mask = pointnext._gather_rows(mask, idx).contiguous()
-    for r in rows:
-        r["model"] = key
-        emit(r)
     del tb
     torch.cuda.empty_cache()
     return rows

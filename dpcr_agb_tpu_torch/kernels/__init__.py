@@ -7,6 +7,7 @@ tensors only; the CPU path of each op is its plain PyTorch version in
 `dpcr_agb_tpu_torch.ops`."""
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -641,33 +642,108 @@ def gather_rows_bwd(g: torch.Tensor, rev: Tuple[torch.Tensor, torch.Tensor],
     return dx
 
 
-FPS_MAX_POINTS = 16384      # csrc/fps.cu: 32 points a thread, 512 threads
-# points a thread -> the most threads a block may have (csrc/fps.cu: the
-# registers of its running distances)
-_FPS_THREADS = {1: 1024, 2: 1024, 4: 1024, 8: 1024, 16: 768, 32: 512}
+FPS_CLUSTERS = (1, 2, 4, 8)    # csrc/fps.cu: portable cluster sizes
+FPS_WIDTHS = (1, 2, 4, 6, 8, 12, 16, 24)   # its points a thread
+FPS_MAX_SLOTS = 128            # cluster x warps: a warp's best a slot
+FPS_CTA_POINTS = 512           # points a CTA the plan aims below
+FPS_WARP_PER = 16              # a sample of up to 32 x 16 points: one warp
+FPS_SMEM_BYTES = 2 * FPS_MAX_SLOTS * (16 + 4) + 16   # slot tables, mbarriers
+# registers a thread of each width (`nvcc -Xptxas=-v`, CUDA 12.8, sm_90a,
+# the CTA-cluster instance; chip_smoke.py's device line prints every
+# instance and fails on a spill)
+FPS_REGISTERS = {1: 56, 2: 58, 4: 64, 6: 72, 8: 80, 12: 114, 16: 150,
+                 24: 225}
 
 
-def fps_plan(n: int) -> dict:
-    """How `fps` holds a sample of n points (pure): the fewest points a
-    thread (1 to 32, in registers) whose most threads cover n, the threads
-    a multiple of 32, the positions in shared memory (12 bytes a point,
-    padded to threads x points a thread). Raises, naming n, past
+def fps_max_threads(per: int) -> int:
+    """The most threads a CTA of `per` points a thread may have (the
+    kernel's launch bounds: 128 registers a thread up to 12 points, 255
+    beyond)."""
+    return 512 if per <= 12 else 256
+
+
+def _fps_cta_threads(cluster: int) -> int:
+    # at most 32 slots (one a lane of the final reduction), 16 warps
+    return 32 * min(16, 32 // cluster)
+
+
+def _fps_cta_cap(cluster: int) -> int:
+    t = _fps_cta_threads(cluster)
+    return t * max(p for p in FPS_WIDTHS if fps_max_threads(p) >= t)
+
+
+FPS_MAX_POINTS = max(c * _fps_cta_cap(c) for c in FPS_CLUSTERS)   # 24576
+
+
+def fps_plan(n: int, b: int, sms: int = H100_SMS,
+             cluster: Optional[int] = None) -> dict:
+    """How `fps` spreads a batch of b samples of n points (pure): one
+    cluster of `cluster` CTAs a sample, the sample's points in registers,
+    `per` a thread. The cluster is the smallest that leaves a CTA at most
+    FPS_CTA_POINTS points, or 8 (`cluster` forces one that holds n).
+    Threads: one warp where a cluster of one holds at most 32 x
+    FPS_WARP_PER points (the kernel's instance with no slots and no
+    barrier), else at least 4 points a thread, at most 32 slots in the
+    cluster (warps x cluster) and 16 warps; `per` the smallest template
+    width that covers the CTA's points. `resident_clusters`: how many such
+    clusters the card's `sms` SMs hold at once by registers, threads and
+    the 32 CTAs an SM (cudaOccupancyMaxActiveClusters says it on the card;
+    a GPC holds whole clusters only, so it may be fewer): the batch runs in
+    one wave where b is at most that. Raises, naming n, past
     FPS_MAX_POINTS."""
+    return dict(_fps_plan(n, b, sms, cluster))
+
+
+@lru_cache(maxsize=256)
+def _fps_plan(n: int, b: int, sms: int, cluster: Optional[int]) -> dict:
+    # fps_plan's, cached: the wrapper reads it at every call
     if not 1 <= n <= FPS_MAX_POINTS:
         raise ValueError(f"fps: a sample of {n} points; the kernel holds "
-                         f"1 to {FPS_MAX_POINTS} (positions in shared "
-                         f"memory, 32 distances a thread in registers)")
-    per = next(p for p, t in _FPS_THREADS.items() if -(-n // p) <= t)
-    threads = 32 * -(-(-(-n // per)) // 32)
-    return {"per": per, "threads": threads,
-            "smem_bytes": 3 * 4 * threads * per}
+                         f"1 to {FPS_MAX_POINTS} (a cluster of at most "
+                         f"{FPS_CLUSTERS[-1]} CTAs, the points in "
+                         f"registers)")
+    need = min(c for c in FPS_CLUSTERS if n <= c * _fps_cta_cap(c))
+    if cluster is None:
+        cluster = min((c for c in FPS_CLUSTERS
+                       if -(-n // c) <= FPS_CTA_POINTS),
+                      default=FPS_CLUSTERS[-1])
+    elif cluster not in FPS_CLUSTERS or cluster < need:
+        raise ValueError(f"fps: a cluster of {cluster} for {n} points "
+                         f"(one of {FPS_CLUSTERS}, at least {need})")
+    points = -(-n // cluster)
+    if cluster == 1 and points <= 32 * FPS_WARP_PER:
+        threads = 32        # one warp: the kernel's barrier-free instance
+    else:
+        threads = min(_fps_cta_threads(cluster), 32 * -(-points // 128))
+    per = min(p for p in FPS_WIDTHS
+              if p * threads >= points and threads <= fps_max_threads(p))
+    regs = -(-FPS_REGISTERS[per] // 8) * 8    # allocated 8 at a time
+    per_sm = min(32, 2048 // threads, 65536 // (regs * threads))
+    return {"cluster": cluster, "ctas": b * cluster, "threads": threads,
+            "per": per, "points_per_cta": points,
+            "smem_bytes": FPS_SMEM_BYTES,
+            "resident_clusters": sms * per_sm // cluster}
+
+
+def fps_active_clusters(plan: dict) -> int:
+    """How many clusters of `plan`'s shape the current card holds at once
+    (cudaOccupancyMaxActiveClusters): one wave if at least the batch."""
+    got = build.entry("fps_occupancy")(plan["per"], plan["threads"],
+                                       plan["cluster"])
+    if got < 0:
+        raise RuntimeError(f"fps occupancy query failed: {got} (-2: a shape "
+                           f"the kernel does not take, else minus a CUDA "
+                           f"error code)")
+    return got
 
 
 def fps(pos: torch.Tensor, mask: torch.Tensor, n_samples: int,
-        start: int = 0) -> torch.Tensor:
+        start: int = 0, plan: Optional[dict] = None,
+        smid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Farthest point sampling (`ops.neighbors.fps_plain`'s function and
     bits): pos [B,N,3] f32, mask [B,N] bool -> [B,n_samples] int64, one
-    block a sample, one launch."""
+    cluster of CTAs a sample (`fps_plan(N, B)` unless `plan` is given),
+    one launch. `smid`, int32 [plan's ctas], takes each CTA's SM."""
     if not pos.is_cuda:
         raise ValueError("fps takes CUDA tensors")
     dev = pos.device
@@ -677,16 +753,24 @@ def fps(pos: torch.Tensor, mask: torch.Tensor, n_samples: int,
     if c != 3 or mask.shape != (b, n):
         raise ValueError(f"fps: pos {tuple(pos.shape)}, mask "
                          f"{tuple(mask.shape)} (need [B,N,3] and [B,N])")
-    plan = fps_plan(n)
+    if plan is None:
+        plan = _fps_plan(n, b, _sm_count(dev), None)
     if n_samples < 1 or not 0 <= start < n:
         raise ValueError(f"fps: n_samples {n_samples}, start {start} for "
                          f"{n} points")
     out = torch.empty((b, n_samples), dtype=torch.int64, device=dev)
     if b == 0:
         return out
+    if smid is not None:
+        _require(smid, "smid", torch.int32, 1, dev)
+        if smid.numel() != b * plan["cluster"]:
+            raise ValueError(f"fps: smid {tuple(smid.shape)} for "
+                             f"{b * plan['cluster']} CTAs")
     rc = _on_device(dev, build.entry("fps"), pos.data_ptr(),
-                    mask.data_ptr(), out.data_ptr(), b, n, n_samples, start,
-                    plan["per"], plan["threads"])
+                    mask.data_ptr(), out.data_ptr(),
+                    None if smid is None else smid.data_ptr(), b, n,
+                    n_samples, start, plan["cluster"], plan["threads"],
+                    plan["per"])
     _check_rc(rc, "fps")
     LAUNCHES["fps"] += 1
     return out

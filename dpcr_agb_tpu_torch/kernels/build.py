@@ -56,7 +56,8 @@ LIBRARIES = {
                          [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "firewall_copy": ("firewall_copy.cu", "firewall_copy_launch",
                       [_I, _P, _P, *[_L] * 10, _P]),
-    "fps": ("fps.cu", "fps_launch", [_P, _P, _P, *[_I] * 6, _P]),
+    "fps": ("fps.cu", "fps_launch", [*[_P] * 4, *[_I] * 7, _P]),
+    "fps_occupancy": ("fps.cu", "fps_max_active_clusters", [_I, _I, _I]),
 }
 
 _ENTRY: Dict[str, object] = {}

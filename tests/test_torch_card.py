@@ -16,7 +16,9 @@ same bits twice, and its C entry refusing shapes past 32-bit offsets
 and taking the largest ones below; MPointNet's and SimplestNet's forwards
 on the card, which launch none of the port's kernels and agree with the
 CPU's; `fps` against its plain version, indices exactly and the same bits
-twice, at PointNeXt's samplings and its edges.
+twice, at PointNeXt's samplings, at B 1 and 32 and at its edges
+(duplicates in different CTAs of a cluster, an integer grid's exact ties,
+starts other than 0), under each cluster size.
 This file imports no JAX, so it runs on the GPU machine:
 
     python -m pytest --noconftest -m cuda tests/test_torch_imports.py \\
@@ -549,43 +551,93 @@ def test_pointwise_model_on_the_card_launches_no_kernel_and_matches_the_cpu(
                                    msg=key)
 
 
+def _fps_cloud(rng, b, n, kind):
+    """pos [b,n,3] f32 and mask [b,n]: uniform in the unit cube; "edges":
+    sample 1 padded (rows 2000 on masked and far), sample 2 with 700 valid
+    rows, sample 3 all masked, sample 4 with exact duplicates; "cross":
+    each sample's last quarter a copy of its first, so that a duplicate
+    lies in another CTA of the cluster; "grid": integer coordinates in a
+    12 x 12 x 12 grid, where many distances tie exactly."""
+    pos = rng.uniform(0, 1, (b, n, 3)).astype(np.float32)
+    mask = np.ones((b, n), bool)
+    if kind == "edges":
+        mask[1, 2000:] = False
+        pos[1, 2000:] = 1e6
+        mask[2, 700:] = False
+        mask[3] = False
+        pos[4, 1000:2000] = pos[4, :1000]
+    elif kind == "cross":
+        q = n // 4
+        pos[:, n - q:] = pos[:, :q]
+    elif kind == "grid":
+        pos = rng.integers(0, 12, (b, n, 3)).astype(np.float32)
+    return pos, mask
+
+
 @pytest.mark.cuda
 def test_fps_matches_its_plain_version_and_repeats():
     """`fps` against `fps_plain` on the card, indices exactly, the same
     bits in two calls: PointNeXt's samplings (12000 -> 8192, then / 4 down
-    to 32), the kernel's largest N (16384), one point, padded rows (far
+    to 32), one plot (B 1) and the paper's training batch (B 32) at 12000
+    -> 8192, the kernel's largest N (24576), one point, padded rows (far
     values), a sample with fewer valid rows than it samples, an all-masked
-    one, exact duplicates and a start other than 0; one launch a call. N
-    past the kernel's shared memory and CPU tensors raise."""
+    one, exact duplicates in one CTA and in different CTAs of a cluster,
+    an integer grid (exact ties everywhere) and starts other than 0; one
+    launch a call. N past the cluster's registers and CPU tensors
+    raise."""
     _card()
     from dpcr_agb_tpu_torch import kernels
     from dpcr_agb_tpu_torch.ops.neighbors import fps, fps_plain
     rng = np.random.default_rng(13)
-    cases = [(4, 12000, 8192, 0), (4, 8192, 2048, 0), (3, 2048, 512, 0),
-             (3, 512, 128, 5), (3, 128, 32, 0), (2, 16384, 4096, 0),
-             (2, 1, 3, 0), (5, 3000, 2000, 0)]
-    for b, n, ns, start in cases:
-        pos = rng.uniform(0, 1, (b, n, 3)).astype(np.float32)
-        mask = np.ones((b, n), bool)
-        if b == 5:
-            mask[1, 2000:] = False
-            pos[1, 2000:] = 1e6
-            mask[2, 700:] = False
-            mask[3] = False
-            pos[4, 1000:2000] = pos[4, :1000]
+    cases = [(4, 12000, 8192, 0, "uniform"), (4, 8192, 2048, 0, "uniform"),
+             (3, 2048, 512, 0, "uniform"), (3, 512, 128, 5, "uniform"),
+             (3, 128, 32, 0, "uniform"), (2, 24576, 4096, 0, "uniform"),
+             (2, 1, 3, 0, "uniform"), (5, 3000, 2000, 0, "edges"),
+             (1, 12000, 8192, 0, "uniform"), (32, 12000, 8192, 0, "uniform"),
+             (4, 12000, 8192, 7777, "cross"), (16, 8192, 2048, 0, "cross"),
+             (4, 12000, 8192, 0, "grid"), (3, 2048, 512, 3, "grid")]
+    for b, n, ns, start, kind in cases:
+        pos, mask = _fps_cloud(rng, b, n, kind)
         p = torch.from_numpy(pos).cuda()
         m = torch.from_numpy(mask).cuda()
         kernels.reset_launches()
         got = fps(p, m, ns, start)
+        assert kernels.LAUNCHES["fps"] == 1
         again = kernels.fps(p, m, ns, start)
         assert kernels.LAUNCHES["fps"] == 2
         want = fps_plain(p, m, ns, start)
         assert got.dtype == torch.int64 and got.shape == (b, ns)
-        assert torch.equal(got, want), (b, n, ns)
-        assert torch.equal(got, again), (b, n, ns)
-    with pytest.raises(ValueError, match="16385 points"):
-        kernels.fps(torch.zeros(1, 16385, 3, device="cuda"),
-                    torch.ones(1, 16385, dtype=torch.bool, device="cuda"), 8)
+        assert torch.equal(got, want), (b, n, ns, kind)
+        assert torch.equal(got, again), (b, n, ns, kind)
+    with pytest.raises(ValueError, match="24577 points"):
+        kernels.fps(torch.zeros(1, 24577, 3, device="cuda"),
+                    torch.ones(1, 24577, dtype=torch.bool, device="cuda"), 8)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.fps(torch.zeros(1, 8, 3), torch.ones(1, 8, dtype=torch.bool),
                     4)
+
+
+@pytest.mark.cuda
+def test_fps_every_cluster_size_gives_the_plain_indices():
+    """Each cluster size the kernel takes (1, 2, 4, 8 CTAs a sample, the
+    plan's threads for it) on the cross-CTA duplicates and the integer
+    grid: indices equal to `fps_plain`'s, one launch a call, and every CTA
+    of the launch reporting its SM."""
+    _card()
+    from dpcr_agb_tpu_torch import kernels
+    from dpcr_agb_tpu_torch.ops.neighbors import fps_plain
+    rng = np.random.default_rng(17)
+    for kind in ("cross", "grid"):
+        pos, mask = _fps_cloud(rng, 4, 6000, kind)
+        p = torch.from_numpy(pos).cuda()
+        m = torch.from_numpy(mask).cuda()
+        want = fps_plain(p, m, 1500, 11)
+        for c in kernels.FPS_CLUSTERS:
+            plan = kernels.fps_plan(6000, 4, cluster=c)
+            smid = torch.full((plan["ctas"],), -1, dtype=torch.int32,
+                              device="cuda")
+            kernels.reset_launches()
+            got = kernels.fps(p, m, 1500, 11, plan=plan, smid=smid)
+            assert kernels.LAUNCHES["fps"] == 1
+            assert torch.equal(got, want), (kind, c)
+            assert (smid >= 0).all(), (kind, c)

@@ -6,7 +6,8 @@ so no JAX init is compiled).
 - `fps`: `ops.neighbors.fps_plain` returns the JAX `fps`'s indices exactly,
   vmapped over a batch with padded rows, a sample with fewer valid rows
   than n_samples, an all-masked sample and exact duplicate points, N 64 to
-  2048; the CPU dispatch and `kernels.fps_plan` at the main path's shapes.
+  2048; the CPU dispatch and `kernels.fps_plan(n, b)` at the main path's
+  shapes and at B 1, 16 and 32.
 - `_LocalAggregation`, `_SetAbstraction`, `_InvResMLP` with train-mode and
   eval-mode BN: outputs and running stats, rtol 1e-5 with atol 1e-5 of
   max|JAX| (the sampled positions and mask exactly).
@@ -132,24 +133,62 @@ def test_fps_plain_matches_jax(n):
 
 def test_fps_dispatch_and_kernel_plan():
     """On CPU tensors `ops.neighbors.fps` is the plain version and the
-    kernel's wrapper refuses them; the kernel's plan at the main path's
-    shapes, and a refusal naming N past its shared memory."""
+    kernel's wrapper refuses them; the kernel's plan at the serving batch's
+    samplings (bs16: a cluster of 8 CTAs, 128 CTAs in all, on the 12000-
+    and 8192-point ones), and a refusal naming N past the cluster's
+    registers."""
     rng = np.random.default_rng(3)
     pos, mask, ns = _fps_case(rng, 128)
     p, m = torch.from_numpy(pos), torch.from_numpy(mask)
     assert torch.equal(neighbors.fps(p, m, ns), neighbors.fps_plain(p, m, ns))
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.fps(p, m, ns)
-    plans = {n: kernels.fps_plan(n) for n in (12000, 8192, 2048, 512, 128,
-                                              16384, 1)}
-    assert {n: (pl["per"], pl["threads"]) for n, pl in plans.items()} == {
-        12000: (16, 768), 8192: (8, 1024), 2048: (2, 1024), 512: (1, 512),
-        128: (1, 128), 16384: (32, 512), 1: (1, 32)}
-    assert plans[12000]["smem_bytes"] == 12 * 768 * 16
-    assert max(pl["smem_bytes"] for pl in plans.values()) <= \
-        kernels.SMEM_PER_BLOCK
-    with pytest.raises(ValueError, match="16385 points"):
-        kernels.fps_plan(16385)
+    plans = {n: kernels.fps_plan(n, 16) for n in (12000, 8192, 2048, 512,
+                                                  128, 24576, 1)}
+    assert {n: (pl["cluster"], pl["threads"], pl["per"])
+            for n, pl in plans.items()} == {
+        12000: (8, 128, 12), 8192: (8, 128, 8), 2048: (4, 128, 4),
+        512: (1, 32, 16), 128: (1, 32, 4), 24576: (8, 128, 24),
+        1: (1, 32, 1)}
+    assert plans[12000]["ctas"] == 128 and kernels.FPS_MAX_POINTS == 24576
+    assert kernels.fps_plan(12000, 32)["cluster"] == 8
+    assert kernels.fps_plan(2048, 16, cluster=1)["cluster"] == 1
+    with pytest.raises(ValueError, match="24577 points"):
+        kernels.fps_plan(24577, 16)
+    for c in (1, 3):   # 12000 points need 2 CTAs' registers; 3 is no size
+        with pytest.raises(ValueError, match=f"a cluster of {c} for 12000"):
+            kernels.fps_plan(12000, 16, cluster=c)
+
+
+@pytest.mark.parametrize("b", [1, 16, 32])
+@pytest.mark.parametrize("n", [12000, 8192, 2048, 512, 128, 32, 1])
+def test_fps_plan_covers_a_sample(n, b):
+    """`kernels.fps_plan(n, b)` at the main path's samplings and at one
+    plot served, the serving batch and the paper's training batch: the
+    cluster's CTAs cover n, each of them holds points, the cluster is a
+    portable size (<= 8) with at most 128 slots, registers hold the
+    template's points with no spill budget at its threads, shared memory
+    fits a CTA, the B clusters are resident at once (one wave) by the
+    plan's count of registers and threads, and one point past the limit
+    is refused naming N."""
+    plan = kernels.fps_plan(n, b)
+    c, t, per = plan["cluster"], plan["threads"], plan["per"]
+    assert c in kernels.FPS_CLUSTERS and c <= 8
+    assert plan["ctas"] == b * c
+    assert c * t * per >= n and (c - 1) * t * per < n
+    assert plan["points_per_cta"] == -(-n // c) <= t * per
+    assert per in kernels.FPS_WIDTHS and t % 32 == 0 and 32 <= t
+    assert c * (t // 32) <= kernels.FPS_MAX_SLOTS
+    assert t <= kernels.fps_max_threads(per)
+    regs = kernels.FPS_REGISTERS[per]
+    assert 4 * per < regs <= min(255, 65536 // kernels.fps_max_threads(per))
+    assert t * regs <= 65536
+    assert plan["smem_bytes"] <= kernels.SMEM_PER_BLOCK
+    assert b <= plan["resident_clusters"]
+    assert -(-n // c) <= kernels.FPS_CTA_POINTS or c == 8
+    with pytest.raises(ValueError, match=f"{kernels.FPS_MAX_POINTS + 1} "
+                                         f"points"):
+        kernels.fps_plan(kernels.FPS_MAX_POINTS + 1, b)
 
 
 # ---- modules ---------------------------------------------------------------

@@ -26,7 +26,8 @@ from dpcr_agb_tpu_torch.models.base import InstanceSpec, compute_reg_loss
 from dpcr_agb_tpu_torch.models.minkowski import SparseResNet
 from dpcr_agb_tpu_torch.training import optim
 from dpcr_agb_tpu_torch.training.state import load_named_optimizer_state
-from dpcr_agb_tpu_torch.weights import from_flax, opt_state_from_optax
+from dpcr_agb_tpu_torch.weights import (from_flax, opt_state_from_optax,
+                                        to_flax)
 
 CAWR = {"class": "CosineAnnealingWarmRestarts",
         "params": {"T_0": 10, "T_mult": 2}}
@@ -260,7 +261,11 @@ def _runner(params, stats, opt_state=None, step=0):
 def _check_step(runner, jax_run, i):
     """Port step i from JAX state i: loss, clipped grads, new params and BN
     running stats (f32: loss rel 1e-5, each gradient rel-L2 1e-4, params
-    and stats rel 1e-4)."""
+    and stats rel 1e-4). A parameter whose gradient is f32 rounding noise
+    on both sides (the `zero` set) is held against the JAX chain's update
+    of the port's own gradient from JAX state i: in AdaBelief's adaptive
+    branch its step is lr * m_hat / (sqrt(s_hat) + eps), a ratio of two
+    noises, so only the same gradient defines it."""
     out = runner.train(Batch(**jax_run["batches"][i]))
     np.testing.assert_allclose(float(out["loss"]), jax_run["losses"][i],
                                rtol=1e-5)
@@ -282,6 +287,12 @@ def _check_step(runner, jax_run, i):
             assert _rel(a, b) < 1e-4, (name, _rel(a, b))
     p, s, _ = jax_run["states"][i + 1]
     want = from_flax(p, s)
+    p0, _, o0 = jax_run["states"][i]
+    mixed, _ = to_flax({name: got[name].grad if name in zero else g
+                        for name, g in want_g.items()})
+    updates, _ = _jtx().update(mixed, o0, p0)
+    chain = from_flax(_np(optax.apply_updates(p0, updates)), None)
+    want.update({name: chain[name] for name in zero})
     sd = runner.net.state_dict()
     for name, w in want.items():
         np.testing.assert_allclose(sd[name].numpy(), w.numpy(), rtol=1e-4,
