@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--seed 0] [--profile] [--out FILE]
                           [--only SENet14|KPConv|SENet14-denseL0|SENet50|
                                   MPointNet|SimplestNet|PointNeXt|PointNet|
+                                  SENet14-map|SENet50-map|
                                   trainer|trainer-kpconv|trainer-pointnext|
-                                  trainer-pointnet]
+                                  trainer-pointnet|trainer-map|treeadd]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   device   the card's name and power limit, the float32 settings pinned by
@@ -142,6 +143,29 @@ kernel is `fps`):
            once; prints the `.ckpt`'s bytes and load seconds (decoded to
            tensors on the card), points per plot, LAZ decode ms per plot,
            both routes' predict_main_seconds, max_abs_diff and bit_equal
+Then the sparse-voxel nets in map mode (`dense_dims=null`, full width, f32:
+SENet14-map and SENet50-map), which launch none of the
+port's kernels: their convs gather rows through kernel maps that the host
+builds (`ops/host_pyramid.py`, native route) and multiply them on the card:
+  data     the serving batch collated and its maps built once on the host
+           (host_map_ms; every level's cap and voxels, the maps' MB)
+  map_serve  `predict.main` from a port checkpoint (no kernel launch,
+           every plot's pyramid built on the native route, 16 finite
+           rows); on the serving batch: forward_ms (host batch to output),
+           h2d_ms (`Batch.to`) and h2d_pinned_ms (`device_put` from pinned
+           memory), the device-resident forward, peak memory, a
+           torch.profiler split of the forward by kernel kind (row
+           gathers, matmuls, the gathers' index_put backward, other) with
+           the device's idle share; f32: map mode against the dense path
+           (sparse level 0) with the same weights, their BN running means
+           and offsets set to 0 (where the two are one function), on this
+           batch, which fits the volume and the caps: rtol 2e-3, atol 2e-3
+           * max|dense|
+  map_train  `train.main`'s input= form with dense_dims=null for 2 steps
+           (finite losses, no launch in any step, the native route for
+           every sample); on its first batch: host_map_ms, h2d_ms, the
+           step of a fresh model on the device-resident batch, peak memory
+           and the profiler's split of the step
 Then (`--only trainer` runs it alone):
   trainer  the README's training command through the port's entry points
            (`train.main`: SENet14, sparse level 0, data=instance/synthetic/
@@ -184,6 +208,22 @@ Then (`--only trainer` runs it alone):
            `data.transform_type=fixed_xy`, `training=nfi/pointnet`), on 48
            plots: f32 under enable_mixed (no bf16 form), fps 5 (PointNet
            1) a forward and no other kernel, eval.main bit-equal
+  trainer_map (`--only trainer-map`) the same for SENet14's command with
+           `models.SENet14.extra_options.dense_dims=null`, on 24 plots: no
+           kernel launch anywhere; host_pyramid_ms of each batch, its maps
+           built in the loader's threads
+  treeadd  (`--only treeadd`) docs/treedb.md through the port: a synthetic
+           treeDB (the port's generate_tree_db, 40 trees) processed by the
+           port's train route (SimplestNet on data=instance/treeDB/ALS,
+           transform trees, one epoch: the .npz objects with pos, x and
+           local_stats), then SENet14 (sparse level 0, the trainer's
+           command) one epoch on 32 NFI-like plots, then `eval.main` on
+           its checkpoint with data.transform_type=sparse_xy_treeadd_eval
+           and with sparse_xy: the points RadiusObjectAdder added to each
+           plot (at least one tree each, none in the plain eval),
+           stem_sites and max_pool_k3s2_rows launched once a forward, each
+           eval's seconds and how far the trees moved the test
+           predictions
 Then a total line with the script's seconds, the kernels summary line, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`. Without CUDA (or without the rest of
 the repository) it exits non-zero before printing any result."""
@@ -310,6 +350,13 @@ MODELS = {
                  "shares": "input:", "forward": ("fps",), "backward": (),
                  "exact": {"forward": _only(fps=1), "step": _only(fps=1)},
                  "conditioned": True},
+    # map mode (dense_dims null): gathers through host-built kernel maps
+    # and matmuls, none of the port's kernels; its own phases
+    # (run_map_model), in f32 (trainer-map trains it in bf16)
+    "SENet14-map": {"model_name": "SENet14", **_NO_KERNELS,
+                    "map_mode": ("float32",)},
+    "SENet50-map": {"model_name": "SENet50", **_NO_KERNELS,
+                    "map_mode": ("float32",)},
 }
 # the KPConv layers whose inputs the kernels phase takes from the first
 # serving batch: (block, case)
@@ -2666,10 +2713,22 @@ def train_reproducible(key: str, dtname: str, args: list, first: dict,
     return out
 
 
-def device_profile(fn, reps: int = 3) -> dict:
+# map mode's device kernels by kind: the row gathers, the matmuls, and
+# the gathers' backward (index_put with accumulation: a sort of the
+# indices, then indexing_backward_kernel)
+MAP_KINDS = (("scatter", r"indexing_backward|index_put|[Rr]adix[Ss]ort|"
+              r"DeviceSegmentedSort|DeviceMergeSort"),
+             ("gather", r"index_elementwise|gather|index_select|"
+              r"indexSelect|index_kernel"),
+             ("matmul", r"gemm|Gemm|nvjet|xmma|cutlass|cublas"))
+
+
+def device_profile(fn, reps: int = 3, kinds=None) -> dict:
     """torch.profiler over `reps` calls: device time by kernel (top 12, and
     every kernel of the port), and the device's busy share of the wall
-    time."""
+    time; with `kinds` ((name, regex), ...) also the device ms a call of
+    each kind (a kernel counts under the first that matches its name, else
+    under "other")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2700,11 +2759,23 @@ def device_profile(fn, reps: int = 3) -> dict:
 
     # the port's own kernels (namespace dpcr), whatever their rank
     own = [row(e) for e in events if "dpcr::" in e.key]
-    return {"reps": reps, "wall_ms_per_rep": wall_us / reps / 1e3,
-            "device_busy_ms_per_rep": busy_us / reps / 1e3,
-            "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
-            "top": [row(e) for e in top], "port_kernels": own,
-            "port_kernels_ms_per_rep": sum(r["ms_per_rep"] for r in own)}
+    out = {"reps": reps, "wall_ms_per_rep": wall_us / reps / 1e3,
+           "device_busy_ms_per_rep": busy_us / reps / 1e3,
+           "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
+           "top": [row(e) for e in top], "port_kernels": own,
+           "port_kernels_ms_per_rep": sum(r["ms_per_rep"] for r in own)}
+    if kinds is not None:
+        split = {name: 0.0 for name, _ in kinds}
+        split["other"] = 0.0
+        for e in events:
+            kind = next((n for n, rx in kinds if re.search(rx, e.key)),
+                        "other")
+            split[kind] += e.self_device_time_total / reps / 1e3
+        out["ms_by_kind"] = split
+        out["share_by_kind"] = {k: v / max(out["device_busy_ms_per_rep"],
+                                           1e-12)
+                                for k, v in split.items()}
+    return out
 
 
 def run_model(key: str, tmp: str, plot_dir: str, smi: str, seed: int,
@@ -2828,6 +2899,15 @@ TRAINERS = {
         "forward": {"fps": 1}, "step": {}, "kernels_phase": "fps",
         "rows": lambda r: r["case"].startswith("input:"),
         "eval_bit_equal": True, "dtype": "float32", "plots": 48},
+    # SENet14's command in map mode: no kernel; the host maps built in the
+    # loader's threads
+    "trainer-map": {
+        "phase": "trainer_map", "model_name": "SENet14",
+        "groups": ["models=instance/minkowski_baseline",
+                   "data.transform_type=sparse_xy", "training=nfi/minkowski",
+                   "models.SENet14.extra_options.dense_dims=null"],
+        "forward": {}, "step": {}, "kernels_phase": None,
+        "eval_bit_equal": False, "plots": 24},
 }
 
 
@@ -3191,12 +3271,425 @@ def phase_trainer(tmp: str, smi: str, krows: list,
            "calibrate_main_seconds": cal_seconds,
            "calibrate_forwards": ccount.calls["calibrate"],
            "bn_stats_moved": int(moved), "card": smi}
-    if model_name == "KPConv":
+    if model_name == "KPConv" or key == "trainer-map":
         # the train run's batches (train, val and test stages), each
         # timed in its loader thread
         out["host_pyramid_ms_per_batch"] = clock.ms
         out["host_pyramid_ms_median"] = statistics.median(clock.ms)
     emit(out)
+
+
+# Map mode (`dense_dims=null`, SENet14-map and SENet50-map): the host
+# builds each batch's levels and kernel maps (343 binary searches a voxel
+# for the stem alone), serially in `predict.make_batches` and in the
+# `input=` form of train.main, so its phases keep the builds few
+MAP_TRAIN_STEPS = 2
+# map mode against the dense path on one batch that fits both: the JAX
+# package's own check (tests/test_host_pyramid.py), 2e-3, taken relative
+# to the outputs' size (rtol, and atol 2e-3 * max|dense|): the JAX check's
+# freshly initialised net outputs ~1e-9, where an absolute 2e-3 holds
+# anything
+MAP_VS_DENSE_TOL = 2e-3
+
+
+def reset_routes() -> None:
+    from dpcr_agb_tpu_torch.ops import host_pyramid
+    for k in host_pyramid.ROUTE_CALLS:
+        host_pyramid.ROUTE_CALLS[k] = 0
+
+
+def check_native_route(what: str, samples: int) -> dict:
+    """Every map-mode pyramid since reset_routes() was built on the native
+    route, one a sample."""
+    from dpcr_agb_tpu_torch.ops import host_pyramid
+    got = dict(host_pyramid.ROUTE_CALLS)
+    if got != {"native": samples, "numpy": 0}:
+        raise AssertionError(f"{what}: host pyramid routes {got}, expected "
+                             f"{samples} native builds and no numpy one")
+    return got
+
+
+def map_batch_facts(net, host_batch) -> dict:
+    """A map-mode host batch: its padded voxel count, each level's cap and
+    voxels (the batch's sum and a sample's largest), the aux's bytes."""
+    aux = host_batch.aux
+    plan = net.pyramid_plan(int(host_batch.coords.shape[1]))
+    masks = [np.asarray(aux[f"mask{l}"]) for l in range(plan["n_levels"])]
+    return {"v_bucket": int(host_batch.coords.shape[1]),
+            "occupied_voxels": int(np.asarray(host_batch.mask).sum()),
+            "level_caps": list(plan["caps"]),
+            "level_voxels": [int(m.sum()) for m in masks],
+            "level_max_per_sample": [int(m.sum(1).max()) for m in masks],
+            "aux_mb": sum(np.asarray(a).nbytes for a in aux.values()) / 1e6,
+            "stem_map_shape": list(np.asarray(aux["stem_map"]).shape)}
+
+
+def map_vs_dense(bundle, collated, host_batch, what: str) -> dict:
+    """The map-mode net and the dense path (the default dense_dims, sparse
+    level 0) with the same weights on the same plots: both raw outputs
+    within MAP_VS_DENSE_TOL, on a batch that fits the volume (the dense
+    post_collate keeps every row) and the caps (no level full).
+
+    The two are one function only where every BN maps 0 to 0: the dense
+    path normalizes its empty cells too, and its next conv reads them,
+    where map mode reads the zero shadow. So both nets take the
+    checkpoint's weights with each BN's running mean and offset set to 0
+    (its scale and running variance kept), as they are at initialisation,
+    where the JAX package makes its check."""
+    import copy
+    import torch
+    from dpcr_agb_tpu_torch.models.factory import (build_model,
+                                                    make_post_collate)
+    from dpcr_agb_tpu_torch.nn.norm import MaskedBatchNorm
+    mapped = copy.deepcopy(bundle.net)
+    with torch.no_grad():
+        for m in mapped.modules():
+            if isinstance(m, MaskedBatchNorm):
+                m.mean.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
+        raw = mapped(host_batch.to(bundle.device)).float()
+    option = dict(bundle.option)
+    option["extra_options"] = {k: v for k, v in option["extra_options"]
+                               .items() if k != "dense_dims"}
+    net, _ = build_model(option, raw.shape[1], mapped.stem_conv.kernel
+                         .shape[1])
+    net.load_state_dict(mapped.state_dict())
+    net.to(bundle.device).eval()
+    dense_batch = make_post_collate(net)(collated)
+    kept = int(np.asarray(dense_batch.mask).sum())
+    facts = map_batch_facts(bundle.net, host_batch)
+    full = [l for l, (n, c) in enumerate(zip(facts["level_max_per_sample"],
+                                              facts["level_caps"]))
+            if n >= c]
+    if kept != facts["occupied_voxels"] or full:
+        raise AssertionError(f"{what}: the batch does not fit both paths "
+                             f"(dense keeps {kept} of "
+                             f"{facts['occupied_voxels']} voxels; levels at "
+                             f"their cap {full})")
+    with torch.no_grad():
+        dense = net(dense_batch.to(bundle.device)).float()
+    err = _check_close(f"{what}: map mode against the dense path", raw,
+                       dense, MAP_VS_DENSE_TOL,
+                       MAP_VS_DENSE_TOL * _amax(dense))
+    del net, mapped
+    return {"map_vs_dense_max_abs_err": err,
+            "map_vs_dense_max_abs_dense": _amax(dense),
+            "map_vs_dense_tolerance": f"rtol {MAP_VS_DENSE_TOL}, atol "
+                                      f"{MAP_VS_DENSE_TOL} * max|dense|; "
+                                      "BN running means and offsets 0"}
+
+
+def phase_map_serve(key: str, dtname: str, ckpt: str, plot_dir: str,
+                    out_dir: str, collated, host_batch, host_ms: float,
+                    smi: str) -> dict:
+    """predict.main in map mode (no kernel launch, the native host route
+    for each plot, 16 finite rows), then on the serving batch whose maps
+    the host built once (`host_ms`): forward_ms (host batch to output),
+    the copy to the card (`Batch.to`, pageable, and `device_put` from
+    pinned memory), the device-resident forward, map against dense (f32),
+    a torch.profiler split by kernel kind, peak memory."""
+    import torch
+    from dpcr_agb_tpu_torch import kernels, predict
+    from dpcr_agb_tpu_torch.data.batch import device_put, wait_ready
+    model_name = MODELS[key]["model_name"]
+    what = f"map serve {key} {dtname}"
+    out_csv = os.path.join(out_dir, f"preds_{key}_{dtname}.csv")
+    kernels.reset_launches()
+    reset_routes()
+    t0 = time.perf_counter()
+    _, pinned = from_default_numerics(lambda: predict.main([
+        f"checkpoint_dir={ckpt}", f"model_name={model_name}",
+        f"input={plot_dir}/*.npz", f"output={out_csv}",
+        f"batch_size={N_PLOTS}"]), what)
+    torch.cuda.synchronize()
+    main_seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check_launches(what, key, launches, "forward")
+    routes = check_native_route(what, N_PLOTS)
+    check_predictions(out_csv, what)
+
+    bundle = predict.load_serving_bundle(ckpt, model_name)
+    net, dev = bundle.net, bundle.device
+    if net.dense_dims is not None:
+        raise AssertionError(f"{what}: the checkpoint built a dense net")
+    kernels.reset_launches()
+    raw = predict.forward_raw(bundle, host_batch).float()
+    if not bool(torch.isfinite(raw).all()):
+        raise AssertionError(f"{what}: non-finite raw output")
+    fwd_ms = wall_ms(lambda: predict.forward_raw(bundle, host_batch), 3, 1)
+    h2d_ms = wall_ms(lambda: host_batch.to(dev), 3, 1)
+    stream = torch.cuda.Stream()
+    pinned_ms = wall_ms(lambda: wait_ready(device_put(host_batch, dev,
+                                                      stream)), 3, 1)
+    tb = host_batch.to(dev)
+
+    def forward():
+        with torch.no_grad():
+            return net(tb)
+    device_fwd_ms = wall_ms(forward, 3, 1)
+    extra = map_vs_dense(bundle, collated, host_batch, what) \
+        if dtname == "float32" else {}
+    kernels.reset_launches()
+    profile = device_profile(forward, reps=3, kinds=MAP_KINDS)
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"{what}: kernels launched {kernels.LAUNCHES}")
+    torch.cuda.reset_peak_memory_stats()
+    forward()
+    torch.cuda.synchronize()
+    out = {"phase": "map_serve", "model": key, "dtype": dtname,
+           "plots": N_PLOTS, **map_batch_facts(net, host_batch),
+           "launches": launches, "host_routes": routes,
+           "predict_main_seconds": main_seconds,
+           "host_map_ms": host_ms, "h2d_ms": h2d_ms,
+           "h2d_pinned_ms": pinned_ms, "forward_ms": fwd_ms,
+           "plots_per_s": N_PLOTS / fwd_ms * 1e3,
+           "device_resident_forward_ms": device_fwd_ms, **extra,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "numerics": pinned, "profile": profile, "card": smi}
+    emit(out)
+    del bundle, net, tb
+    return out
+
+
+def phase_map_train(key: str, dtname: str, plot_dir: str, out_dir: str,
+                    smi: str, seed: int) -> dict:
+    """train.main's `input=` form in map mode for MAP_TRAIN_STEPS steps
+    (finite losses, no kernel launch in any step, the native host route
+    for every sample drawn), then on its first batch (kept from that run):
+    the host map build (the stream's post_collate, host clock), the copy
+    to the card, the step of a freshly built model on the device-resident
+    batch, peak memory and a torch.profiler split of the step by kernel
+    kind."""
+    import torch
+    from dpcr_agb_tpu_torch import kernels, train
+    from dpcr_agb_tpu_torch.training.step import StepRunner
+    model_name = MODELS[key]["model_name"]
+    bf16 = dtname == "bfloat16"
+    what = f"map train {key} {dtname}"
+    ckpt = os.path.join(out_dir, f"trained_{key}_{dtname}")
+    args = [f"input={plot_dir}/*.npz", f"checkpoint_dir={ckpt}",
+            f"model_name={model_name}", f"steps={MAP_TRAIN_STEPS}",
+            f"batch_size={N_PLOTS}", f"seed={seed}",
+            f"bf16={str(bf16).lower()}", "dense_dims=null"]
+    per_step, unwrapped = [], StepRunner.train
+    factory, built, clock = train.make_post_collate, [], []
+
+    def counted(self, batch):
+        before = dict(kernels.LAUNCHES)
+        out = unwrapped(self, batch)
+        per_step.append({k: n - before[k]
+                         for k, n in kernels.LAUNCHES.items()})
+        return out
+
+    def timed_factory(net):
+        post = factory(net)
+
+        def timed(batch):
+            t = time.perf_counter()
+            out = post(batch)
+            clock.append((time.perf_counter() - t) * 1e3)
+            built.append(out)
+            return out
+        return timed
+
+    kernels.reset_launches()
+    reset_routes()
+    StepRunner.train, train.make_post_collate = counted, timed_factory
+    try:
+        t0 = time.perf_counter()
+        result, pinned = from_default_numerics(lambda: train.main(args), what)
+        torch.cuda.synchronize()
+        main_seconds = time.perf_counter() - t0
+    finally:
+        StepRunner.train, train.make_post_collate = unwrapped, factory
+    losses = result["losses"]
+    if len(losses) != MAP_TRAIN_STEPS or not np.isfinite(losses).all() \
+            or len(per_step) != MAP_TRAIN_STEPS:
+        raise AssertionError(f"{what}: losses {losses}, {len(per_step)} "
+                             "steps counted")
+    for i, step in enumerate(per_step):
+        check_launches(f"{what} step {i}", key, step, "step")
+    routes = check_native_route(what, MAP_TRAIN_STEPS * N_PLOTS)
+
+    files = sorted(glob.glob(os.path.join(plot_dir, "*.npz")))
+    runner = train.setup(files, model_name, bf16=bf16, dense_dims="null",
+                         batch_size=N_PLOTS, seed=seed).runner
+    host_batch = built[0]
+    del built[1:]
+    h2d_ms = wall_ms(lambda: host_batch.to(runner.device), 3, 1)
+    batch = host_batch.to(runner.device)
+    kernels.reset_launches()
+    step_ms = wall_ms(lambda: runner.train(batch), 3, 1)
+    torch.cuda.reset_peak_memory_stats()
+    runner.train(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reserved = torch.cuda.max_memory_reserved() / 1e9
+    profile = device_profile(lambda: runner.train(batch), reps=1,
+                             kinds=MAP_KINDS)
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"{what}: kernels launched {kernels.LAUNCHES}")
+    out = {"phase": "map_train", "model": key, "dtype": dtname,
+           "plots": N_PLOTS, "steps": MAP_TRAIN_STEPS, "losses": losses,
+           "launches_per_step": per_step, "host_routes": routes,
+           "train_main_seconds": main_seconds,
+           **map_batch_facts(runner.net, host_batch),
+           "host_map_ms": clock[0], "host_map_ms_per_step": clock,
+           "h2d_ms": h2d_ms,
+           "train_step_ms": step_ms, "plots_per_s": N_PLOTS / step_ms * 1e3,
+           "peak_mem_gb": peak, "peak_reserved_gb": reserved,
+           "numerics": pinned, "profile": profile, "card": smi}
+    emit(out)
+    del runner, batch, host_batch
+    return out
+
+
+def run_map_model(key: str, tmp: str, plot_dir: str, smi: str,
+                  seed: int) -> None:
+    """A map-mode path: the serving batch collated and its maps built on
+    the host once (timed; the native route), then serve and train in each
+    of the path's dtypes."""
+    import torch
+    from dpcr_agb_tpu_torch import predict, train
+    from dpcr_agb_tpu_torch.data.batch import collate
+    spec = MODELS[key]
+    model_name = spec["model_name"]
+    ckpts = {dt: make_checkpoint(tmp, f"ckpt_{key}_{dt}", model_name,
+                                 train.model_option(
+                                     model_name, bf16=dt == "bfloat16",
+                                     dense_dims="null"), seed)
+             for dt in spec["map_mode"]}
+    bundle = predict.load_serving_bundle(ckpts["float32"], model_name)
+    files = sorted(glob.glob(os.path.join(plot_dir, "*.npz")))
+    samples, _ = predict.load_samples(bundle, files)
+    collated = collate(samples, bundle.collate_spec, pad_to_batch=N_PLOTS)
+    reset_routes()
+    t0 = time.perf_counter()
+    host_batch = bundle.post_collate(collated)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    check_native_route(f"{key}: the serving batch", N_PLOTS)
+    emit({"phase": "data", "model": key, "plots": N_PLOTS,
+          **map_batch_facts(bundle.net, host_batch), "host_map_ms": host_ms})
+    del bundle
+    for dtname, ckpt in ckpts.items():
+        phase_map_serve(key, dtname, ckpt, plot_dir, tmp, collated,
+                        host_batch, host_ms, smi)
+        torch.cuda.empty_cache()
+        phase_map_train(key, dtname, plot_dir, tmp, smi, seed)
+        torch.cuda.empty_cache()
+
+
+# The treeadd eval (docs/treedb.md through the port): a synthetic treeDB
+# processed by the port's train route, then SENet14 (sparse level 0)
+# trained one epoch on NFI-like plots and evaluated with the
+# sparse_xy_treeadd_eval preset
+TREEDB_TREES = 40
+TREEADD_PLOTS = 32
+
+
+def phase_treeadd(tmp: str, smi: str, krows: list) -> None:
+    """See the module docstring."""
+    import torch
+    from dpcr_agb_tpu_torch import eval as ev, kernels, train
+    from dpcr_agb_tpu_torch.data.synthetic import generate_tree_db
+    from dpcr_agb_tpu_torch.transforms.objects import RadiusObjectAdder
+    what = "treeadd"
+    root = os.path.join(tmp, what)
+    data = os.path.join(root, "data")
+    t0 = time.perf_counter()
+    generate_tree_db(os.path.join(data, "treeDB"), n_trees=TREEDB_TREES)
+    train.main(["task=instance", "models=instance/simplestnet",
+                "model_name=SimplestNet", "data=instance/treeDB/ALS",
+                "data.transform_type=trees", "+data.trees.num_points=2048",
+                "training=default", "training.epochs=1",
+                "training.batch_size=8", f"data.dataroot={data}",
+                f"run_dir={root}/trees", "pretty_print=False"])
+    torch.cuda.synchronize()
+    treedb_seconds = time.perf_counter() - t0
+    objects = sorted(glob.glob(os.path.join(
+        data, "treeDB", "processed_treeDB_ALS", "train", "treeDB", "*.npz")))
+    keys = set()
+    for f in objects:
+        with np.load(f) as z:
+            keys |= set(z.files)
+    if not objects or not {"pos", "x", "local_stats"} <= keys:
+        raise AssertionError(f"{what}: processed treeDB objects "
+                             f"{len(objects)}, keys {sorted(keys)}")
+
+    overrides = [o for o in trainer_overrides(root, "trainer")
+                 if not o.startswith(("data.synthetic_plots=",
+                                      "training.epochs="))]
+    t0 = time.perf_counter()
+    train.main(overrides + [f"data.synthetic_plots={TREEADD_PLOTS}",
+                            "training.epochs=1"])
+    torch.cuda.synchronize()
+    train_seconds = time.perf_counter() - t0
+    run_dir = os.path.join(root, "run")
+    spec = {"forward": {"stem_sites": 1, "max_pool_k3s2_rows": 1},
+            "step": {}}
+    added, unwrapped = [], RadiusObjectAdder.__call__
+
+    def counting(self, rng, sample):
+        out = unwrapped(self, rng, sample)
+        added.append(int(out["pos"].shape[0] - sample["pos"].shape[0]))
+        return out
+
+    results = {}
+    for preset in ("sparse_xy_treeadd_eval", "sparse_xy"):
+        added.clear()
+        kernels.reset_launches()
+        RadiusObjectAdder.__call__ = counting
+        try:
+            with StepCounter() as count:
+                t0 = time.perf_counter()
+                metrics = ev.main([f"checkpoint_dir={run_dir}",
+                                   "model_name=SENet14", "weight_name=latest",
+                                   f"batch_size={TRAINER_BS}",
+                                   f"run_dir={root}/eval_{preset}",
+                                   f"data.transform_type={preset}",
+                                   "pretty_print=False"])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+        finally:
+            RadiusObjectAdder.__call__ = unwrapped
+        launches = dict(kernels.LAUNCHES)
+        check_trainer_launches(f"{what}: eval.main {preset}", launches,
+                               count, spec)
+        header, rows = read_pred_csv(os.path.join(
+            root, f"eval_{preset}", "SYNTH_test_preds.csv"))
+        results[preset] = {
+            "eval_main_seconds": seconds, "forwards": count.forwards,
+            "launches": {k: launches[k] for k in spec["forward"]},
+            "points_added_per_plot": list(added),
+            "test_preds": np.array([[float(r[i]) for i, h in
+                                     enumerate(header)
+                                     if h.startswith("pred_")]
+                                    for r in rows]),
+            "test_total_BMag_ha_rmse": metrics["test"][
+                "test_total_BMag_ha_rmse"]}
+    tree, plain = results["sparse_xy_treeadd_eval"], results["sparse_xy"]
+    if not tree["points_added_per_plot"] or \
+            min(tree["points_added_per_plot"]) < 1 or \
+            plain["points_added_per_plot"]:
+        raise AssertionError(f"{what}: points added per plot "
+                             f"{tree['points_added_per_plot']} (treeadd), "
+                             f"{plain['points_added_per_plot']} (plain)")
+    moved = np.abs(tree["test_preds"] - plain["test_preds"]).max() \
+        / max(np.abs(plain["test_preds"]).max(), 1e-30)
+    for r in krows:
+        if r["kernels_phase"] == "sparse_l0" and r["dtype"] == "bfloat16" \
+                and r["name"] in spec["forward"]:
+            r.setdefault("launches_by_path", {})[what] = \
+                tree["launches"][r["name"]]
+    for res in results.values():
+        del res["test_preds"]
+    emit({"phase": what, "model": "SENet14", "trees": TREEDB_TREES,
+          "processed_objects": len(objects), "object_keys": sorted(keys),
+          "treedb_seconds": treedb_seconds, "plots": TREEADD_PLOTS,
+          "train_main_seconds": train_seconds, "evals": results,
+          "test_preds_moved_rel": float(moved), "card": smi})
 
 
 def main(argv=None) -> int:
@@ -3207,7 +3700,8 @@ def main(argv=None) -> int:
                          "forward and of the train step")
     ap.add_argument("--out", default=None,
                     help="also write every phase's JSON to this file")
-    ap.add_argument("--only", choices=sorted(MODELS) + sorted(TRAINERS),
+    ap.add_argument("--only", choices=sorted(MODELS) + sorted(TRAINERS)
+                    + ["treeadd"],
                     default=None,
                     help="run the phases of one path only (all the "
                          "kernels are built either way); 'trainer' and "
@@ -3240,8 +3734,11 @@ def main(argv=None) -> int:
             if args.only in (None, key):
                 t_model = time.perf_counter()
                 with mode_env(spec["env"]):
-                    krows += run_model(key, tmp, plot_dir, smi, args.seed,
-                                       args.profile, krows)
+                    if spec.get("map_mode"):
+                        run_map_model(key, tmp, plot_dir, smi, args.seed)
+                    else:
+                        krows += run_model(key, tmp, plot_dir, smi,
+                                           args.seed, args.profile, krows)
                 emit({"phase": "model", "model": key,
                       "seconds": time.perf_counter() - t_model})
         for key in TRAINERS:
@@ -3251,6 +3748,12 @@ def main(argv=None) -> int:
                     phase_trainer(tmp, smi, krows, key)
                 emit({"phase": "model", "model": key,
                       "seconds": time.perf_counter() - t_model})
+        if args.only in (None, "treeadd"):
+            t_model = time.perf_counter()
+            with mode_env({}):
+                phase_treeadd(tmp, smi, krows)
+            emit({"phase": "model", "model": "treeadd",
+                  "seconds": time.perf_counter() - t_model})
     missing = [f"{r['name']} {r['dtype']} {r.get('case') or ''}"
                for r in krows if not r["launches"]]
     if missing:

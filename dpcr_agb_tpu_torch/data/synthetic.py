@@ -2,7 +2,8 @@
 `dpcr_agb_tpu/data/synthetic.py`): cylindrical plots of ground + tree-crown
 points with plot-level biomass/volume targets from an allometric model, and
 an NFI-shaped dataset of such plots (per-plot .las files and a label
-table) that `data.synthetic=true` configs generate on first use."""
+table) that `data.synthetic=true` configs generate on first use, and a
+treeDB of single trees for the treeadd presets (`generate_tree_db`)."""
 from __future__ import annotations
 
 import os
@@ -117,4 +118,44 @@ def generate_nfi_like_dataset(root: str, n_plots: int = 60, seed: int = 0,
     else:
         label_file = os.path.join(raw, "labels.csv")
         df.write_csv(label_file)
+    return label_file
+
+
+def generate_tree(rng: np.random.Generator):
+    """One single tree of a treeDB: crown points in local coordinates ->
+    (points [N,3] float32, height in m)."""
+    h = float(np.clip(rng.gamma(4.0, 4.0), 3.0, 35.0))
+    crown_r = np.clip(0.16 * h, 0.6, 4.5)
+    n_pts = max(30, int(crown_r ** 2 * np.pi * rng.uniform(8, 25)))
+    u = rng.random(n_pts) ** 0.4
+    z = h * (0.3 + 0.7 * (1 - u))
+    r = crown_r * np.sqrt(rng.random(n_pts)) * (0.3 + 0.7 * u)
+    th = rng.random(n_pts) * 2 * np.pi
+    pts = np.stack([r * np.cos(th), r * np.sin(th),
+                    z + rng.normal(0, 0.1, n_pts)], axis=1)
+    return pts.astype(np.float32), h
+
+
+def generate_tree_db(root: str, n_trees: int = 40, seed: int = 1) -> str:
+    """Create a synthetic treeDB at `root` (the layout of
+    conf/data/instance/treeDB/ALS.yaml): one .las per tree under raw/ALS/
+    and the label table raw/treeDB_epsg_25832.gpkg with file_path, x, y and
+    height_m. Returns the label file's path. The same seed gives the same
+    files as the JAX package's generator."""
+    rng = np.random.default_rng(seed)
+    raw = os.path.join(root, "raw")
+    os.makedirs(os.path.join(raw, "ALS"), exist_ok=True)
+    rows = []
+    for i in range(n_trees):
+        pts, h = generate_tree(rng)
+        cx, cy = rng.uniform(5e5, 6e5), rng.uniform(6e6, 6.1e6)
+        world = pts + np.array([cx, cy, rng.uniform(0, 100)], np.float32)
+        write_las(os.path.join(raw, f"ALS/tree_{i:04d}.las"), world,
+                  classification=np.full(len(pts), 5, np.int32))
+        rows.append((f"tree_{i:04d}", cx, cy, h))
+    names = ("file_path", "x", "y", "height_m")
+    df = Table({n: [r[j] for r in rows] for j, n in enumerate(names)})
+    from ..visualization.gpkg import write_gpkg
+    label_file = os.path.join(raw, "treeDB_epsg_25832.gpkg")
+    write_gpkg(label_file, df, layer="treeDB")
     return label_file

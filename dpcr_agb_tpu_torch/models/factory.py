@@ -1,7 +1,7 @@
 """Model building and collate policy (counterpart of `_build_minkowski`,
 `_build_simplest`, `_build_kpconv`, `_build_pointnext`,
-`make_post_collate` (the dense-path and KPCNN branches) and
-`_collate_spec` of `dpcr_agb_tpu/models/factory.py`)."""
+`make_post_collate` and `_collate_spec` of
+`dpcr_agb_tpu/models/factory.py`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 from ..data.batch import Batch, CollateSpec, normalize_sparse_rows
-from ..ops.host_pyramid import kpconv_pyramid_plan, make_kpconv_post_collate
+from ..ops.host_pyramid import (kpconv_pyramid_plan, make_kpconv_post_collate,
+                                make_sparse_post_collate)
 from .kpconv import DEFAULT_POINT_FRACS, KPCNN, build_kpconv
 from .minkowski import SparseResNet, build_resnet
 from .pointnet import MPointNet
@@ -82,7 +83,9 @@ def build_model(option: dict, num_reg_targets: int, in_channels: int,
 def make_post_collate(net) -> Optional[Callable[[Batch], Batch]]:
     """Dense-grid SparseResNet: pick the batch's z bucket (the smallest of
     {48, 64, 80, z_max} that holds its max z + 1), normalize the rows to
-    (D, H, zb) and tag the bucket as aux['zcells'] (length zb). KPCNN: its
+    (D, H, zb) and tag the bucket as aux['zcells'] (length zb). Map-mode
+    SparseResNet: its levels and kernel maps built on the host
+    (`ops/host_pyramid.py`, native route) at the net's level caps. KPCNN: its
     neighbour pyramid built on the host (`ops/host_pyramid.py`) at the
     net's neighbour caps (40 a level where it names none) and point
     fractions, into aux. MPointNet, SimplestNet and the PointNeXt models
@@ -102,6 +105,8 @@ def make_post_collate(net) -> Optional[Callable[[Batch], Batch]]:
         return make_kpconv_post_collate(plan_fn)
     if not isinstance(net, SparseResNet):
         return None
+    if net.dense_dims is None:
+        return make_sparse_post_collate(net.pyramid_plan)
     z_max_dim = net.dense_dims[2]
     buckets = sorted({min(b, z_max_dim) for b in (48, 64, 80, z_max_dim)})
     dxy = net.dense_dims[:2]

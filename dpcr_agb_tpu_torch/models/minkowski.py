@@ -1,5 +1,5 @@
-"""Sparse-voxel ResNet/SENet family on the dense-grid path (counterpart of
-`dpcr_agb_tpu/models/minkowski.py`, `SparseResNet._dense_forward`).
+"""Sparse-voxel ResNet/SENet family (counterpart of
+`dpcr_agb_tpu/models/minkowski.py`), on the dense-grid path or in map mode.
 
 Level 0, sparse (the default at first_stride 1): the k=7 stem conv, BN and
 activation on the occupied rows only (`stem_sites` kernel), the rows pooled
@@ -30,7 +30,19 @@ Training runs the same path with train-mode BN and live DropPath; the
 JAX package's `nn.remat` around the stem conv and the blocks has no numeric
 effect and is not ported (bs16 fits on one 80 GB card without it).
 
-Not ported yet: map mode (`dense_dims=None`)."""
+Map mode (`dense_dims=None`, the JAX package's sparse-voxel formulation,
+MinkowskiEngine's way): the voxels stay rows [B, V, C] at every level, a
+level's rows are unique(floor(coords / 2)) of the level below up to its
+cap (`level_caps`, else DEFAULT_LEVEL_FRACS of the input's padded count),
+and each conv gathers its input rows through a kernel map and multiplies
+them by the offset's weights (`ops.voxel.sparse_conv_apply`, f32
+accumulation), the stem's pool takes the max over 27 gathered rows
+(`max_pool_apply`). The levels and maps come from `batch.aux` when the
+host built them (`ops/host_pyramid.py`, the entry points' route), else
+from the device (`build_levels`, `ops.voxel.kernel_map`). It has no volume,
+so no voxel is dropped for lying outside one; it launches none of the
+port's kernels. The parameters are the same as the dense path's, so one
+state dict (and one JAX `.ckpt`) serves both."""
 from __future__ import annotations
 
 import os
@@ -49,9 +61,22 @@ from ..ops.masked import GLOBAL_POOL
 from ..ops.pool import pooled_rows
 from ..ops.sparse_stem import (max_pool_sparse, pool_neighbor_map_batch,
                                scatter_max_pool_batch, stem_conv_rows)
-from ..ops.voxel import build_grid, downsample
+from ..ops.host_pyramid import resnet_pyramid_plan
+from ..ops.voxel import (build_grid, downsample, hypercube_offsets,
+                         kernel_map, max_pool_apply, sparse_conv_apply)
 
 _LATER = "a later slice of the port"
+DEFAULT_LEVEL_FRACS = (1.0, 0.75, 0.4, 0.2, 0.1, 0.05, 0.03)
+
+
+def build_levels(coords: torch.Tensor, mask: torch.Tensor,
+                 caps: Sequence[int]) -> list:
+    """The batch's resolution pyramid on the device: level l holds unit
+    coords at tensor stride 2^l, at most caps[l] voxels a sample."""
+    grids = [build_grid(coords, mask)]
+    for cap in caps[1:]:
+        grids.append(downsample(grids[-1], None, 2, cap)[0])
+    return grids
 
 
 class SparseConv(nn.Module):
@@ -86,6 +111,20 @@ class SparseConv(nn.Module):
         return dense_conv(x, occ, self.kernel, self.kernel_size, stride,
                           self.dtype, self.bias, stem_mode)
 
+    def forward_map(self, x: torch.Tensor,
+                    nbr_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Map mode: x [B,V_in,Cin] rows, nbr_idx [B,K,V_out] (None: the
+        pointwise conv, K 1 and stride 1, a plain matmul) -> [B,V_out,Cout]
+        f32 with the bias added at every row, as the JAX module does."""
+        if nbr_idx is None:
+            w = self.kernel[0].to(self.dtype).float()
+            y = x.to(self.dtype).float() @ w
+        else:
+            y = sparse_conv_apply(x.to(self.dtype), nbr_idx, self.kernel)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
     def forward_sites(self, x: torch.Tensor, coords: torch.Tensor,
                       mask: torch.Tensor, dims: Sequence[int]
                       ) -> torch.Tensor:
@@ -103,14 +142,16 @@ def make_norm(norm_type: str, features: int, bn_momentum: float):
 
 
 class ResBlock(nn.Module):
-    """BasicBlock or Bottleneck (+SE) in dense mode over one or two
-    resolution levels.
+    """BasicBlock or Bottleneck (+SE) over one or two resolution levels, in
+    dense mode (`forward`) or map mode (`forward_map`).
 
-    It reproduces the reference's dense-mode masking: each conv output is
-    (conv + bias) * occupancy, BN normalizes every cell (empty ones too,
-    without re-masking), and only the block output is zeroed outside the
-    output occupancy. A bottleneck's first k1 conv and norm work at the
-    input occupancy; its output is planes * 4 wide."""
+    Dense mode reproduces the reference's dense-mode masking: each conv
+    output is (conv + bias) * occupancy, BN normalizes every cell (empty
+    ones too, without re-masking), and only the block output is zeroed
+    outside the output occupancy. Map mode, likewise, adds the bias at
+    every row and zeroes the block output outside the output mask. A
+    bottleneck's first k1 conv and norm work at the input level; its
+    output is planes * 4 wide."""
 
     def __init__(self, in_channels: int, planes: int, bottleneck: bool,
                  se: bool, act_name: str = "gelu", stride: int = 1,
@@ -174,6 +215,37 @@ class ResBlock(nn.Module):
         out = self.act(self.drop_path(out, generator) + residual)
         return torch.where(occ_out > 0, out, torch.zeros_like(out))
 
+    def forward_map(self, x: torch.Tensor, in_mask: torch.Tensor,
+                    out_mask: torch.Tensor, k3_map: torch.Tensor,
+                    k3_out_map: torch.Tensor,
+                    k1_map: Optional[torch.Tensor],
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+        """Map mode: x [B,V_in,Cin] rows; k3_map [B,27,V_out] the (strided
+        where the block is) map of the first 3^3 conv, k3_out_map the
+        stride-1 map of the output level, k1_map [B,1,V_out] the strided
+        shortcut's map (None at stride 1)."""
+        if self.bottleneck:
+            out = self.conv1.forward_map(x)
+            out = self.act(self.norm1(out, in_mask))
+            out = self.conv2.forward_map(out, k3_map)
+            out = self.act(self.norm2(out, out_mask))
+            out = self.norm3(self.conv3.forward_map(out), out_mask)
+        else:
+            out = self.conv1.forward_map(x, k3_map)
+            out = self.act(self.norm1(out, out_mask))
+            out = self.conv2.forward_map(out, k3_out_map)
+            out = self.norm2(out, out_mask)
+        if self.se_on:
+            out = self.se(out, out_mask)
+        residual = x
+        if self.need_proj:
+            residual = self.downsample_conv.forward_map(
+                x, k1_map if self.stride != 1 else None)
+            residual = self.downsample_norm(residual, out_mask)
+        out = self.act(self.drop_path(out, generator) + residual)
+        return torch.where(out_mask[..., None], out, torch.zeros_like(out))
+
 
 # constructor argument -> (environment variable, default, values)
 MODE_VARS = {
@@ -199,7 +271,8 @@ def resolve_mode(name: str, value: Optional[str]) -> str:
 
 
 class SparseResNet(nn.Module):
-    """ResNetBase on the dense grid, with a sparse or a dense level 0."""
+    """ResNetBase on the dense grid, with a sparse or a dense level 0, or
+    in map mode (dense_dims None)."""
 
     def __init__(self, num_reg_targets: int, block: str,
                  layers: Sequence[int], in_channels: int,
@@ -211,6 +284,7 @@ class SparseResNet(nn.Module):
                  bn_momentum: float = 0.1, norm_type: str = "bn",
                  use_bias: bool = True, dtype: torch.dtype = torch.float32,
                  dense_dims: Optional[Tuple[int, int, int]] = (88, 88, 104),
+                 level_caps: Optional[Sequence[int]] = None,
                  generator: Optional[torch.Generator] = None,
                  l0_mode: Optional[str] = None,
                  stem_mode: Optional[str] = None,
@@ -218,16 +292,17 @@ class SparseResNet(nn.Module):
                  sparse_pool: Optional[str] = None,
                  pool_fwd: Optional[str] = None):
         super().__init__()
-        if dense_dims is None:
-            raise NotImplementedError(
-                f"map mode (dense_dims=None) is left for {_LATER}")
         self.l0_mode = resolve_mode("l0_mode", l0_mode)
         self.stem_mode = resolve_mode("stem_mode", stem_mode)
         self.pool_bwd = resolve_mode("pool_bwd", pool_bwd)
         self.sparse_pool = resolve_mode("sparse_pool", sparse_pool)
         self.pool_fwd = resolve_mode("pool_fwd", pool_fwd)
         self.first_stride = int(first_stride)
-        self.dense_dims = tuple(int(v) for v in dense_dims)
+        self.dense_dims = None if dense_dims is None \
+            else tuple(int(v) for v in dense_dims)
+        self.strides = tuple(int(v) for v in strides)
+        self.level_caps = None if level_caps is None \
+            else [int(v) for v in level_caps]
         self.dtype = dtype
         self.global_pool = global_pool
         self.act = ACTIVATIONS[activation]
@@ -238,6 +313,7 @@ class SparseResNet(nn.Module):
         self.stem_norm = make_norm(norm_type, init_dim, bn_momentum)
         self.block_names = []
         self.block_strides = []
+        self.block_stages = []
         width = init_dim
         for si, (p, n_blocks, stride) in enumerate(zip(planes, layers,
                                                        strides)):
@@ -251,6 +327,7 @@ class SparseResNet(nn.Module):
                 self.add_module(name, blk)
                 self.block_names.append(name)
                 self.block_strides.append(s)
+                self.block_stages.append(si)
                 width = blk.out_channels
         self.dropout = Dropout(dropout)
         self.final = SeparateLinear(width, num_reg_targets, generator)
@@ -321,6 +398,8 @@ class SparseResNet(nn.Module):
         if batch.coords is None:
             raise ValueError("SparseResNet requires quantized coords "
                              "(use a sparse transform preset)")
+        if self.dense_dims is None:
+            return self._map_forward(batch, generator)
         coords, mask = batch.coords, batch.mask
         dims = self.level0_dims(batch)
         feats = batch.x.to(self.dtype)
@@ -336,6 +415,78 @@ class SparseResNet(nn.Module):
         b = hf.shape[0]
         g = GLOBAL_POOL[self.global_pool](hf.reshape(b, -1, hf.shape[-1]),
                                           occ_l.reshape(b, -1) > 0)
+        return self.final(self.dropout(g, generator))
+
+    def pyramid_plan(self, v0: int) -> dict:
+        """Map mode's levels on batches padded to v0 voxels (the input's,
+        the stem pool's, one a stride-2 stage and, at first_stride 2, the
+        stem's own) and their caps (`host_pyramid.resnet_pyramid_plan`)."""
+        return resnet_pyramid_plan(self.first_stride, self.strides, v0,
+                                   DEFAULT_LEVEL_FRACS, self.level_caps)
+
+    def _map_forward(self, batch, generator):
+        coords, mask = batch.coords, batch.mask
+        x = batch.x.to(self.dtype)
+        plan = self.pyramid_plan(coords.shape[1])
+        n_levels = plan["n_levels"]
+        stem_level = 0 if self.first_stride == 1 else 1
+        aux = batch.aux if isinstance(batch.aux, dict) \
+            and "pool_map" in batch.aux else None
+        if aux is not None:  # built on the host
+            masks = [aux[f"mask{l}"].bool() for l in range(n_levels)]
+            stem_map, pool_map = aux["stem_map"], aux["pool_map"]
+
+            def get_s1(lv):
+                return aux[f"s1_map{lv}"]
+
+            def get_down(si):
+                return aux[f"down_k3_{si}"], aux[f"down_k1_{si}"]
+        else:  # built here, with the same rules
+            off27 = hypercube_offsets(3)
+            grids = build_levels(coords, mask, plan["caps"])
+            masks = [g.mask for g in grids]
+            stem_map = kernel_map(grids[0], grids[stem_level],
+                                  hypercube_offsets(7), self.first_stride)
+            pool_map = kernel_map(grids[stem_level], grids[stem_level + 1],
+                                  off27, 2)
+            s1_cache = {}
+
+            def get_s1(lv):
+                if lv not in s1_cache:
+                    s1_cache[lv] = kernel_map(grids[lv], grids[lv], off27, 1)
+                return s1_cache[lv]
+
+            down_level = {}
+            lv = stem_level + 1
+            for si, st in enumerate(self.strides):
+                if st != 1:
+                    down_level[si] = lv
+                    lv += 1
+
+            def get_down(si):
+                lv = down_level[si]
+                return (kernel_map(grids[lv], grids[lv + 1], off27, 2),
+                        kernel_map(grids[lv], grids[lv + 1],
+                                   hypercube_offsets(1), 2))
+
+        level = stem_level
+        h = self.stem_conv.forward_map(x, stem_map)
+        h = self.act(self.stem_norm(h, masks[level]))
+        h = max_pool_apply(h, pool_map, masks[level + 1])
+        level += 1
+        for name, s, si in zip(self.block_names, self.block_strides,
+                               self.block_stages):
+            in_mask = masks[level]
+            if s != 1:
+                k3, k1 = get_down(si)
+                level += 1
+                k3_out = get_s1(level)
+            else:
+                k3 = k3_out = get_s1(level)
+                k1 = None
+            h = getattr(self, name).forward_map(h, in_mask, masks[level], k3,
+                                                k3_out, k1, generator)
+        g = GLOBAL_POOL[self.global_pool](h.float(), masks[level])
         return self.final(self.dropout(g, generator))
 
 
@@ -368,7 +519,8 @@ def build_resnet(arch_name: str, option: dict, num_reg_targets: int,
                  generator: Optional[torch.Generator] = None
                  ) -> SparseResNet:
     """The model of one `conf/models` entry, with the defaults of the JAX
-    builder; extra_options.bf16 selects the bf16 compute dtype."""
+    builder; extra_options.bf16 selects the bf16 compute dtype,
+    extra_options.dense_dims null map mode (with extra_options.level_caps)."""
     extra = dict(option.get("extra_options", {}) or {})
     dense_dims = extra.get("dense_dims", (88, 88, 104))
     common = dict(
@@ -384,6 +536,7 @@ def build_resnet(arch_name: str, option: dict, num_reg_targets: int,
         use_bias=bool(option.get("bias", True)),
         dtype=torch.bfloat16 if extra.get("bf16", False) else torch.float32,
         dense_dims=None if dense_dims is None else tuple(dense_dims),
+        level_caps=extra.get("level_caps"),
         generator=generator,
     )
     if arch_name in _ARCHS:

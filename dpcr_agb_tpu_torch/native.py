@@ -3,10 +3,12 @@
 repository root (listed in .gitignore) and bound with ctypes: the LASzip
 codec `native/laszip.cpp` (a copy of the JAX package's
 `native/laszip.cpp`), the KD-tree `native/kdtree.cpp`, whose radius
-queries return points in scikit-learn's KDTree order, and the point ops
-of the KPConv pyramid `native/pointops.cpp` (a copy of the point half of
-the JAX package's `native/pointops.cpp`, built with the JAX package's
-flags, so that both libraries give the same bits on one machine). The
+queries return points in scikit-learn's KDTree order, and the host ops of
+the pyramids `native/pointops.cpp` (a copy of the JAX package's
+`native/pointops.cpp`, built with the JAX package's flags, so that both
+libraries give the same bits on one machine): the point ops of the KPConv
+pyramid and the sorted keys, kernel maps and strided downsampling of the
+sparse-voxel nets' map mode. The
 build writes a temporary file and renames it into place, so processes
 that build at once never load a half-written library, and threads of one
 process build one at a time. There is no fallback: when a library cannot
@@ -206,6 +208,15 @@ def pointops_library() -> ctypes.CDLL:
     lib.batch_grid_subsample.restype = None
     lib.batch_grid_subsample.argtypes = [f32p, i64p, i64, f32, f32p, i64p,
                                          i64]
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.build_sorted_keys.restype = None
+    lib.build_sorted_keys.argtypes = [i32p, u8p, i64, i64p, i32p]
+    lib.key_kernel_map.restype = None
+    lib.key_kernel_map.argtypes = [i64p, i32p, i64, i64p, i64p, i64, i64,
+                                   i32p]
+    lib.downsample_coords.restype = i64
+    lib.downsample_coords.argtypes = [i32p, u8p, i64, ctypes.c_int32, i64,
+                                      i32p, u8p]
     return lib
 
 
@@ -246,3 +257,49 @@ def radius_neighbors(queries: np.ndarray, supports: np.ndarray,
     lib.radius_neighbors(queries, len(queries), supports, len(supports),
                          radius, max_k, out)
     return out
+
+
+def build_sorted_keys(coords: np.ndarray, mask: np.ndarray
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """The packed keys of coords [V,3] int32 (the sentinel 1 << 30 where
+    mask [V] is False), stably sorted -> (keys_sorted int64 [V], order
+    int32 [V]): keys_sorted[i] is the key of coords[order[i]]."""
+    lib = pointops_library()
+    coords = np.ascontiguousarray(coords, np.int32)
+    v = len(coords)
+    keys = np.empty(v, np.int64)
+    order = np.empty(v, np.int32)
+    lib.build_sorted_keys(coords, np.ascontiguousarray(mask, np.uint8), v,
+                          keys, order)
+    return keys, order
+
+
+def key_kernel_map(keys_sorted: np.ndarray, order: np.ndarray,
+                   base_keys: np.ndarray, off_keys: np.ndarray) -> np.ndarray:
+    """[K, V_out] int32: for each offset key and output base key (the
+    sentinel where the output voxel is not valid), the input row whose key
+    is their sum (binary search in keys_sorted), else len(keys_sorted)."""
+    lib = pointops_library()
+    k, v_out = len(off_keys), len(base_keys)
+    out = np.empty((k, v_out), np.int32)
+    lib.key_kernel_map(np.ascontiguousarray(keys_sorted, np.int64),
+                       np.ascontiguousarray(order, np.int32),
+                       len(keys_sorted),
+                       np.ascontiguousarray(base_keys, np.int64),
+                       np.ascontiguousarray(off_keys, np.int64), k, v_out,
+                       out)
+    return out
+
+
+def downsample_coords(coords: np.ndarray, mask: np.ndarray, stride: int,
+                      v_out: int) -> Tuple[np.ndarray, np.ndarray]:
+    """unique(floor(coords / stride)) of the valid rows in ascending key
+    order, the first v_out of them -> (out_coords [v_out,3] int32,
+    out_mask [v_out] bool)."""
+    lib = pointops_library()
+    out_c = np.empty((v_out, 3), np.int32)
+    out_m = np.empty(v_out, np.uint8)
+    lib.downsample_coords(np.ascontiguousarray(coords, np.int32),
+                          np.ascontiguousarray(mask, np.uint8), len(coords),
+                          stride, v_out, out_c, out_m)
+    return out_c, out_m.astype(bool)

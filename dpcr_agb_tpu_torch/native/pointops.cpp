@@ -1,8 +1,9 @@
-// Host point ops of the KPConv pyramid: a copy of the point half of the
-// JAX package's native/pointops.cpp (voxel-barycentre grid subsampling and
-// radius neighbours over a flat spatial hash or a flat cell grid), so that
-// the port builds the same pyramid, bit for bit, as the JAX package's
-// native path. The sparse-voxel key half of that file is not copied.
+// Host point ops: a copy of the JAX package's native/pointops.cpp, so that
+// the port builds the same pyramids, bit for bit, as the JAX package's
+// native path. The point half (voxel-barycentre grid subsampling and radius
+// neighbours over a flat spatial hash or a flat cell grid) serves the KPConv
+// pyramid; the sparse-voxel key half (sorted keys, kernel maps by binary
+// search, strided downsampling) serves the sparse-voxel nets' map mode.
 //
 // C interface for ctypes; every buffer is a caller-allocated numpy array.
 #include <cstdint>
@@ -281,6 +282,94 @@ void batch_grid_subsample(const float* points, const int64_t* lengths,
         in_off += lengths[i];
         out_off += out_lengths[i];
     }
+}
+
+}  // extern "C"
+
+// ---- sparse-voxel pyramid primitives (ops/host_pyramid.py) ----
+// Key packing matches ops/voxel.py pack_keys: 10 bits an axis, offset 512,
+// sentinel 1<<30; the keys are held in int64.
+
+static const int64_t kSentinel = int64_t(1) << 30;
+
+static inline int64_t pack_key(const int32_t* c) {
+    auto clip = [](int32_t v) {
+        return (int64_t)(v < -512 ? -512 : (v > 511 ? 511 : v)) + 512;
+    };
+    return (clip(c[0]) << 20) | (clip(c[1]) << 10) | clip(c[2]);
+}
+
+extern "C" {
+
+// keys_sorted [v], order [v] outputs; stable sort by key.
+void build_sorted_keys(const int32_t* coords, const uint8_t* mask, int64_t v,
+                       int64_t* keys_sorted, int32_t* order) {
+    std::vector<std::pair<int64_t, int32_t>> kv((size_t)v);
+    for (int64_t i = 0; i < v; ++i)
+        kv[i] = {mask[i] ? pack_key(coords + 3 * i) : kSentinel, (int32_t)i};
+    std::stable_sort(kv.begin(), kv.end(),
+                     [](const auto& a, const auto& b) {
+                         return a.first < b.first;
+                     });
+    for (int64_t i = 0; i < v; ++i) {
+        keys_sorted[i] = kv[i].first;
+        order[i] = kv[i].second;
+    }
+}
+
+// out [k, v_out] int32: index into the input level, v_in = shadow.
+// base_keys: packed keys of stride*out_coords (kSentinel where invalid).
+void key_kernel_map(const int64_t* keys_sorted, const int32_t* order,
+                    int64_t v_in, const int64_t* base_keys,
+                    const int64_t* off_keys, int64_t k, int64_t v_out,
+                    int32_t* out) {
+    for (int64_t ki = 0; ki < k; ++ki) {
+        int64_t off = off_keys[ki];
+        int32_t* row = out + ki * v_out;
+        for (int64_t q = 0; q < v_out; ++q) {
+            int64_t bk = base_keys[q];
+            if (bk == kSentinel) { row[q] = (int32_t)v_in; continue; }
+            int64_t pk = bk + off;
+            const int64_t* it = std::lower_bound(keys_sorted,
+                                                 keys_sorted + v_in, pk);
+            row[q] = (it != keys_sorted + v_in && *it == pk)
+                         ? order[it - keys_sorted] : (int32_t)v_in;
+        }
+    }
+}
+
+// unique(floor(coords/stride)) in ascending-key order, capped at v_out_cap.
+// Returns count written; out_coords [v_out_cap,3], out_mask [v_out_cap].
+int64_t downsample_coords(const int32_t* coords, const uint8_t* mask,
+                          int64_t v, int32_t stride, int64_t v_out_cap,
+                          int32_t* out_coords, uint8_t* out_mask) {
+    std::vector<int64_t> keys;
+    keys.reserve((size_t)v);
+    for (int64_t i = 0; i < v; ++i) {
+        if (!mask[i]) continue;
+        int32_t d[3];
+        for (int j = 0; j < 3; ++j) {
+            int32_t c = coords[3 * i + j];
+            // floor division for negatives
+            d[j] = (c >= 0) ? c / stride : -((-c + stride - 1) / stride);
+        }
+        keys.push_back(pack_key(d));
+    }
+    std::sort(keys.begin(), keys.end());
+    keys.erase(std::unique(keys.begin(), keys.end()), keys.end());
+    int64_t n = std::min<int64_t>((int64_t)keys.size(), v_out_cap);
+    for (int64_t i = 0; i < n; ++i) {
+        int64_t key = keys[i];
+        out_coords[3 * i + 0] = (int32_t)((key >> 20) & 1023) - 512;
+        out_coords[3 * i + 1] = (int32_t)((key >> 10) & 1023) - 512;
+        out_coords[3 * i + 2] = (int32_t)(key & 1023) - 512;
+        out_mask[i] = 1;
+    }
+    for (int64_t i = n; i < v_out_cap; ++i) {
+        out_coords[3 * i] = out_coords[3 * i + 1] = out_coords[3 * i + 2] = 0;
+        out_mask[i] = 0;
+    }
+    return n;
 }
 
 }  // extern "C"

@@ -22,7 +22,7 @@ then a port checkpoint that `predict` serves:
         checkpoint_dir=outputs/run \\
         [model_name=SENet14|...|MPointNet|SimplestNet|PointNext|PointNet] \\
         [steps=100] [batch_size=16] [seed=0] [bf16=false] \\
-        [dense_dims=88,88,104] [device=cpu]
+        [dense_dims=88,88,104|null] [level_caps=16384,12288,...] [device=cpu]
 
 Each `.npz` holds `pos` [N,3] and one scalar per regression target
 (`BMag_ha`, `V_ha`); a missing or NaN target is masked out of the loss.
@@ -43,7 +43,9 @@ kernel-point convolution only; MPointNet, SimplestNet and PointNeXt run
 in f32 only, as the JAX models do, and refuse it. `dense_dims` applies to
 the sparse-voxel nets, whose level-0 execution modes are read from
 DPCR_L0, DPCR_STEM_MODE, DPCR_POOL_BWD, DPCR_SPARSE_POOL and DPCR_POOL_FWD
-when the model is built (`models/minkowski.py`).
+when the model is built (`models/minkowski.py`); `dense_dims=null` is
+their map mode, with `level_caps` its voxel cap a level (the config form:
+`models.<name>.extra_options.dense_dims=null` and `...level_caps=[...]`).
 
 Both forms run on CUDA unless `device=cpu` is given, and raise when there
 is no CUDA device and the CPU was not asked for."""
@@ -156,7 +158,10 @@ def _parse(overrides: List[str]) -> Dict[str, str]:
     return out
 
 
-def model_option(model_name: str, bf16: bool, dense_dims=None) -> dict:
+def model_option(model_name: str, bf16: bool, dense_dims=None,
+                 level_caps=None) -> dict:
+    """The model's entry with extra_options.bf16, dense_dims (the string
+    "null": map mode) and level_caps set where they are given."""
     if model_name not in MODELS:
         raise NotImplementedError(f"{model_name}: the port trains "
                                   f"{sorted(MODELS)} yet")
@@ -167,10 +172,14 @@ def model_option(model_name: str, bf16: bool, dense_dims=None) -> dict:
             raise ValueError(f"{model_name} runs in f32 only (the JAX model "
                              f"has no bf16 form): bf16=true is refused")
         extra["bf16"] = True
-    if dense_dims is not None:
-        if model_name == "KPConv" or f32_only(option):
-            raise ValueError("dense_dims applies to the sparse-voxel nets")
-        extra["dense_dims"] = [int(n) for n in dense_dims]
+    for key, value in (("dense_dims", dense_dims),
+                       ("level_caps", level_caps)):
+        if value is None:
+            continue
+        if option["class"] != "minkowski.MinkowskiBaselineModel" \
+                or f32_only(option):
+            raise ValueError(f"{key} applies to the sparse-voxel nets")
+        extra[key] = None if value == "null" else [int(n) for n in value]
     if extra:
         option["extra_options"] = extra
     return option
@@ -263,12 +272,12 @@ class TrainSetup:
 
 def setup(files: List[str], model_name: str = "SENet14", bf16: bool = False,
           dense_dims=None, batch_size: int = 16, seed: int = 0,
-          device=None) -> TrainSetup:
+          device=None, level_caps=None) -> TrainSetup:
     """Everything a run needs before its first step: the plots through the
     pre_transform, the target standardization, the model built from `seed`
     on `device`, its step runner and the stream of host batches."""
     dev = resolve_device(device)
-    option = model_option(model_name, bf16, dense_dims)
+    option = model_option(model_name, bf16, dense_dims, level_caps)
     data_cfg = MODELS[model_name][1]()
     samples = load_plots(files, data_cfg, REG_TARGETS)
     if not samples:
@@ -314,12 +323,17 @@ def main(overrides=None):
     if not files:
         raise FileNotFoundError(f"no input files match {args['input']!r}")
     model_name = args.get("model_name", "SENet14")
-    dims = args.get("dense_dims")
+    dims, caps = args.get("dense_dims"), args.get("level_caps")
+    if dims and dims.lower() in ("null", "none"):
+        dims = "null"
+    elif dims:
+        dims = dims.split(",")
     run = setup(files, model_name,
                 bf16=args.get("bf16", "false").lower() in ("1", "true"),
-                dense_dims=dims.split(",") if dims else None,
+                dense_dims=dims or None,
                 batch_size=int(args.get("batch_size", 16)),
-                seed=int(args.get("seed", 0)), device=args.get("device"))
+                seed=int(args.get("seed", 0)), device=args.get("device"),
+                level_caps=caps.split(",") if caps else None)
     runner = run.runner
     losses = []
     for i in range(int(args.get("steps", 100))):

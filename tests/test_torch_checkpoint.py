@@ -422,9 +422,11 @@ def test_port_written_checkpoint_served_by_root_cli(tmp_path):
 
 
 def test_transform_type_and_missing_files(tmp_path):
-    """transform_type picks the stored preset `<tt>_eval`: a treeadd
-    preset names RadiusObjectAdder, which the port lacks, and raises with
-    its name (never skipped); no checkpoint file names both paths."""
+    """transform_type picks the stored preset `<tt>_eval`: the treeadd
+    preset builds, with RadiusObjectAdder first in its chain, and without a
+    processed treeDB the adder raises its "no objects" error, naming the
+    directory, at its first call (never skipped); no checkpoint file names
+    both paths."""
     from dpcr_agb_tpu_torch.models.factory import build_model
     rc = _run_config("SimplestNet")
     net, _ = build_model(rc["models"]["SimplestNet"], 2, 3)
@@ -436,9 +438,18 @@ def test_transform_type_and_missing_files(tmp_path):
     assert b.collate_spec.num_points == 12000
     assert [type(t).__name__ for t in b.eval_transform.transforms][-1] \
         == "AddFeatsByKeys"
-    with pytest.raises(ValueError, match="RadiusObjectAdder"):
-        load_serving_bundle(str(tmp_path), "SimplestNet", device="cpu",
-                            transform_type="fixed_xy_treeadd")
+    tb = load_serving_bundle(str(tmp_path), "SimplestNet", device="cpu",
+                             transform_type="fixed_xy_treeadd")
+    adder = tb.eval_transform.transforms[0]
+    assert type(adder).__name__ == "RadiusObjectAdder"
+    assert [type(t).__name__ for t in tb.eval_transform.transforms[1:]] \
+        == [type(t).__name__ for t in b.eval_transform.transforms]
+    sample = {"pos": np.zeros((20, 3), np.float32),
+              "area_name": np.str_("NFI")}
+    with pytest.raises(AssertionError,
+                       match="no objects for RadiusObjectAdder under .*"
+                             "processed_treeDB_ALS"):
+        adder(np.random.default_rng(0), sample)
     with pytest.raises(ValueError, match="not in the stored config"):
         load_serving_bundle(str(tmp_path), "SimplestNet", device="cpu",
                             transform_type="no_such_preset")

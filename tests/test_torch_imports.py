@@ -72,6 +72,21 @@ def test_the_host_pyramid_layers_are_scanned():
             ).exists()
 
 
+def test_the_treeadd_and_map_mode_layers_are_scanned():
+    """The object adder, the treeDB generator, map mode's voxel ops, host
+    pyramid and model are among the sources the import rules read, and the
+    point-ops library carries map mode's key half."""
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    for rel in ("transforms/objects.py", "data/synthetic.py",
+                "ops/voxel.py", "ops/host_pyramid.py", "models/minkowski.py",
+                "models/factory.py", "native.py"):
+        assert f"dpcr_agb_tpu_torch/{rel}" in scanned, rel
+    src = (ROOT / "dpcr_agb_tpu_torch" / "native" / "pointops.cpp"
+           ).read_text()
+    for fn in ("build_sorted_keys", "key_kernel_map", "downsample_coords"):
+        assert f"{fn}(" in src, fn
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, dpcr_agb_tpu_torch.predict, dpcr_agb_tpu_torch."
             "kernels, dpcr_agb_tpu_torch.weights, dpcr_agb_tpu_torch.train, "
@@ -89,6 +104,9 @@ def test_importing_the_port_loads_no_jax():
             "dpcr_agb_tpu_torch.training.trainer, "
             "dpcr_agb_tpu_torch.data.loader, dpcr_agb_tpu_torch.config, "
             "dpcr_agb_tpu_torch.ops.host_pyramid, "
+            "dpcr_agb_tpu_torch.ops.voxel, "
+            "dpcr_agb_tpu_torch.transforms.objects, "
+            "dpcr_agb_tpu_torch.data.synthetic, "
             "dpcr_agb_tpu_torch.utils.neighbor_calibration; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r} or m.split('.')[0] == 'triton']; "

@@ -140,7 +140,7 @@ def test_full_width_senet14_builds_with_flax_names():
 
 
 @pytest.mark.parametrize("option,env", [
-    ({"extra_options": {"dense_dims": None}}, {}),
+    ({"norm_type": "in"}, {}),
     ({}, {"DPCR_L0": "dense3d"}),
     ({}, {"DPCR_SPARSE_POOL": "row"}),
     ({}, {"DPCR_STEM_MODE": "zfold"}),
@@ -148,8 +148,10 @@ def test_full_width_senet14_builds_with_flax_names():
     ({"first_stride": 2}, {"DPCR_POOL_FWD": "knockout"}),
 ])
 def test_unported_modes_raise(option, env, monkeypatch):
-    """Map mode is the one part of the file left for a later slice; an
-    unknown value of a mode variable raises when the model is built."""
+    """The instance and layer norms are the part of the file left for a
+    later slice (map mode builds since slice 15:
+    tests/test_torch_map_mode.py); an unknown value of a mode variable
+    raises when the model is built."""
     for k, val in env.items():
         monkeypatch.setenv(k, val)
     with pytest.raises((NotImplementedError, ValueError),
@@ -184,9 +186,16 @@ def test_once_unported_modes_build_and_run(name, option, env, sparse, case,
 
 
 def test_bottleneck_archs_raise():
-    """In map mode, as every arch does; on the dense grid they build."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_resnet("SENet50", {"first_stride": 1,
-                                 "extra_options": {"dense_dims": None}}, 2, 3)
+    """Since slice 15 the bottleneck archs raise in neither mode: in map
+    mode, as every arch, they build with the dense grid's parameters; a
+    norm the port lacks still raises."""
+    mapped = build_resnet("SENet50", {"first_stride": 1,
+                                      "extra_options": {"dense_dims": None}},
+                          2, 3)
     net = build_resnet("SENet50", {"first_stride": 1}, 2, 3)
+    assert mapped.dense_dims is None and net.dense_dims == (88, 88, 104)
     assert net.stage0_block0.conv3.kernel.shape == (1, 64, 256)
+    assert {k: v.shape for k, v in mapped.state_dict().items()} \
+        == {k: v.shape for k, v in net.state_dict().items()}
+    with pytest.raises(NotImplementedError, match="later slice"):
+        build_resnet("SENet50", {"first_stride": 1, "norm_type": "ln"}, 2, 3)
