@@ -6,7 +6,8 @@
                                   MPointNet|SimplestNet|PointNeXt|PointNet|
                                   SENet14-map|SENet50-map|
                                   trainer|trainer-kpconv|trainer-pointnext|
-                                  trainer-pointnet|trainer-map|treeadd]
+                                  trainer-pointnet|trainer-map|treeadd|
+                                  transforms]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   device   the card's name and power limit, the float32 settings pinned by
@@ -37,7 +38,10 @@ kernel is `fps`):
            two runs (stem_sites_dw, kpconv_fused_bwd's dx and dW,
            gather_rows_bwd), and so are stem_sites, max_pool_k3s2_rows,
            max_pool_k3s2_bwd and max_pool_k3s2_bwd_vol.
-           SENet14: stem_sites at the first serving batch's shapes;
+           SENet14: stem_sites at the first serving batch's shapes (and
+           at Cin 5 and 7: the batch's x and further random channels on
+           its occupied rows, random weights; a launch a group of 4 input
+           channels; emitted, not rows of the summary);
            max_pool_k3s2_rows, the sparse level 0's pool, at the first
            serving and the first train batch's (y and occ_l exact; timed
            beside the route it replaces, scatter_to_dense +
@@ -158,9 +162,11 @@ builds (`ops/host_pyramid.py`, native route) and multiply them on the card:
            gathers, matmuls, the gathers' index_put backward, other) with
            the device's idle share; f32: map mode against the dense path
            (sparse level 0) with the same weights, their BN running means
-           and offsets set to 0 (where the two are one function), on this
-           batch, which fits the volume and the caps: rtol 2e-3, atol 2e-3
-           * max|dense|
+           and offsets set to 0 (where the two are one function) and their
+           running variances set to their inputs' second moments on this
+           batch (so the outputs are O(1)), on this batch, which fits the
+           volume and the caps: rtol 2e-3, atol 2e-3 * max|dense| (and
+           max|out| at the unit variances, the check before slice 16)
   map_train  `train.main`'s input= form with dense_dims=null for 2 steps
            (finite losses, no launch in any step, the native route for
            every sample); on its first batch: host_map_ms, h2d_ms, the
@@ -224,6 +230,21 @@ Then (`--only trainer` runs it alone):
            stem_sites and max_pool_k3s2_rows launched once a forward, each
            eval's seconds and how far the trees moved the test
            predictions
+  transforms (`--only transforms`) the 37 transforms of slice 16: each
+           timed on one full synthetic plot on the host (host_ms_per_plot,
+           points in and out); then SENet14's trainer command (sparse
+           level 0, bf16) with data.features=[classification] and a preset
+           passed through the root grammar (`augmented_preset`: sparse_xy's
+           chains with the z-outlier and density filters, crops, samplers,
+           drawn parameters, elastic distortion and z_distance_to_top on x,
+           so Cin 5 at the stem; ClampBatchSize 12000 points a batch of
+           4), one epoch on 32 plots under its own dataroot, then eval.main
+           on its checkpoint: the stem's Cin, 6 finite step losses,
+           stem_sites and max_pool_k3s2_rows once a forward,
+           stem_sites_dw and max_pool_k3s2_bwd once a step, every other
+           kernel 0; the samples ClampBatchSize dropped (at least one);
+           points per sample after each transform of the train chain;
+           finite test predictions; train_main_seconds, eval_main_seconds
 Then a total line with the script's seconds, the kernels summary line, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`. Without CUDA (or without the rest of
 the repository) it exits non-zero before printing any result."""
@@ -723,6 +744,33 @@ def ptxas_by_width(log: str, kernel: str) -> dict:
     return out
 
 
+def stem_ptxas(log: str) -> dict:
+    """`nvcc -Xptxas=-v`'s report of each stem_sites_kernel instance:
+    {"<f32|bf16>/<Cin>/<one|wide>": registers, stack, spill bytes}."""
+    out, key = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            w = re.search(r"stem_sites_kernelI(f|13__nv_bfloat16)Li(\d+)"
+                          r"ELb([01])E", m.group(1))
+            key = None if not w else "/".join((
+                "f32" if w.group(1) == "f" else "bf16", w.group(2),
+                "wide" if w.group(3) == "1" else "one"))
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(key, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
+
+
 def phase_device(pinned: dict) -> dict:
     import torch
     from dpcr_agb_tpu_torch import kernels
@@ -741,13 +789,22 @@ def phase_device(pinned: dict) -> dict:
         if len(fps_ptxas) != 2 * len(kernels.FPS_WIDTHS) or spilled:
             raise AssertionError(f"fps: ptxas -v per width {fps_ptxas} "
                                  f"(every width, no spill)")
+    stem = None
+    if not report["stem_sites"]["cached"]:
+        # 2 types x Cin 1..4 x (one launch, a group of a wider input)
+        stem = stem_ptxas(report["stem_sites"]["log"])
+        spilled = {k: r for k, r in stem.items()
+                   if r["spill_stores"] or r["spill_loads"]}
+        if len(stem) != 16 or spilled:
+            raise AssertionError(f"stem_sites: ptxas -v per instance {stem} "
+                                 f"(16 instances, no spill)")
     out = {"phase": "device", "name": torch.cuda.get_device_name(0),
            "nvidia_smi": smi, "count": torch.cuda.device_count(),
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "numerics": pinned,
            "build_seconds": round(seconds, 3),
            "built": {k: not v["cached"] for k, v in report.items()},
-           "ptxas": ptxas, "fps_ptxas": fps_ptxas}
+           "ptxas": ptxas, "fps_ptxas": fps_ptxas, "stem_ptxas": stem}
     emit(out)
     return out
 
@@ -811,15 +868,102 @@ def pool_work(occ) -> tuple:
     return int(o.sum().item()), round(in_windows.item())
 
 
+STEM_WIDE_CIN = (5, 7)     # widths checked beside the main path's
+
+
+def stem_row(vol, coords, mask, wts, bias, dtname: str, smi: str,
+             case=None) -> tuple:
+    """stem_sites on (vol, coords, mask, wts, bias) against its plain
+    version (f32: rtol 1e-4, atol 1e-4; bf16: atol 2e-2 * max|plain|) and
+    a second call (the same bits), timed beside the plain version and
+    cuDNN's dense k7 conv of the volume, with its bound from the work the
+    data needs -> (row, the kernel's output)."""
+    import torch
+    import torch.nn.functional as F
+    from dpcr_agb_tpu_torch import kernels
+    from dpcr_agb_tpu_torch.ops.sparse_stem import (stem_conv_sites,
+                                                    stem_conv_sites_plain)
+    dt = vol.dtype
+    n_sites = int(mask.sum())
+    cin, cout = wts.shape[1], wts.shape[2]
+    n_nonzero, n_reach = stem_work(vol, coords, mask)
+    what = f"stem_sites {dtname}" + (f" {case}" if case else "")
+    got = stem_conv_sites(vol, coords, mask, wts, bias)
+    want = stem_conv_sites_plain(vol, coords, mask, wts, bias)
+    torch.cuda.synchronize()
+    if dt == torch.float32:     # accumulation order only
+        err = _check_close(what, got, want, 1e-4, 1e-4)
+        tol = "rtol 1e-4, atol 1e-4"
+    else:                       # compared in bf16
+        scale = want.float().abs().max().item()
+        err = _check_close(what, got, want, 0.0, 2e-2 * scale)
+        tol = "atol 2e-2 * max|plain| (bf16)"
+    # sums in a fixed order: a second call, the same bits
+    if not _same_bits(stem_conv_sites(vol, coords, mask, wts, bias), got):
+        raise AssertionError(f"{what}: two calls give different bits")
+    ms = time_ms(lambda: stem_conv_sites(vol, coords, mask, wts, bias))
+    plain_ms = time_ms(lambda: stem_conv_sites_plain(
+        vol, coords, mask, wts, bias))
+    # yardstick: cuDNN's dense k7 conv of the NCDHW Cin volume, whose
+    # values at the sites are the kernel's
+    vol_nc = vol.permute(0, 4, 1, 2, 3).contiguous()
+    w_nc = wts.reshape(7, 7, 7, cin, cout).permute(4, 3, 0, 1, 2) \
+        .contiguous()
+    dense = F.conv3d(vol_nc, w_nc, bias, padding=3)
+    lib_err = _at_sites_err(dense, coords, mask, got)
+    del dense
+    lib_ms = time_ms(lambda: F.conv3d(vol_nc, w_nc, bias, padding=3),
+                     n=5, warmup=1)
+    devs = device_row(
+        lambda: stem_conv_sites(vol, coords, mask, wts, bias),
+        lambda: stem_conv_sites_plain(vol, coords, mask, wts, bias),
+        lambda: F.conv3d(vol_nc, w_nc, bias, padding=3), ms,
+        plain_ms, lib_ms)
+    del vol_nc
+    # what this data needs: the volume cells within reach of an occupied
+    # site, and one product per non-zero neighbour value and output
+    # channel (the kernel skips the zeros)
+    esz = vol.element_size()
+    nbytes = (n_reach * cin * esz + coords.numel() * 4 + mask.numel()
+              + wts.numel() * esz + bias.numel() * esz + got.numel() * esz)
+    flops = 2.0 * n_nonzero * cout
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtname] * 1e3
+    plan = kernels.stem_sites_plan(*vol.shape[:4], coords.shape[1], cin,
+                                   dt == torch.bfloat16)
+    row = {
+        "name": "stem_sites", "dtype": dtname, "route": "cuda",
+        "source": STEM_SRC, "replaces": STEM_REPLACES, "case": case,
+        "launches": None, "max_abs_err": err,
+        "max_abs_plain": _amax(want), "tolerance": tol,
+        "reproducible": True,
+        "ms": ms, "plain_ms": plain_ms, **devs,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes > t_ops else "operations",
+        "library_ms": lib_ms,
+        "library": "F.conv3d k7 pad 3 on the NCDHW Cin volume",
+        "library_max_abs_err_at_sites": lib_err,
+        "plan": {k: plan[k] for k in ("groups", "warps", "blocks",
+                                      "smem_bytes")},
+        "shape": {"vol": list(vol.shape), "coords": list(coords.shape),
+                  "weights": list(wts.shape),
+                  "occupied_sites": n_sites,
+                  "cells_in_reach": n_reach,
+                  "nonzero_neighbour_values": n_nonzero,
+                  "dense_flops": 2.0 * n_sites * 343 * cin * cout,
+                  "needed_flops": flops, "needed_bytes": nbytes},
+        "card": smi}
+    del want
+    return row, got
+
+
 def phase_kernels(bundles: dict, batch, train_batch, smi: str,
                   seed: int) -> list:
     """The forward kernels at the first serving batch's shapes and the
-    backward kernels at the first train batch's, f32 and bf16."""
+    backward kernels at the first train batch's, f32 and bf16; stem_sites
+    also at the widths of STEM_WIDE_CIN (emitted, not rows of the path)."""
     import torch
-    import torch.nn.functional as F
     from dpcr_agb_tpu_torch.ops.dense_grid import scatter_to_dense
-    from dpcr_agb_tpu_torch.ops.sparse_stem import (stem_conv_sites,
-                                                    stem_conv_sites_plain)
     rows = []
     for dtname, bundle in bundles.items():
         net = bundle.net
@@ -831,81 +975,29 @@ def phase_kernels(bundles: dict, batch, train_batch, smi: str,
         vol, _ = scatter_to_dense(coords, mask, tb.x.to(dt), dims)
         wts = net.stem_conv.kernel.detach().to(dt).contiguous()
         bias = net.stem_conv.bias.detach().to(dt).contiguous()
-        n_sites = int(mask.sum())
-        cin, cout = wts.shape[1], wts.shape[2]
-        n_nonzero, n_reach = stem_work(vol, coords, mask)
         with torch.no_grad():
-            got = stem_conv_sites(vol, coords, mask, wts, bias)
-            want = stem_conv_sites_plain(vol, coords, mask, wts, bias)
-            torch.cuda.synchronize()
-            if dt == torch.float32:     # accumulation order only
-                err = _check_close("stem_sites f32", got, want, 1e-4, 1e-4)
-                tol = "rtol 1e-4, atol 1e-4"
-            else:                       # compared in bf16
-                scale = want.float().abs().max().item()
-                err = _check_close("stem_sites bf16", got, want, 0.0,
-                                   2e-2 * scale)
-                tol = "atol 2e-2 * max|plain| (bf16)"
-            # sums in a fixed order: a second call, the same bits
-            if not _same_bits(stem_conv_sites(vol, coords, mask, wts, bias),
-                              got):
-                raise AssertionError(f"stem_sites {dtname}: two calls give "
-                                     f"different bits")
-            ms = time_ms(lambda: stem_conv_sites(vol, coords, mask, wts,
-                                                 bias))
-            plain_ms = time_ms(lambda: stem_conv_sites_plain(
-                vol, coords, mask, wts, bias))
-            # yardstick: cuDNN's dense k7 conv of the NCDHW Cin volume,
-            # whose values at the sites are the kernel's
-            vol_nc = vol.permute(0, 4, 1, 2, 3).contiguous()
-            w_nc = wts.reshape(7, 7, 7, cin, cout).permute(4, 3, 0, 1, 2) \
-                .contiguous()
-            dense = F.conv3d(vol_nc, w_nc, bias, padding=3)
-            lib_err = _at_sites_err(dense, coords, mask, got)
-            del dense
-            lib_ms = time_ms(lambda: F.conv3d(vol_nc, w_nc, bias, padding=3),
-                             n=5, warmup=1)
-            devs = device_row(
-                lambda: stem_conv_sites(vol, coords, mask, wts, bias),
-                lambda: stem_conv_sites_plain(vol, coords, mask, wts, bias),
-                lambda: F.conv3d(vol_nc, w_nc, bias, padding=3), ms,
-                plain_ms, lib_ms)
-            del vol_nc
-            # what this data needs: the volume cells within reach of an
-            # occupied site, and one product per non-zero neighbour value
-            # and output channel (the kernel skips the zeros)
-            esz = vol.element_size()
-            nbytes = (n_reach * cin * esz + coords.numel() * 4 + mask.numel()
-                      + wts.numel() * esz + bias.numel() * esz
-                      + got.numel() * esz)
-            flops = 2.0 * n_nonzero * cout
-            t_bytes = nbytes / PEAK_BYTES * 1e3
-            t_ops = flops / PEAK_FLOPS[dtname] * 1e3
-            rows.append({
-                "name": "stem_sites", "dtype": dtname, "route": "cuda",
-                "source": STEM_SRC, "replaces": STEM_REPLACES,
-                "launches": None, "max_abs_err": err,
-                "max_abs_plain": _amax(want), "tolerance": tol,
-                "reproducible": True,
-                "ms": ms, "plain_ms": plain_ms, **devs,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes > t_ops else "operations",
-                "library_ms": lib_ms,
-                "library": "F.conv3d k7 pad 3 on the NCDHW Cin volume",
-                "library_max_abs_err_at_sites": lib_err,
-                "shape": {"vol": list(vol.shape), "coords": list(coords.shape),
-                          "weights": list(wts.shape),
-                          "occupied_sites": n_sites,
-                          "cells_in_reach": n_reach,
-                          "nonzero_neighbour_values": n_nonzero,
-                          "dense_flops": 2.0 * n_sites * 343 * cin * cout,
-                          "needed_flops": flops, "needed_bytes": nbytes},
-                "card": smi})
+            row, got = stem_row(vol, coords, mask, wts, bias, dtname, smi)
+            rows.append(row)
+            # wider inputs (a launch a group of 4 input channels): the
+            # batch's x and further channels on its occupied rows
+            gen = torch.Generator(device=tb.x.device).manual_seed(seed)
+            for cin in STEM_WIDE_CIN:
+                extra = torch.randn(tb.x.shape[:2] + (cin - tb.x.shape[2],),
+                                    generator=gen, device=tb.x.device)
+                xw = torch.cat([tb.x, extra * mask[..., None]], -1).to(dt)
+                vw, _ = scatter_to_dense(coords, mask, xw, dims)
+                ww = (torch.randn((343, cin, 64), generator=gen,
+                                  device=tb.x.device) * 0.05).to(dt)
+                emit({"phase": "kernels", **stem_row(
+                    vw, coords, mask, ww.contiguous(), bias, dtname, smi,
+                    f"Cin {cin}")[0]})
+                del vw
+                torch.cuda.empty_cache()
 
             # the pool input: the stem rows through BN + act, as on the
             # main path, pooled by the row form
             h_rows = net.act(net.stem_norm(got, mask)) * mask[..., None].to(dt)
-            del vol, got, want
+            del vol, got
             torch.cuda.empty_cache()
             rows.append(pool_rows_row(coords, mask, h_rows, dims, dtname, smi,
                                       "serve batch", "serve"))
@@ -3334,21 +3426,38 @@ def map_vs_dense(bundle, collated, host_batch, what: str) -> dict:
     path normalizes its empty cells too, and its next conv reads them,
     where map mode reads the zero shadow. So both nets take the
     checkpoint's weights with each BN's running mean and offset set to 0
-    (its scale and running variance kept), as they are at initialisation,
-    where the JAX package makes its check."""
+    (its scale kept), as they are at initialisation, where the JAX package
+    makes its check. At the initial running variance (1) the outputs
+    shrink to ~1e-7 through the net and any tolerance passes; so each
+    BN's running variance is set to its input's second moment over the
+    map-mode forward's rows on this batch (in one forward, layer by
+    layer), which keeps 0 at 0 and the outputs O(1)."""
     import copy
     import torch
     from dpcr_agb_tpu_torch.models.factory import (build_model,
                                                     make_post_collate)
     from dpcr_agb_tpu_torch.nn.norm import MaskedBatchNorm
     mapped = copy.deepcopy(bundle.net)
+    norms = [m for m in mapped.modules() if isinstance(m, MaskedBatchNorm)]
+
+    def second_moment(m, args):
+        x, mask = args
+        m.var.copy_(x.float()[mask].pow(2).mean(0))
+
+    device_batch = host_batch.to(bundle.device)
     with torch.no_grad():
-        for m in mapped.modules():
-            if isinstance(m, MaskedBatchNorm):
-                m.mean.zero_()
-                if m.bias is not None:
-                    m.bias.zero_()
-        raw = mapped(host_batch.to(bundle.device)).float()
+        for m in norms:
+            m.mean.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
+        uncalibrated = mapped(device_batch).float()
+        hooks = [m.register_forward_pre_hook(second_moment) for m in norms]
+        try:
+            mapped(device_batch)
+        finally:
+            for h in hooks:
+                h.remove()
+        raw = mapped(device_batch).float()
     option = dict(bundle.option)
     option["extra_options"] = {k: v for k, v in option["extra_options"]
                                .items() if k != "dense_dims"}
@@ -3375,9 +3484,12 @@ def map_vs_dense(bundle, collated, host_batch, what: str) -> dict:
     del net, mapped
     return {"map_vs_dense_max_abs_err": err,
             "map_vs_dense_max_abs_dense": _amax(dense),
+            "map_vs_dense_max_abs_at_unit_variance": _amax(uncalibrated),
             "map_vs_dense_tolerance": f"rtol {MAP_VS_DENSE_TOL}, atol "
                                       f"{MAP_VS_DENSE_TOL} * max|dense|; "
-                                      "BN running means and offsets 0"}
+                                      "BN running means and offsets 0, "
+                                      "running variances the inputs' "
+                                      "second moments"}
 
 
 def phase_map_serve(key: str, dtname: str, ckpt: str, plot_dir: str,
@@ -3692,6 +3804,391 @@ def phase_treeadd(tmp: str, smi: str, krows: list) -> None:
           "test_preds_moved_rel": float(moved), "card": smi})
 
 
+# The transforms phase: SENet14's command (sparse level 0, bf16) on a
+# preset that the phase passes through the root grammar: sparse_xy's chains
+# with the transforms users put into their own presets, and a fifth input
+# channel (data.features=[classification] and z_distance_to_top on x)
+TRANSFORMS_PLOTS = 32
+TRANSFORMS_BS = 4
+TRANSFORMS_CLAMP = 12000    # points a batch of 4 may hold: drops samples
+TRANSFORMS_CIN = 5
+
+
+def augmented_preset(clamp_points: int = TRANSFORMS_CLAMP) -> dict:
+    """sparse_xy's chains (conf/data/instance/NFI/transforms/
+    sparse-xy.yaml, written out: the composer drops its anchors) with the
+    z-outlier and density filters ahead of the NFI pre_transform, a
+    lottery of crops and samplers, drawn parameters, a nested compose, an
+    elastic distortion, xy centering and the points' ids in the train
+    chain, z_distance_to_top (normalised) on x in both chains, and a point
+    budget a batch. Lengths are in the plot's normalised frame (x, y in
+    [0, 1], z from 0 in units of 40 m) after the prefix, in metres in the
+    pre_transform. sparse_xy's AddRandomPoints is left out: it extends pos
+    alone, so with x taken from the plot's columns it leaves x short and
+    AddFeatsByKeys raises (in both packages)."""
+    skip = "${data.skip_list}"
+    hexagon = [[0.0, 0.5], [0.25, 0.9330127], [0.75, 0.9330127], [1.0, 0.5],
+               [0.75, 0.0669873], [0.25, 0.0669873]]
+    scale = {"transform": "ScalePos",
+             "params": {"scale_x": "${data.x_scale}",
+                        "scale_y": "${data.y_scale}",
+                        "scale_z": "${data.z_scale}", "op": "div"}}
+    move = {"transform": "MoveCenterPosPerSample",
+            "params": {"center_x": "${data.x_center}",
+                       "center_y": "${data.y_center}"}}
+    aug_prefix = [
+        {"transform": "RandomGroundRemoval",
+         "params": {"min_v": 0.05, "max_v": 0.5, "p": 0.1,
+                    "min_points": 500, "skip_list": skip}},
+        {"transform": "RandomDropout",
+         "params": {"dropout_ratio": 0.2, "dropout_application_ratio": 0.5,
+                    "min_points": 500, "skip_list": skip}},
+        scale, {"transform": "RandomNoise", "params": {"sigma": 0.0025}},
+        {"transform": "Random3AxisRotation",
+         "params": {"apply_rotation": True, "rot_x": 0, "rot_y": 0,
+                    "rot_z": 180}},
+        {"transform": "RandomShiftPos",
+         "params": {"p": 0.5, "max_x": 0.01, "max_y": 0.01, "max_z": 0.0}},
+        move, {"transform": "StartZFromZero"},
+        {"transform": "CopyJitterRandomPoints",
+         "params": {"n_max_points": 12000, "add_ratio_min": 0.01,
+                    "add_ratio_max": 0.2, "p": 0.25, "sigma": 0.005,
+                    "clip": 0.015}},
+        {"transform": "RandomPolygon2dExtend",
+         "params": {"polygons": [hexagon], "rotate": 180,
+                    "skip_list": skip}}]
+    det_prefix = [scale, move, {"transform": "StartZFromZero"},
+                  {"transform": "Polygon2dExtend",
+                   "params": {"polygon": hexagon, "skip_list": skip}}]
+    feats = [
+        {"transform": "MaxPoints", "params": {"num": 16000,
+                                              "skip_list": skip}},
+        {"transform": "MinPoints", "params": {"num": 500, "skip_list": skip}},
+        {"transform": "XYZFeature",
+         "params": {"add_x": False, "add_y": False, "add_z": True}},
+        {"transform": "AddOnes"},
+        {"transform": "AddXYDistanceToCenter",
+         "params": {"center_x": "${data.x_center}",
+                    "center_y": "${data.y_center}"}},
+        {"transform": "AddFeatsByKeys",
+         "params": {"list_add_to_x": [True, True, True],
+                    "feat_names": ["ones", "pos_z", "xy_distance"],
+                    "delete_feats": [True, True, True],
+                    "input_nc_feats": [1, 1, 1]}}]
+    quantize = [{"transform": "GridSampling3D",
+                 "params": {"size": "${data.first_subsampling}",
+                            "quantize_coords": True, "mode": "last"}}]
+    voxel_aug = [{"transform": "RandomCoordsFlip",
+                  "params": {"ignored_axis": "z", "p": 0.5}},
+                 {"transform": "ShiftVoxels"}]
+    x_feats = [
+        {"transform": "AddZDistanceToTop"},
+        {"transform": "NormalizeFeature",
+         "params": {"feat_name": "z_distance_to_top", "mean": 0.1,
+                    "std": 0.1}},
+        {"transform": "AddFeatByKey",
+         "params": {"add_to_x": True, "feat_name": "z_distance_to_top",
+                    "input_nc_feat": 1}}]
+    crops = [
+        {"transform": "EllipsoidCrop",
+         "params": {"a": 0.6, "b": 0.6, "c": 0.9, "rot_x": 0, "rot_y": 0,
+                    "rot_z": 180}},
+        {"transform": "CubeCrop",
+         "params": {"c": 0.45, "rot_x": 0, "rot_y": 0, "rot_z": 180,
+                    "grid_size_center": 0.05}},
+        {"transform": "IrregularSampling",
+         "params": {"d_half": 0.5, "p": 2, "grid_size_center": 0.05,
+                    "skip_keys": skip}},
+        {"transform": "PeriodicSampling",
+         "params": {"period": 0.05, "prop": 0.8, "skip_keys": skip}}]
+    return {
+        "pre_transform": [
+            {"transform": "StatZOutlierRemoval",
+             "params": {"threshold": 4.0, "skip_list": skip}},
+            {"transform": "OPTICSZOutlierRemoval",
+             "params": {"eps": 1.0, "min_samples": 10, "skip_list": skip}},
+            {"transform": "KernelDensityZOutlierRemoval",
+             "params": {"bandwidth": 1.0, "p": 0.001, "skip_list": skip}},
+            {"transform": "DensityFilter",
+             "params": {"radius_nn": 1.5, "min_num": 1, "skip_keys": skip}},
+            "${data.pre_transform}"],
+        "train_transform": [
+            *aug_prefix,
+            {"transform": "LotteryTransform",
+             "params": {"transform_options": crops}},
+            {"transform": "RandomParamTransform",
+             "params": {"transform_name": "RandomScaling",
+                        "transform_params": {
+                            "scales": {"value": [0.95, 1.05]}}}},
+            {"transform": "ComposeTransform",
+             "params": {"transform_options": [
+                 {"transform": "RandomSymmetry",
+                  "params": {"axis": [True, True, False]}},
+                 {"transform": "RandomTranslation",
+                  "params": {"delta_max": [0.01, 0.01, 0.0],
+                             "delta_min": [-0.01, -0.01, 0.0]}}]}},
+            {"transform": "ElasticDistortion",
+             "params": {"granularity": [0.05, 0.2],
+                        "magnitude": [0.002, 0.005], "p": 0.5}},
+            {"transform": "CenterXYbyZ",
+             "params": {"center_x": 0.5, "center_y": 0.5,
+                        "z_thresh_min": 0.0, "z_thresh_max": 1.0}},
+            {"transform": "SaveOriginalPosId"},
+            *feats, *x_feats,
+            {"transform": "Jitter", "params": {"sigma": 0.01, "p": 0.5}},
+            *quantize, *voxel_aug],
+        "test_transform": [
+            *det_prefix,
+            {"transform": "StatZOutlierRemoval",
+             "params": {"threshold": 4.0, "skip_list": skip}},
+            {"transform": "SaveOriginalPosId"},
+            *feats, *x_feats, *quantize],
+        "val_transform": "${data.sparse_xy_aug.test_transform}",
+        "pre_batch_collate_transform": [
+            {"transform": "ClampBatchSize",
+             "params": {"num_points": clamp_points}}]}
+
+
+def augmented_overrides(clamp_points: int = TRANSFORMS_CLAMP) -> list:
+    """The preset and the input features as root-grammar overrides (the
+    preset as one YAML flow value)."""
+    return ["+data.sparse_xy_aug=" + json.dumps(augmented_preset(
+        clamp_points)), "data.transform_type=sparse_xy_aug",
+            "data.features=[classification]"]
+
+
+# each of the 37 transforms of slice 16 timed on one full synthetic plot:
+# (name, params, frame) with frame "m" (metres, z from the ground, as the
+# pre_transform sees a plot) or "unit" (the normalised frame of the chains)
+TIMED_TRANSFORMS = [
+    ("StatZOutlierRemoval", {}, "m"),
+    ("OPTICSZOutlierRemoval", {"eps": 1.0, "min_samples": 10}, "m"),
+    ("KernelDensityZOutlierRemoval", {"bandwidth": 1.0, "p": 0.001}, "m"),
+    ("DensityFilter", {"radius_nn": 1.5, "min_num": 1}, "m"),
+    ("CenterPosPerSample", {"center": "quantile"}, "unit"),
+    ("FixedCenterPosPerSample", {}, "unit"),
+    ("CenterXYbyZ", {"center_x": 0.5, "center_y": 0.5}, "unit"),
+    ("RandomScaling", {"scales": [0.95, 1.05]}, "unit"),
+    ("RandomSymmetry", {"axis": [True, True, False]}, "unit"),
+    ("RandomTranslation", {}, "unit"),
+    ("AddGround", {"max_points": 100, "n_points": 64}, "unit"),
+    ("CylinderExtend", {"radius": 0.45}, "unit"),
+    ("RectangleExtend", {"e_x": 0.9, "e_y": 0.9, "e_z": 0.9}, "unit"),
+    ("EllipsoidCrop", {"a": 0.6, "b": 0.6, "c": 0.9}, "unit"),
+    ("CubeCrop", {"c": 0.45, "grid_size_center": 0.05}, "unit"),
+    ("IrregularSampling", {"d_half": 0.5, "grid_size_center": 0.05},
+     "unit"),
+    ("PeriodicSampling", {"period": 0.05, "prop": 0.8}, "unit"),
+    ("LotteryTransform", {"transform_options": [
+        {"transform": "CubeCrop", "params": {"c": 0.45,
+                                             "grid_size_center": 0.05}}]},
+     "unit"),
+    ("ComposeTransform", {"transform_options": [
+        {"transform": "RandomSymmetry"}, {"transform": "RandomTranslation"}]},
+     "unit"),
+    ("RandomParamTransform", {"transform_name": "RandomScaling",
+                              "transform_params": {
+                                  "scales": {"value": [0.95, 1.05]}}},
+     "unit"),
+    ("ElasticDistortion", {"granularity": [0.05, 0.2],
+                           "magnitude": [0.002, 0.005], "p": 1.0}, "unit"),
+    ("SaveOriginalPosId", {}, "unit"),
+    ("AddZDistanceToTop", {}, "unit"),
+    ("AddFeatByKey", {"add_to_x": True, "feat_name": "rgb"}, "unit"),
+    ("NormalizeFeature", {"feat_name": "x", "mean": 3.0, "std": 2.0},
+     "unit"),
+    ("NormalFeature", {}, "unit"),
+    ("PCACompute", {}, "unit"),
+    ("NormalizeRGB", {}, "unit"),
+    ("ChromaticTranslation", {}, "unit"),
+    ("ChromaticAutoContrast", {}, "unit"),
+    ("ChromaticJitter", {}, "unit"),
+    ("DropFeature", {"drop_proba": 1.0}, "unit"),
+    ("Jitter", {"p": 1.0}, "unit"),
+    ("PlanarityFilter", {}, "unit"),
+    ("RandomFilter", {}, "unit"),
+]
+
+
+def transforms_host_ms(seed: int) -> list:
+    """Each of the 37 on one full synthetic plot (the generator's density,
+    15 m radius), on the host clock (median of 3 calls): its input and
+    output points (or the bool of a sample filter). The plot gets the rgb
+    and norm that NFI-like plots lack, for the feature augments and
+    NormalFeature; FCompose composes two of the filters, ClampBatchSize
+    takes a batch of 16 copies."""
+    from dpcr_agb_tpu_torch.data.synthetic import generate_plot
+    from dpcr_agb_tpu_torch.transforms import (TRANSFORM_REGISTRY,
+                                               instantiate_transform)
+    rng = np.random.default_rng(seed)
+    pts, _, _ = generate_plot(rng)
+    pts[:, 2] -= pts[:, 2].min()
+    n = len(pts)
+    norm = rng.normal(size=(n, 3))
+    base = {"x": (2 + 3 * (pts[:, 2:3] > 0.3)).astype(np.float32),
+            "rgb": rng.uniform(0, 255, (n, 3)).astype(np.float32),
+            "norm": (norm / np.linalg.norm(norm, axis=1, keepdims=True))
+            .astype(np.float32)}
+    frames = {"m": pts,
+              "unit": (pts / np.array([30, 30, 40], np.float32)
+                       + np.array([0.5, 0.5, 0.0], np.float32))}
+    calls = [(name, instantiate_transform({"transform": name,
+                                           "params": params}), frame)
+             for name, params, frame in TIMED_TRANSFORMS]
+    calls.append(("FCompose", TRANSFORM_REGISTRY["FCompose"](
+        [TRANSFORM_REGISTRY["RandomFilter"](0.9),
+         TRANSFORM_REGISTRY["PlanarityFilter"](0.9)]), "unit"))
+    clamp = TRANSFORM_REGISTRY["ClampBatchSize"](8 * n)
+    out = []
+    for name, t, frame in calls:
+        sample = {"pos": frames[frame], **base}
+        times, result = [], None
+        for rep in range(3):
+            t0 = time.perf_counter()
+            result = t(np.random.default_rng(rep), dict(sample))
+            times.append((time.perf_counter() - t0) * 1e3)
+        row = {"name": name, "frame": frame, "points_in": n,
+               "host_ms_per_plot": statistics.median(times)}
+        if isinstance(result, (bool, np.bool_)):
+            row["keeps_sample"] = bool(result)
+        else:
+            row["points_out"] = int(result["pos"].shape[0])
+        out.append(row)
+    batch = [{"pos": frames["unit"]}] * 16
+    t0 = time.perf_counter()
+    kept = clamp(batch)
+    out.append({"name": "ClampBatchSize", "frame": "unit", "points_in": n,
+                "host_ms_per_plot": (time.perf_counter() - t0) * 1e3 / 16,
+                "batch_kept": f"{len(kept)} of 16"})
+    names = {r["name"] for r in out}
+    if len(names) != 37:
+        raise AssertionError(f"transforms: timed {sorted(names)}")
+    return out
+
+
+def chain_points(dataset, split: str, seed: int, n_samples: int) -> list:
+    """Points per sample after each transform of the split's chain, on its
+    first samples (the pre_transform's output, as cached)."""
+    chain = dataset.transform_for(split).transforms
+    out = []
+    for i in range(min(n_samples, len(dataset.datasets[split]))):
+        rng = np.random.default_rng(seed + i)
+        sample = dataset.datasets[split].get(i)
+        steps = [("processed", int(sample["pos"].shape[0]))]
+        for t in chain:
+            sample = t(rng, sample)
+            steps.append((type(t).__name__, int(sample["pos"].shape[0])))
+        out.append(steps)
+    return [{"transform": name, "points": [s[k][1] for s in out]}
+            for k, (name, _) in enumerate(out[0])]
+
+
+def phase_transforms(tmp: str, smi: str, krows: list, seed: int) -> None:
+    """See the module docstring."""
+    import torch
+    from dpcr_agb_tpu_torch import eval as ev, kernels, train
+    from dpcr_agb_tpu_torch.training.step import StepRunner
+    from dpcr_agb_tpu_torch.transforms import TRANSFORM_REGISTRY
+    what = "transforms"
+    root = os.path.join(tmp, what)
+    host = transforms_host_ms(seed)
+    emit({"phase": what, "host_ms_per_plot": host, "card": smi})
+    spec = TRAINERS["trainer"]
+    overrides = [o for o in trainer_overrides(root, "trainer")
+                 if not o.startswith(("data.synthetic_plots=",
+                                      "training.epochs=",
+                                      "training.batch_size=",
+                                      "data.transform_type="))]
+    overrides += [f"data.synthetic_plots={TRANSFORMS_PLOTS}",
+                  "training.epochs=1", f"training.batch_size={TRANSFORMS_BS}",
+                  *augmented_overrides()]
+    clamp = TRANSFORM_REGISTRY["ClampBatchSize"]
+    unwrapped, dropped = clamp.__call__, []
+    unwrapped_step, step_losses = StepRunner.train, []
+
+    def counting(self, samples):
+        kept = unwrapped(self, samples)
+        dropped.append(len(samples) - len(kept))
+        return kept
+
+    def train_step(runner, batch, *a, **k):
+        out = unwrapped_step(runner, batch, *a, **k)
+        step_losses.append(out["loss"].detach())
+        return out
+
+    clamp.__call__ = counting
+    StepRunner.train = train_step
+    try:
+        kernels.reset_launches()
+        with StepCounter() as counter:
+            t0 = time.perf_counter()
+            trainer = train.main(overrides)
+            torch.cuda.synchronize()
+            train_seconds = time.perf_counter() - t0
+        train_launches = dict(kernels.LAUNCHES)
+        train_drops = list(dropped)
+        check_trainer_launches(f"{what}: train.main", train_launches,
+                               counter, spec)
+        cin = int(trainer.net.stem_conv.kernel.shape[1])
+        if cin != TRANSFORMS_CIN:
+            raise AssertionError(f"{what}: the stem's Cin is {cin}, not "
+                                 f"{TRANSFORMS_CIN}")
+        losses = [float(x) for x in step_losses]
+        if len(losses) != counter.calls["train"] or len(losses) != 6 \
+                or not np.isfinite(losses).all():
+            raise AssertionError(f"{what}: train losses {losses}, "
+                                 f"{counter.calls['train']} steps")
+        if not sum(train_drops):
+            raise AssertionError(f"{what}: ClampBatchSize "
+                                 f"({TRANSFORMS_CLAMP} points) dropped no "
+                                 f"sample: {train_drops}")
+        stages = chain_points(trainer.dataset, "train", seed, 4)
+        run_dir = os.path.join(root, "run")
+        dropped.clear()
+        kernels.reset_launches()
+        with StepCounter() as count:
+            t0 = time.perf_counter()
+            metrics = ev.main([f"checkpoint_dir={run_dir}",
+                               "model_name=SENet14", "weight_name=latest",
+                               f"batch_size={TRANSFORMS_BS}",
+                               f"run_dir={root}/eval", "pretty_print=False"])
+            torch.cuda.synchronize()
+            eval_seconds = time.perf_counter() - t0
+    finally:
+        clamp.__call__ = unwrapped
+        StepRunner.train = unwrapped_step
+    eval_launches = dict(kernels.LAUNCHES)
+    check_trainer_launches(f"{what}: eval.main", eval_launches, count,
+                           {"forward": spec["forward"], "step": {}})
+    header, rows = read_pred_csv(os.path.join(root, "eval",
+                                              "SYNTH_test_preds.csv"))
+    preds = np.array([[float(r[i]) for i, h in enumerate(header)
+                       if h.startswith("pred_")] for r in rows])
+    if not len(preds) or not np.isfinite(preds).all():
+        raise AssertionError(f"{what}: eval.main test predictions {preds}")
+    for r in krows:
+        if r["kernels_phase"] == "sparse_l0" and r["dtype"] == "bfloat16" \
+                and r["name"] in {**spec["forward"], **spec["step"]}:
+            r.setdefault("launches_by_path", {})[what] = \
+                train_launches[r["name"]]
+    emit({"phase": what, "model": "SENet14", "dtype": "bfloat16",
+          "stem_cin": cin, "plots": TRANSFORMS_PLOTS,
+          "batch_size": TRANSFORMS_BS, "clamp_points": TRANSFORMS_CLAMP,
+          "train_samples_dropped_per_batch": train_drops,
+          "eval_samples_dropped_per_batch": list(dropped),
+          "train_losses": losses, "train_steps": counter.calls["train"],
+          "train_launches": {k: train_launches[k] for k in
+                             (*spec["forward"], *spec["step"])},
+          "eval_forwards": count.forwards,
+          "eval_launches": {k: eval_launches[k] for k in spec["forward"]},
+          "points_per_sample_by_stage": stages,
+          "test_predictions": len(preds),
+          "test_total_BMag_ha_rmse": metrics["test"][
+              "test_total_BMag_ha_rmse"],
+          "train_main_seconds": train_seconds,
+          "eval_main_seconds": eval_seconds, "card": smi})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3701,7 +4198,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every phase's JSON to this file")
     ap.add_argument("--only", choices=sorted(MODELS) + sorted(TRAINERS)
-                    + ["treeadd"],
+                    + ["treeadd", "transforms"],
                     default=None,
                     help="run the phases of one path only (all the "
                          "kernels are built either way); 'trainer' and "
@@ -3753,6 +4250,12 @@ def main(argv=None) -> int:
             with mode_env({}):
                 phase_treeadd(tmp, smi, krows)
             emit({"phase": "model", "model": "treeadd",
+                  "seconds": time.perf_counter() - t_model})
+        if args.only in (None, "transforms"):
+            t_model = time.perf_counter()
+            with mode_env({}):
+                phase_transforms(tmp, smi, krows, args.seed)
+            emit({"phase": "model", "model": "transforms",
                   "seconds": time.perf_counter() - t_model})
     missing = [f"{r['name']} {r['dtype']} {r.get('case') or ''}"
                for r in krows if not r["launches"]]

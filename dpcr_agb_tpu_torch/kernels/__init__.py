@@ -61,7 +61,9 @@ def _on_device(device: torch.device, fn, *args) -> int:
 
 SMEM_PER_BLOCK = 232448     # bytes of shared memory a block may use (H100)
 H100_SMS = 132
-STEM_MAX_CIN = 4            # stem_sites keeps W in shared memory
+STEM_MAX_CIN = 18           # stem_sites' widest input (stem_sites_dw's)
+STEM_GROUP = 4              # input channels whose W a launch keeps in smem
+STEM_MAX_WIDE_WARPS = 8     # a group launch's warps (Cin 4's shared memory)
 STEM_LIST_CAP = 344         # a site's tap list (uint16, csrc/stem_sites.cu)
 STEM_STAGE = 32             # neighbours a site stages at a time (16 or 32 B)
 STEM_MAX_WARPS = 20         # a stem_sites block's warps, 4 sites each
@@ -76,28 +78,37 @@ def stem_sites_plan(b: int, d: int, h: int, w: int, v: int, cin: int,
     4 sites each) as the sites' staged neighbours (32 a site, 16 bytes
     each, 32 at Cin 4) and tap lists leave room for; one block an SM in
     all, never more blocks than the B*V sites fill; the occupancy bits'
-    scratch (one int32 a 32 z-cells of a column). Raises for Cin outside
-    1..4."""
+    scratch (one int32 a 32 z-cells of a column). Past Cin 4, W's share
+    does not fit beside the warps' staging: the kernel runs once per group
+    of 4 input channels (`groups`, the last holds the rest) with Cin 4's
+    shared memory and warps, each launch adding to an f32 partial of the
+    output rows (`partial` scratch). Raises for Cin outside 1..18."""
     if not 1 <= cin <= STEM_MAX_CIN:
-        raise ValueError(f"stem_sites: Cin {cin} (the kernel keeps W in "
-                         f"shared memory: 1 <= Cin <= {STEM_MAX_CIN})")
+        raise ValueError(f"stem_sites: Cin {cin} (the kernel takes "
+                         f"1 <= Cin <= {STEM_MAX_CIN})")
+    groups = [cin] if cin <= STEM_GROUP else \
+        [min(STEM_GROUP, cin - c) for c in range(0, cin, STEM_GROUP)]
+    width = max(groups)
     parts = 1 if bf16 else 2
-    w_bytes = 343 * cin * 32 * 4
-    per_warp = 4 * (STEM_STAGE * (16 if cin <= 3 else 32)
+    w_bytes = 343 * width * 32 * 4
+    per_warp = 4 * (STEM_STAGE * (16 if width <= 3 else 32)
                     + STEM_LIST_CAP * 2)
-    warps = min(STEM_MAX_WARPS, (SMEM_PER_BLOCK - w_bytes) // per_warp)
+    warps = min(STEM_MAX_WARPS if len(groups) == 1 else STEM_MAX_WIDE_WARPS,
+                (SMEM_PER_BLOCK - w_bytes) // per_warp)
     blocks = max(1, min(sms // parts, -(-b * v // (4 * warps)), 65535))
     words = b * d * h * -(-w // 32)
     return {"parts": parts, "warps": warps, "blocks": blocks,
-            "grid": (blocks, parts),
+            "grid": (blocks, parts), "groups": groups,
             "smem_bytes": w_bytes + warps * per_warp,
-            "scratch_bytes": {"bits": 4 * words}}
+            "scratch_bytes": {"bits": 4 * words,
+                              "partial": 0 if len(groups) == 1
+                              else 4 * b * v * 64}}
 
 
 def stem_sites(vol: torch.Tensor, coords: torch.Tensor, mask: torch.Tensor,
                weights: torch.Tensor,
                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """k=7 stem conv at the sites: vol [B,D,H,W,Cin] (1 <= Cin <= 4),
+    """k=7 stem conv at the sites: vol [B,D,H,W,Cin] (1 <= Cin <= 18),
     coords [B,V,3] int32, mask [B,V] bool, weights [343,Cin,64] (z-fastest
     offsets), bias [64] -> [B,V,64] in vol's dtype (f32 sums in tap order:
     the same bits from call to call)."""
@@ -128,9 +139,13 @@ def stem_sites(vol: torch.Tensor, coords: torch.Tensor, mask: torch.Tensor,
                            _sm_count(dev))
     bits = torch.empty(plan["scratch_bytes"]["bits"] // 4, dtype=torch.int32,
                        device=dev)
+    partial = None if not plan["scratch_bytes"]["partial"] else torch.empty(
+        (b * v, cout), dtype=torch.float32, device=dev)
     out = torch.empty((b, v, cout), dtype=dt, device=dev)
     rc = _on_device(dev, build.entry("stem_sites"), _DTYPE_CODE[dt],
-                    vol.data_ptr(), bits.data_ptr(), coords.data_ptr(),
+                    vol.data_ptr(), bits.data_ptr(),
+                    None if partial is None else partial.data_ptr(),
+                    coords.data_ptr(),
                     mask.data_ptr(), weights.data_ptr(),
                     None if bias is None else bias.data_ptr(), out.data_ptr(),
                     b, d, h, w, v, cin, cout, plan["warps"], plan["blocks"])

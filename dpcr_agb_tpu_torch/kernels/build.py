@@ -36,7 +36,7 @@ _L = ctypes.c_longlong
 # its library
 LIBRARIES = {
     "stem_sites": ("stem_sites.cu", "stem_sites_launch",
-                   [_I, *[_P] * 7, *[_I] * 9, _P]),
+                   [_I, *[_P] * 8, *[_I] * 9, _P]),
     "max_pool": ("max_pool.cu", "max_pool_k3s2_launch",
                  [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "max_pool_rows": ("max_pool.cu", "max_pool_k3s2_rows_launch",

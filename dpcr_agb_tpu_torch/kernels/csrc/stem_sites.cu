@@ -44,6 +44,15 @@
 //   shared memory each, and the quarter walks them in order, one staged
 //   read and Cin W-row reads a neighbour. Empty cells cost one bit; masked
 //   rows cost nothing.
+// - Wider inputs (5 <= Cin <= 18: a plot's own columns and added features
+//   on top of the presets' three) do not leave W's share room in shared
+//   memory (220 KB at Cin 5). They run the kernel once per group of at
+//   most 4 input channels (kWide): each launch stages its group's W, reads
+//   its channels at their offset in the cell, and starts from and adds to
+//   an f32 partial [B*V, 64] that the previous group left (the first
+//   starts at 0, the last rounds and adds the bias as above). A site's sum
+//   runs group by group, each in tap order with its channels inner: the
+//   same bits from call to call. Cin 1..4 keep their one launch.
 // - Each site is summed by one quarter in tap order, input channel inner,
 //   as a plain matmul of the patches sums them: the same bits from call to
 //   call (and, on the main path's batches, the plain version's bits). The
@@ -62,19 +71,24 @@ constexpr int kR = kK / 2;         // radius
 constexpr int kTaps = kK * kK * kK;
 constexpr int kCols = kK * kK;     // (x, y) columns of a neighbourhood
 constexpr int kCout = 64;          // output channels
-constexpr int kMaxCin = 4;
+constexpr int kMaxCin = 4;          // one launch (W whole in shared memory)
+constexpr int kMaxCinWide = 18;     // a launch per group of <= kMaxCin
 constexpr int kListCap = 344;      // a quarter's tap list (343, even)
 constexpr int kStage = 32;         // neighbours a quarter stages at a time
 constexpr int kMaxWarps = 20;      // a block's warps (registers: 102 each)
+constexpr int kMaxWideWarps = 8;   // a group launch's (Cin 4's shared memory)
 
 constexpr int kBitWords = 4;       // occupancy words a warp
 
 // bits[(b*D + x)*H + y][w] bit t: cell (b, x, y, 32w + t) holds a non-zero
-// value; a warp kBitWords words, their loads issued together
+// value; a warp kBitWords words, their loads issued together (CIN 0: the
+// cells' cin channels, a runtime count)
 template <typename T, int CIN>
 __global__ void occupancy_bits_kernel(const T* __restrict__ vol,
                                       uint32_t* __restrict__ bits,
-                                      long long n_words, int W, int nw) {
+                                      long long n_words, int W, int nw,
+                                      int cin) {
+  const int cs = CIN > 0 ? CIN : cin;
   const long long first =
       ((long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) *
       kBitWords;
@@ -88,9 +102,9 @@ __global__ void occupancy_bits_kernel(const T* __restrict__ vol,
     const int z = (int)(word - column * nw) * 32 + lane;
     nz[q] = false;
     if (word < n_words && z < W) {
-      const T* p = vol + ((size_t)column * W + z) * CIN;
+      const T* p = vol + ((size_t)column * W + z) * cs;
 #pragma unroll
-      for (int ci = 0; ci < CIN; ++ci) nz[q] = nz[q] || to_float(p[ci]) != 0.f;
+      for (int ci = 0; ci < cs; ++ci) nz[q] = nz[q] || to_float(p[ci]) != 0.f;
     }
   }
 #pragma unroll
@@ -158,14 +172,21 @@ struct Staged {
   float4 q[kQuads];
 };
 
-template <typename T, int CIN>
-__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+// CIN: the channels this launch sums; kWide: one group of a wider input,
+// whose cells hold cstride channels (this group's from c0 on), starting
+// from partial_in (null: from 0) and ending in partial_out (null: in out);
+// the two may be one buffer (each site's lane reads its row, then writes it)
+template <typename T, int CIN, bool kWide>
+__global__ void __launch_bounds__((kWide ? kMaxWideWarps : kMaxWarps) * 32,
+                                  1)
 stem_sites_kernel(const T* __restrict__ vol, const uint32_t* __restrict__ bits,
                   const int32_t* __restrict__ coords,
                   const uint8_t* __restrict__ mask,
                   const T* __restrict__ weights, const T* __restrict__ bias,
                   T* __restrict__ out, int B, int D, int H, int W, int V,
-                  int nw) {
+                  int nw, int cstride, int c0,
+                  const float* partial_in, float* partial_out) {
+  const int cs = kWide ? cstride : CIN;
   constexpr bool kF32 = sizeof(T) == 4;
   constexpr int kVals = 4 * Staged<CIN>::kQuads - 1;
   extern __shared__ float4 smem[];
@@ -184,7 +205,10 @@ stem_sites_kernel(const T* __restrict__ vol, const uint32_t* __restrict__ bits,
       + warps * 4 * kStage) + (warp * 4 + quarter) * kListCap;
 
   for (int i = threadIdx.x; i < kTaps * CIN * 32; i += blockDim.x) {
-    const int row = i >> 5, l = i & 31;
+    const int l = i & 31;
+    // W's row of (tap, channel c0 + ci) for shared row tap * CIN + ci
+    const int row = kWide ? (i >> 5) / CIN * cs + c0 + (i >> 5) % CIN
+                          : i >> 5;
     if constexpr (kF32) {
       ws[i] = __float_as_uint(
           to_float(weights[(size_t)row * kCout + part * 32 + l]));
@@ -237,10 +261,24 @@ stem_sites_kernel(const T* __restrict__ vol, const uint32_t* __restrict__ bits,
     most = max(most, __shfl_xor_sync(0xffffffffu, most, 16));
     __syncwarp();
 
+    // a lane's output channels
+    const int o = kF32 ? part * 32 + 4 * j : 8 * j;
     float acc[kAcc];
 #pragma unroll
     for (int q = 0; q < kAcc; ++q) acc[q] = 0.f;
-    const T* vb = vol + (size_t)cur.b * D * H * W * CIN;
+    if (kWide && partial_in != nullptr && site < nsites) {
+      const float4* pi =
+          reinterpret_cast<const float4*>(partial_in + site * kCout + o);
+#pragma unroll
+      for (int q = 0; q < kAcc / 4; ++q) {
+        const float4 a = pi[q];
+        acc[4 * q] = a.x;
+        acc[4 * q + 1] = a.y;
+        acc[4 * q + 2] = a.z;
+        acc[4 * q + 3] = a.w;
+      }
+    }
+    const T* vb = vol + (size_t)cur.b * D * H * W * cs + (kWide ? c0 : 0);
     for (int s = 0; s < most; s += kStage) {
       // the quarter gathers kStage of its neighbours, all loads first
       constexpr int kPer = kStage / 8;
@@ -253,7 +291,7 @@ stem_sites_kernel(const T* __restrict__ vol, const uint32_t* __restrict__ bits,
         const int col = tap[e] / kK, dz = tap[e] - col * kK;
         const int x = cur.cx + col / kK - kR, y = cur.cy + col % kK - kR;
         const T* p =
-            vb + (((size_t)x * H + y) * W + cur.cz + dz - kR) * CIN;
+            vb + (((size_t)x * H + y) * W + cur.cz + dz - kR) * cs;
 #pragma unroll
         for (int ci = 0; ci < kVals; ++ci)
           v[e][ci] = ci < CIN && tap[e] >= 0 ? to_float(p[ci]) : 0.f;
@@ -299,9 +337,14 @@ stem_sites_kernel(const T* __restrict__ vol, const uint32_t* __restrict__ bits,
       __syncwarp();
     }
 
-    if (site < nsites) {
+    if (kWide && partial_out != nullptr && site < nsites) {
+      float4* po = reinterpret_cast<float4*>(partial_out + site * kCout + o);
+#pragma unroll
+      for (int q = 0; q < kAcc / 4; ++q)
+        po[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
+                            acc[4 * q + 3]);
+    } else if (site < nsites) {
       // round to the output type first, then add the bias in that type
-      const int o = kF32 ? part * 32 + 4 * j : 8 * j;
       uint32_t y[kAcc];
 #pragma unroll
       for (int q = 0; q < kAcc; ++q) {
@@ -336,11 +379,10 @@ static size_t smem_bytes(int warps) {
          (size_t)warps * 4 * (kStage * sizeof(Staged<CIN>) + kListCap * 2);
 }
 
+// the occupancy bits of the cells' cin channels (CIN 0: a runtime count)
 template <typename T, int CIN>
-static int launch(const void* vol, void* bits, const void* coords,
-                  const void* mask, const void* weights, const void* bias,
-                  void* out, int B, int D, int H, int W, int V, int warps,
-                  int blocks, cudaStream_t stream) {
+static int launch_bits(const void* vol, void* bits, int B, int D, int H,
+                       int W, int cin, cudaStream_t stream) {
   const int nw = (W + 31) / 32;
   const long long n_words = (long long)B * D * H * nw;
   if (n_words > 0) {
@@ -348,25 +390,87 @@ static int launch(const void* vol, void* bits, const void* coords,
     if (wb > 0x7fffffffLL) return kBadShape;
     occupancy_bits_kernel<T, CIN><<<(unsigned)wb, 256, 0, stream>>>(
         static_cast<const T*>(vol), static_cast<uint32_t*>(bits), n_words, W,
-        nw);
+        nw, cin);
   }
-  if ((long long)B * V == 0) return (int)cudaGetLastError();
+  return 0;
+}
+
+// one launch of the stem kernel (a group of a wide input when kWide)
+template <typename T, int CIN, bool kWide>
+static int launch_sites(const void* vol, const void* bits, const void* coords,
+                        const void* mask, const void* weights,
+                        const void* bias, void* out, int B, int D, int H,
+                        int W, int V, int warps, int blocks, int cstride,
+                        int c0, const float* partial_in, float* partial_out,
+                        cudaStream_t stream) {
   const size_t smem = smem_bytes<CIN>(warps);
   cudaError_t e = cudaFuncSetAttribute(
-      stem_sites_kernel<T, CIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      stem_sites_kernel<T, CIN, kWide>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(blocks, sizeof(T) == 4 ? 2 : 1);
-  stem_sites_kernel<T, CIN><<<grid, warps * 32, smem, stream>>>(
+  stem_sites_kernel<T, CIN, kWide><<<grid, warps * 32, smem, stream>>>(
       static_cast<const T*>(vol), static_cast<const uint32_t*>(bits),
       static_cast<const int32_t*>(coords), static_cast<const uint8_t*>(mask),
       static_cast<const T*>(weights), static_cast<const T*>(bias),
-      static_cast<T*>(out), B, D, H, W, V, nw);
+      static_cast<T*>(out), B, D, H, W, V, (W + 31) / 32, cstride, c0,
+      partial_in, partial_out);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int CIN>
+static int launch(const void* vol, void* bits, const void* coords,
+                  const void* mask, const void* weights, const void* bias,
+                  void* out, int B, int D, int H, int W, int V, int warps,
+                  int blocks, cudaStream_t stream) {
+  const int rc = launch_bits<T, CIN>(vol, bits, B, D, H, W, CIN, stream);
+  if (rc != 0) return rc;
+  if ((long long)B * V == 0) return (int)cudaGetLastError();
+  return launch_sites<T, CIN, false>(vol, bits, coords, mask, weights, bias,
+                                     out, B, D, H, W, V, warps, blocks, CIN,
+                                     0, nullptr, nullptr, stream);
+}
+
+// Cin 5..18: the bits of all channels once, then a launch per group of 4
+// input channels (the last holds the rest), each adding to the f32 partial
 template <typename T>
-static int launch_cin(int cin, const void* vol, void* bits,
+static int launch_wide(int cin, const void* vol, void* bits, float* partial,
+                       const void* coords, const void* mask,
+                       const void* weights, const void* bias, void* out,
+                       int B, int D, int H, int W, int V, int warps,
+                       int blocks, cudaStream_t s) {
+  if (warps > kMaxWideWarps || partial == nullptr) return kBadShape;
+  int rc = launch_bits<T, 0>(vol, bits, B, D, H, W, cin, s);
+  if (rc != 0) return rc;
+  if ((long long)B * V == 0) return (int)cudaGetLastError();
+  for (int c0 = 0; c0 < cin && rc == 0; c0 += kMaxCin) {
+    const int g = min(kMaxCin, cin - c0);
+    const float* in = c0 == 0 ? nullptr : partial;
+    float* po = c0 + g < cin ? partial : nullptr;
+    switch (g) {
+      case 1: rc = launch_sites<T, 1, true>(vol, bits, coords, mask, weights,
+                                            bias, out, B, D, H, W, V, warps,
+                                            blocks, cin, c0, in, po, s);
+              break;
+      case 2: rc = launch_sites<T, 2, true>(vol, bits, coords, mask, weights,
+                                            bias, out, B, D, H, W, V, warps,
+                                            blocks, cin, c0, in, po, s);
+              break;
+      case 3: rc = launch_sites<T, 3, true>(vol, bits, coords, mask, weights,
+                                            bias, out, B, D, H, W, V, warps,
+                                            blocks, cin, c0, in, po, s);
+              break;
+      default: rc = launch_sites<T, 4, true>(vol, bits, coords, mask,
+                                             weights, bias, out, B, D, H, W,
+                                             V, warps, blocks, cin, c0, in,
+                                             po, s);
+    }
+  }
+  return rc;
+}
+
+template <typename T>
+static int launch_cin(int cin, const void* vol, void* bits, float* partial,
                       const void* coords, const void* mask,
                       const void* weights, const void* bias, void* out, int B,
                       int D, int H, int W, int V, int warps, int blocks,
@@ -381,35 +485,40 @@ static int launch_cin(int cin, const void* vol, void* bits,
     case 4: return launch<T, 4>(vol, bits, coords, mask, weights, bias, out,
                                 B, D, H, W, V, warps, blocks, s);
   }
-  return kBadShape;
+  return launch_wide<T>(cin, vol, bits, partial, coords, mask, weights, bias,
+                        out, B, D, H, W, V, warps, blocks, s);
 }
 
 }  // namespace dpcr
 
 // vol [B,D,H,W,cin], coords [B,V,3] int32, mask [B,V] uint8,
 // weights [343,cin,64], bias [64] or null, out [B,V,64]; all contiguous,
-// vol/weights/bias/out of one dtype; 1 <= cin <= 4; bits int32 scratch
-// [B*D*H*ceil(W/32)]; `warps` a block and `blocks` blocks a channel part
+// vol/weights/bias/out of one dtype; 1 <= cin <= 18; bits int32 scratch
+// [B*D*H*ceil(W/32)]; partial f32 scratch [B*V,64] for cin > 4 (else
+// null); `warps` a block and `blocks` blocks a channel part
 // (kernels.stem_sites_plan; f32 runs 2 parts of 32 output channels).
 // Returns 0 on success, a CUDA error code, or a negative dpcr::ArgError.
 extern "C" int stem_sites_launch(int dtype, const void* vol, void* bits,
+                                 void* partial,
                                  const void* coords, const void* mask,
                                  const void* weights, const void* bias,
                                  void* out, int B, int D, int H, int W, int V,
                                  int cin, int cout, int warps, int blocks,
                                  void* stream) {
-  if (cin < 1 || cin > dpcr::kMaxCin || cout != dpcr::kCout || D < 1 ||
+  if (cin < 1 || cin > dpcr::kMaxCinWide || cout != dpcr::kCout || D < 1 ||
       H < 1 || W < 1 || V < 0 || B < 0 || warps < 1 ||
       warps > dpcr::kMaxWarps ||
       blocks < 1 || blocks > 65535)
     return dpcr::kBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dpcr::kFloat32)
-    return dpcr::launch_cin<float>(cin, vol, bits, coords, mask, weights,
-                                   bias, out, B, D, H, W, V, warps, blocks, s);
+    return dpcr::launch_cin<float>(cin, vol, bits,
+                                   static_cast<float*>(partial), coords, mask,
+                                   weights, bias, out, B, D, H, W, V, warps,
+                                   blocks, s);
   if (dtype == dpcr::kBFloat16)
-    return dpcr::launch_cin<__nv_bfloat16>(cin, vol, bits, coords, mask,
-                                           weights, bias, out, B, D, H, W, V,
-                                           warps, blocks, s);
+    return dpcr::launch_cin<__nv_bfloat16>(
+        cin, vol, bits, static_cast<float*>(partial), coords, mask, weights,
+        bias, out, B, D, H, W, V, warps, blocks, s);
   return dpcr::kBadDType;
 }

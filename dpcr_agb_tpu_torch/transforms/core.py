@@ -7,9 +7,12 @@ is a callable `t(rng, sample) -> sample` with an explicit
 `np.random.Generator`, so a pipeline is a pure function of (seed, sample)."""
 from __future__ import annotations
 
+import logging
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+
+log = logging.getLogger(__name__)
 
 Sample = Dict[str, Any]
 
@@ -118,8 +121,22 @@ class Compose(Transform):
         return sample
 
 
-def instantiate_transform(entry: dict) -> Transform:
-    """One transform from a plain dict {transform: Name, params: {...}}."""
+def _to_plain(obj):
+    """Config objects (the port's `Cfg`, anything with `to_dict`) and
+    nested lists of them -> plain dicts and lists."""
+    if hasattr(obj, "to_dict"):
+        return obj.to_dict()
+    if isinstance(obj, dict):
+        return {k: _to_plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_to_plain(v) for v in obj]
+    return obj
+
+
+def instantiate_transform(entry) -> Transform:
+    """One transform from {transform: Name, params: {...}} (a plain dict or
+    a config object)."""
+    entry = _to_plain(entry)
     name = entry["transform"]
     params = entry.get("params", {}) or {}
     if name not in TRANSFORM_REGISTRY:
@@ -140,7 +157,44 @@ def instantiate_transforms(cfg_list) -> Compose:
     """A Compose from a (possibly nested) list of plain transform dicts."""
     if cfg_list is None:
         return Compose([])
-    return Compose([instantiate_transform(e) for e in _flatten(cfg_list)])
+    return Compose([instantiate_transform(e)
+                    for e in _flatten(_to_plain(cfg_list))])
+
+
+@register
+class ClampBatchSize:
+    """Drops samples from a batch while the running point count would pass
+    `num_points`. Batch-level: called with the list of samples just before
+    collate (the loader's `pre_batch_collate`); the collate pads the batch
+    back to its size with fully masked rows. When every sample overflows,
+    the smallest one is kept, so a batch always exists."""
+
+    batch_level = True
+
+    def __init__(self, num_points: int = 100000):
+        self._num_points = int(num_points)
+
+    def __call__(self, samples: List[Sample]) -> List[Sample]:
+        total = 0
+        out = []
+        for s in samples:
+            n = len(s["pos"])
+            if self._num_points and total + n > self._num_points:
+                continue
+            total += n
+            out.append(s)
+        if not out and samples:
+            out = [min(samples, key=lambda s: len(s["pos"]))]
+        if len(out) < len(samples):
+            log.warning(
+                "ClampBatchSize: %d points exceed the %d budget; batch "
+                "truncated to %d of %d samples",
+                sum(len(s["pos"]) for s in samples), self._num_points,
+                len(out), len(samples))
+        return out
+
+    def __repr__(self):
+        return f"ClampBatchSize(num_points={self._num_points})"
 
 
 def instantiate_batch_transforms(cfg_list) -> Optional[Callable]:
@@ -149,7 +203,7 @@ def instantiate_batch_transforms(cfg_list) -> Optional[Callable]:
     A transform that is not batch-level raises."""
     if cfg_list is None:
         return None
-    ts = [instantiate_transform(e) for e in _flatten(cfg_list)]
+    ts = [instantiate_transform(e) for e in _flatten(_to_plain(cfg_list))]
     for t in ts:
         if not getattr(t, "batch_level", False):
             raise ValueError(f"{t!r} is not a batch-level transform")
@@ -161,3 +215,53 @@ def instantiate_batch_transforms(cfg_list) -> Optional[Callable]:
             samples = t(samples)
         return samples
     return apply
+
+
+@register
+class LotteryTransform(Transform):
+    """One of the transforms, drawn uniformly on every call."""
+
+    def __init__(self, transform_options):
+        self.choices = instantiate_transforms(transform_options).transforms
+
+    def __call__(self, rng, sample):
+        return self.choices[rng.integers(len(self.choices))](rng, sample)
+
+
+@register
+class ComposeTransform(Transform):
+    """A nested Compose from a config list."""
+
+    def __init__(self, transform_options):
+        self.transform = instantiate_transforms(transform_options)
+
+    def __call__(self, rng, sample):
+        return self.transform(rng, sample)
+
+
+@register
+class RandomParamTransform(Transform):
+    """Instantiates `transform_name` anew on every call with parameters
+    drawn uniformly: each spec is {min, max, type: float|int} (int
+    truncates) or {value: ...}."""
+
+    def __init__(self, transform_name, transform_params):
+        self.transform_name = transform_name
+        self.transform_params = _to_plain(transform_params)
+
+    def _draw(self, rng):
+        params = {}
+        for key, spec in self.transform_params.items():
+            if "min" in spec and "max" in spec:
+                v = rng.random() * (spec["max"] - spec["min"]) + spec["min"]
+                params[key] = int(v) if spec.get("type") == "int" \
+                    else float(v)
+            elif "value" in spec:
+                params[key] = spec["value"]
+            else:
+                raise NotImplementedError(f"param spec {spec!r}")
+        return instantiate_transform(
+            {"transform": self.transform_name, "params": params})
+
+    def __call__(self, rng, sample):
+        return self._draw(rng)(rng, sample)

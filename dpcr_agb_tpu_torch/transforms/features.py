@@ -1,5 +1,7 @@
-"""Input featurization transforms of the sparse_xy chain (counterparts in
-`dpcr_agb_tpu/transforms/features.py`)."""
+"""Input featurization transforms (counterparts in
+`dpcr_agb_tpu/transforms/features.py`): the sparse_xy chain's features,
+features concatenated onto x, their normalisation, and the cloud's
+covariance spectrum."""
 from __future__ import annotations
 
 from typing import List, Optional
@@ -49,6 +51,19 @@ class AddXYDistanceToCenter(Transform):
         return sample
 
 
+@register
+class AddZDistanceToTop(Transform):
+    """z_distance_to_top [N,1]: the distance below the 99th z-quantile."""
+
+    def __call__(self, rng, sample):
+        z = sample["pos"][:, 2:3]
+        top = np.quantile(z, 0.99)
+        sample = dict(sample)
+        sample["z_distance_to_top"] = (-(z - top)).astype(np.float32)
+        return sample
+
+
+@register
 class AddFeatByKey(Transform):
     """Concat one named attribute onto x."""
 
@@ -118,4 +133,54 @@ class AddFeatsByKeys(Transform):
             for name, delete in zip(self.feat_names, self.delete_feats):
                 if delete:
                     sample.pop(name, None)
+        return sample
+
+
+@register
+class NormalizeFeature(Transform):
+    """Standardise one named feature by a given mean and std."""
+
+    def __init__(self, feat_name, mean, std):
+        self.feat_name, self.mean, self.std = feat_name, mean, std
+
+    def __call__(self, rng, sample):
+        sample = dict(sample)
+        sample[self.feat_name] = (
+            (sample[self.feat_name] - self.mean) / self.std).astype(
+                np.float32)
+        return sample
+
+
+@register
+class NormalFeature(Transform):
+    """Concatenate the per-point normals sample['norm'] onto x; raises
+    when the sample has none (computing them is not implemented, in the
+    reference either)."""
+
+    def __call__(self, rng, sample):
+        norm = sample.get("norm")
+        if norm is None:
+            raise NotImplementedError(
+                "NormalFeature requires sample['norm'] (computing normals "
+                "is not implemented)")
+        sample = dict(sample)
+        x = sample.get("x")
+        sample["x"] = norm if x is None else np.concatenate([x, norm], -1)
+        return sample
+
+
+@register
+class PCACompute(Transform):
+    """Eigendecomposition of the cloud's covariance in float64:
+    eigenvalues ascending, eigenvectors in columns (the first estimates
+    the normal), stored as float32."""
+
+    def __call__(self, rng, sample):
+        pos = sample["pos"].astype(np.float64)
+        centered = pos - pos.mean(axis=0)
+        cov = centered.T @ centered / len(centered)
+        eig, v = np.linalg.eigh(cov)
+        sample = dict(sample)
+        sample["eigenvalues"] = eig.astype(np.float32)
+        sample["eigenvectors"] = v.astype(np.float32)
         return sample

@@ -1,1 +1,2 @@
-"""Host utilities of the trainer: KPConv's neighbour-limit calibration."""
+"""Host utilities: KPConv's neighbour-limit calibration and the timing
+helpers."""

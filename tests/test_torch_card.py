@@ -7,8 +7,8 @@ for the same bits: `stem_sites_dw`, `kpconv_fused_bwd`'s dx and dW, and
 `gather_rows_bwd` (against its plain version too); and a KPConv train
 step that builds each neighbour list's reverse index once and hands it to
 every gather backward; the two pool forms (`max_pool_k3s2_rows` and the
-volume form), the volume-form pool backward and `stem_sites` against their
-plain versions at their edges (for the row form also whole and childless
+volume form), the volume-form pool backward and `stem_sites` (Cin 1 to 18)
+against their plain versions at their edges (for the row form also whole and childless
 windows; for the backward its warp tiles' edges), the same bits twice;
 the row-form pool backward (`max_pool_k3s2_bwd`) against its plain
 version with ties, padded rows and rows on the volume's upper edge, the
@@ -351,7 +351,8 @@ def test_volume_backward_at_tile_edges_and_repeats():
 
 @pytest.mark.cuda
 def test_stem_sites_matches_its_plain_version_and_repeats():
-    """Cin 1, 3 and 4, with and without a bias: f32 within rtol 1e-4, atol
+    """Cin 1, 3 and 4 (one launch) and 5, 7 and 18 (a launch a group of 4
+    input channels), with and without a bias: f32 within rtol 1e-4, atol
     1e-4 and bf16 within atol 2e-2 of max|plain| (chip_smoke.py's
     tolerances); sites on all six faces of the volume and past it (read at
     the clipped site), an all-masked sample, B*V = 3 * 301 sites (not a
@@ -367,7 +368,7 @@ def test_stem_sites_matches_its_plain_version_and_repeats():
                      [4, 5, 0], [4, 5, 36], [0, 0, 0], [8, 10, 36]]
     coords[2, :2] = [[9, -2, 40], [-1, 11, 3]]
     c_t, m_t = torch.from_numpy(coords).cuda(), torch.from_numpy(mask).cuda()
-    for cin in (1, 3, 4):
+    for cin in (1, 3, 4, 5, 7, 18):
         feats = torch.from_numpy(rng.normal(size=(3, 301, cin)).astype(
             np.float32)).cuda()
         wts = torch.from_numpy((rng.normal(size=(343, cin, 64)) * 0.1)

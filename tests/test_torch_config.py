@@ -4,6 +4,7 @@ package's engine: every file under conf/ reads to the same tree as
 `dpcr_agb_tpu.config.load_config`, each override form acts the same, and
 `pretty()` reads back through `safe_load`. Equality here is exact, with
 key order and value types (int against float, bool against str)."""
+import datetime
 import math
 import os
 import pathlib
@@ -12,7 +13,9 @@ import pytest
 import yaml
 
 from dpcr_agb_tpu import config as jcfg
+from dpcr_agb_tpu.config import engine as jengine
 from dpcr_agb_tpu_torch import config as tcfg
+from dpcr_agb_tpu_torch.config import engine as tengine
 from dpcr_agb_tpu_torch.config import yaml as tyaml
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -118,12 +121,25 @@ def test_train_composition_equals_jax(models, name, tt, training):
 @pytest.mark.parametrize("data", ["instance/NFI/reg",
                                   "instance/synthetic/reg",
                                   "instance/NFI/noground/reg"])
-def test_eval_and_calibrate_composition_equals_jax(root, extra, data):
+def test_eval_and_calibrate_composition_equals_jax(root, extra, data,
+                                                   monkeypatch):
+    """One frozen clock for both composers: eval.yaml's run_dir reads
+    ${now:...}, and two real calls can straddle a second."""
+    class FrozenClock:
+        class datetime(datetime.datetime):
+            @classmethod
+            def now(cls, tz=None):
+                return datetime.datetime(2024, 5, 6, 7, 8, 9)
+
+    monkeypatch.setattr(jengine, "datetime", FrozenClock)
+    monkeypatch.setattr(tengine, "datetime", FrozenClock)
     ov = ["task=instance", "models=instance/minkowski_baseline",
           "model_name=SENet14", f"data={data}", *extra]
     want = jcfg.load_config(CONF, root, ov).to_dict()
     got = tcfg.load_config(CONF, root, ov).to_dict()
     assert same(got, want)
+    if root == "eval":
+        assert got["run_dir"] == "outputs/run/eval/2024-05-06_07-08-09"
 
 
 OVERRIDE_CASES = [

@@ -169,7 +169,30 @@ def test_stem_sites_plan_fits_a_block(cin, bf16):
     assert small["scratch_bytes"]["bits"] == 200
 
 
-@pytest.mark.parametrize("cin", [0, 5, 18])
+@pytest.mark.parametrize("cin", [0, 19, 64])
 def test_stem_sites_plan_refuses_what_does_not_fit(cin):
-    with pytest.raises(ValueError, match="Cin"):
+    with pytest.raises(ValueError, match="1 <= Cin <= 18"):
         kernels.stem_sites_plan(2, 9, 9, 9, 40, cin, False)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("cin", list(range(1, 19)))
+def test_stem_sites_plan_takes_every_width_to_18(cin, bf16):
+    """Up to Cin 4 one launch holds W whole; past it one launch a group
+    of 4 input channels (the last the rest), each with Cin 4's shared
+    memory and 8 warps, adding to an f32 partial of the B*V output rows.
+    Every width fits a block with at least one warp."""
+    plan = kernels.stem_sites_plan(16, 88, 88, 80, 16384, cin, bf16)
+    assert plan["smem_bytes"] <= kernels.SMEM_PER_BLOCK
+    assert plan["warps"] >= 1
+    assert sum(plan["groups"]) == cin
+    assert all(1 <= g <= 4 for g in plan["groups"])
+    if cin <= 4:
+        assert plan["groups"] == [cin]
+        assert plan["scratch_bytes"]["partial"] == 0
+    else:
+        assert plan["groups"][:-1] == [4] * (len(plan["groups"]) - 1)
+        assert plan["warps"] == kernels.STEM_MAX_WIDE_WARPS == 8
+        assert plan["smem_bytes"] == kernels.stem_sites_plan(
+            16, 88, 88, 80, 16384, 4, bf16)["smem_bytes"]
+        assert plan["scratch_bytes"]["partial"] == 4 * 16 * 16384 * 64
