@@ -5,9 +5,11 @@
                           [--only SENet14|KPConv|SENet14-denseL0|SENet50|
                                   MPointNet|SimplestNet|PointNeXt|PointNet|
                                   SENet14-map|SENet50-map|
+                                  KPConv-deform|
                                   trainer|trainer-kpconv|trainer-pointnext|
-                                  trainer-pointnet|trainer-map|treeadd|
-                                  transforms]
+                                  trainer-pointnet|trainer-map|
+                                  trainer-kpconv-deform|treeadd|
+                                  transforms|norms]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   device   the card's name and power limit, the float32 settings pinned by
@@ -147,6 +149,24 @@ kernel is `fps`):
            once; prints the `.ckpt`'s bytes and load seconds (decoded to
            tensors on the card), points per plot, LAZ decode ms per plot,
            both routes' predict_main_seconds, max_abs_diff and bit_equal
+KPConv-deform is the conf's KPConv encoder with levels 3-4 deformable
+(the original KPConv paper's deformable KP-FCNN: resnetb_deformable,
+resnetb_deformable_strided; deform_radius 5.0), through the same entry
+points (the port's KPConv entry with this architecture, as the root
+grammar's `models.KPConv.config.architecture=[...]` sets it): its 9
+rigid KPConvs (levels 0-2) run kpconv_fused, its 5 deformable ones plain
+PyTorch in f32 over one gather each, whose backward is gather_rows_bwd.
+Its kernels rows are KPConv's (the same layers at the same shapes: levels
+0-2 search at the same radius and take the same seeded weights), or when
+it runs alone its own at three rigid layers and the 9-layer sweep. Its serve and train
+phases check exactly 9 kpconv_fused a forward and 9 kpconv_fused, 9
+kpconv_fused_bwd and 4 + 5 gather_rows_bwd a step, the kernel step
+against the plain one with KPConv's conditioning, and train_reproducible;
+each also reports `deform`: the CUDA-event device ms of the rigid and of
+the deformable KPConv ops in a forward (hooks around each op), the
+profiler's split of a forward or step by kernel kind with the device's
+idle share, and (train) each deformable op's fitting and repulsive terms
+on the train batch.
 Then the sparse-voxel nets in map mode (`dense_dims=null`, full width, f32:
 SENet14-map and SENet50-map), which launch none of the
 port's kernels: their convs gather rows through kernel maps that the host
@@ -215,9 +235,18 @@ Then (`--only trainer` runs it alone):
            plots: f32 under enable_mixed (no bf16 form), fps 5 (PointNet
            1) a forward and no other kernel, eval.main bit-equal
   trainer_map (`--only trainer-map`) the same for SENet14's command with
-           `models.SENet14.extra_options.dense_dims=null`, on 24 plots: no
-           kernel launch anywhere; host_pyramid_ms of each batch, its maps
-           built in the loader's threads
+           `models.SENet14.extra_options.dense_dims=null`, on 24 plots for one
+           epoch: no kernel launch anywhere; host_pyramid_ms of each batch,
+           its maps built in the loader's threads
+  trainer_kpconv_deform (`--only trainer-kpconv-deform`) the same for
+           KPConv's command with the deformable architecture,
+           `modulated=True`, an elastic regularizer (lambda 1e-4) and
+           `head_optim_settings={lr: 1e-4}` (the head on a constant lr,
+           the backbone on the schedule), on 48 plots: kpconv_fused 9 a
+           forward, kpconv_fused_bwd 9 and gather_rows_bwd 9 a step; the
+           .ckpt's optimizer state holds the two groups (optax's
+           multi_transform leaves: each group's count and slots), and a
+           resumed run reads it back into the two groups bit for bit
   treeadd  (`--only treeadd`) docs/treedb.md through the port: a synthetic
            treeDB (the port's generate_tree_db, 40 trees) processed by the
            port's train route (SimplestNet on data=instance/treeDB/ALS,
@@ -245,6 +274,16 @@ Then (`--only trainer` runs it alone):
            kernel 0; the samples ClampBatchSize dropped (at least one);
            points per sample after each transform of the train chain;
            finite test predictions; train_main_seconds, eval_main_seconds
+  norms    (`--only norms`) SENet14 on the sparse level 0 with norm_type
+           `in` and then `ln`, f32 and bf16, at full width on the serving
+           plots: one forward of the serving batch and one train step
+           through the kernels and through the plain versions (the serve
+           and train tolerances), stem_sites and max_pool_k3s2_rows once
+           in the forward, the four sparse-level-0 kernels once in the
+           step; then SENet14's trainer command with norm_type `in` and
+           visualization.format=[csv,tensorboard,wandb] for one epoch on
+           24 plots: the test CSV written, and each panel written or its
+           one warning logged (the package missing)
 Then a total line with the script's seconds, the kernels summary line, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`. Without CUDA (or without the rest of
 the repository) it exits non-zero before printing any result."""
@@ -321,6 +360,17 @@ _NO_KERNELS = {"env": {}, "kernels": None, "forward": (), "backward": (),
 def _only(**counts) -> dict:
     """Launch counts of every kernel: those given, the others 0."""
     return {k: counts.get(k, 0) for k in ALL_KERNELS}
+# the conf's KPConv encoder with levels 3-4 deformable (KPConv-PyTorch's
+# deformable KP-FCNN, train_S3DIS.py), and the rigid layers its kernels
+# phase takes when it runs alone
+KPCONV_DEFORM_ARCH = [
+    "simple", "resnetb", "resnetb_strided", "resnetb", "resnetb",
+    "resnetb_strided", "resnetb", "resnetb", "resnetb_strided",
+    "resnetb_deformable", "resnetb_deformable",
+    "resnetb_deformable_strided", "resnetb_deformable",
+    "resnetb_deformable", "global_sum"]
+KP_CASES_DEFORM = ((0, "deform: level 0, first layer"),
+                   (1, "deform: level 0"), (7, "deform: level 2"))
 # per path: the entry points' model_name, the mode variables, which
 # kernels phase it gets, whether serve_jax_ckpt serves it from a JAX
 # `.ckpt` and `.laz` plots, the kernels serving launches and the ones training
@@ -371,6 +421,22 @@ MODELS = {
                  "shares": "input:", "forward": ("fps",), "backward": (),
                  "exact": {"forward": _only(fps=1), "step": _only(fps=1)},
                  "conditioned": True},
+    # levels 3-4 deformable: the 9 rigid KPConvs on kpconv_fused, the 5
+    # deformable ones plain over one gather each (gather_rows_bwd beside
+    # the 4 strided shortcuts'); its kernels rows are KPConv's, or its
+    # own at rigid layers (KP_CASES_DEFORM) when it runs alone
+    "KPConv-deform": {"model_name": "KPConv", "env": {}, "kernels": "kpconv",
+                      "config": {"architecture": KPCONV_DEFORM_ARCH},
+                      "kp_cases": KP_CASES_DEFORM,
+                      "forward": ("kpconv_fused",),
+                      "backward": ("kpconv_fused_bwd", "gather_rows_bwd"),
+                      "exact": {"forward": {"kpconv_fused": 9,
+                                            "gather_rows_bwd": 0},
+                                "step": {"kpconv_fused": 9,
+                                         "kpconv_fused_bwd": 9,
+                                         "gather_rows_bwd": 9}},
+                      "reproducible": True, "conditioned": True,
+                      "deform": True},
     # map mode (dense_dims null): gathers through host-built kernel maps
     # and matmuls, none of the port's kernels; its own phases
     # (run_map_model), in f32 (trainer-map trains it in bf16)
@@ -382,6 +448,7 @@ MODELS = {
 # the KPConv layers whose inputs the kernels phase takes from the first
 # serving batch: (block, case)
 KP_CASES = ((0, "level 0, first layer"), (1, "level 0"), (13, "level 4"))
+
 # kernel path against plain path after one train step: loss (relative),
 # all gradients as one vector (relative L2), each gradient (relative L2,
 # floored at 1e-3 of the global gradient norm for the ones that vanish up
@@ -421,6 +488,24 @@ def mode_env(env: dict):
             os.environ.pop(k, None)
             if v is not None:
                 os.environ[k] = v
+
+
+@contextlib.contextmanager
+def model_config(model_name: str, config: dict):
+    """The port's entry for `model_name` (`train.MODELS`, which the input=
+    form and `train.setup` build from) with `config` set in its config
+    while a path runs: what the root grammar's
+    `models.<name>.config.<key>=...` sets; the entry comes back after."""
+    import copy
+    from dpcr_agb_tpu_torch import train
+    saved = train.MODELS[model_name]
+    option = copy.deepcopy(saved[0])
+    option.setdefault("config", {}).update(copy.deepcopy(config))
+    train.MODELS[model_name] = (option, *saved[1:])
+    try:
+        yield
+    finally:
+        train.MODELS[model_name] = saved
 
 
 def model_options(model_name: str) -> dict:
@@ -1573,7 +1658,9 @@ def capture_kpconv_inputs(net, tb) -> tuple:
     import torch
     from dpcr_agb_tpu_torch.models import kpconv as kmodel
     convs, pools = {}, {}
-    blocks = [bi for bi, *_ in net.blocks if hasattr(net, f"block{bi}_kpconv")]
+    # the rigid KPConvs (the kernels' layers; a deformable op runs plain)
+    blocks = [bi for bi, *_ in net.blocks if hasattr(net, f"block{bi}_kpconv")
+              and not getattr(net, f"block{bi}_kpconv").deformable]
     hooks = [getattr(net, f"block{bi}_kpconv").register_forward_pre_hook(
         lambda mod, args, bi=bi: convs.__setitem__(
             bi, tuple(a.detach() for a in args[:3]))) for bi in blocks]
@@ -1671,6 +1758,8 @@ def kpconv_layer_sweep(net, tb, convs: dict, smi: str, seed: int) -> dict:
     pyr = tb.aux
     wide = []
     for bi, level, k in KP_WIDE_K:
+        if bi not in convs:     # a deformable layer
+            continue
         _, x, _ = convs[bi]
         p, m = pyr[f"kp_pts{level}"], pyr[f"kp_mask{level}"]
         r = net.first_subsampling_dl * net.conv_radius * 2 ** level
@@ -1747,11 +1836,12 @@ def gather_kernel_rows(x, nbr, smi: str, seed: int) -> list:
         "card": smi}]
 
 
-def phase_kpconv_kernels(bundle, batch, smi: str, seed: int) -> list:
+def phase_kpconv_kernels(bundle, batch, smi: str, seed: int,
+                         cases=KP_CASES) -> list:
     """kpconv_fused and kpconv_fused_bwd in f32 and bf16 on the inputs that
-    the first serving batch gives the layers of KP_CASES (captured by
+    the first serving batch gives the layers of `cases` (captured by
     hooks during one forward), cotangents drawn from `seed`; the sweep
-    over all 14 layers and K 51/70 (`kpconv_layer_sweep`), and
+    over all rigid layers and K 51/70 (`kpconv_layer_sweep`), and
     gather_rows_bwd."""
     import torch
     from dpcr_agb_tpu_torch.ops import kpconv
@@ -1761,7 +1851,7 @@ def phase_kpconv_kernels(bundle, batch, smi: str, seed: int) -> list:
     KP_SWEEP.update(kpconv_layer_sweep(net, tb, convs, smi, seed))
     g = torch.Generator(device=dev).manual_seed(seed)
     rows = gather_kernel_rows(*pools[min(pools)], smi, seed)
-    for bi, case in KP_CASES:
+    for bi, case in cases:
         op = getattr(net, f"block{bi}_kpconv")
         nbr, x, rel = convs[bi]
         w = op.weights.detach().contiguous()
@@ -2270,6 +2360,10 @@ def phase_serve(key: str, dtname: str, ckpt: str, plot_dir: str,
         extra = kpconv_serve_routes(bundle, batch, raw, what)
     if MODELS[key]["kernels"] == "fps":
         extra = {"ball_query": ball_query_fill(bundle, batch)}
+    if MODELS[key].get("deform"):
+        extra["deform"] = deform_facts(
+            bundle.net, batch.to(bundle.device),
+            lambda: predict.forward_raw(bundle, batch))
     profile = device_profile(lambda: predict.forward_raw(bundle, batch)) \
         if with_profile else None
     torch.cuda.reset_peak_memory_stats()
@@ -2472,7 +2566,9 @@ def _step_errors(got, want, before: dict, loss_got: float,
             "grad": max(grad.values()),
             "params": _rel(flat(pk[n].detach() for n in names),
                            flat(pp[n].detach() for n in names)),
-            "update": max(update.values()), "stat": max(stat.values())}
+            "update": max(update.values()),
+            # a net whose norms keep no running stats (in, ln) has none
+            "stat": max(stat.values(), default=0.0)}
     return errs, grad
 
 
@@ -2674,6 +2770,8 @@ def phase_train(key: str, dtname: str, plot_dir: str, out_dir: str,
         det_step_s = wall_ms(lambda: runner.train(batch), 5, 2) / 1e3
     finally:
         torch.backends.cudnn.deterministic = pinned["cudnn_deterministic"]
+    deform = deform_facts(runner.net, batch, lambda: runner.train(batch),
+                          train=True) if MODELS[key].get("deform") else None
     routes = kpconv_train_routes(runner, host_batch, batch, what) \
         if hasattr(runner.net, "device_pyramid") else {}
     torch.cuda.reset_peak_memory_stats()
@@ -2704,10 +2802,81 @@ def phase_train(key: str, dtname: str, plot_dir: str, out_dir: str,
            **routes, "peak_mem_gb": peak, "peak_reserved_gb": reserved,
            "served_trained_checkpoint": N_PLOTS, "numerics": pinned,
            **repro, "profile": profile, "card": smi}
+    if deform is not None:
+        out["deform"] = deform
     if key == "KPConv" and KP_SWEEP:
         out["kpconv_14_layers_device_ms"] = {
             k: KP_SWEEP[dtname][f"{k}_device_ms_sum"] for k in ("fwd", "bwd")}
     emit(out)
+    return out
+
+
+# the deformable KPConv path's kernels by kind (the profiler's split)
+DEFORM_KINDS = (("kpconv_fused", r"kpconv"),
+                ("gather_rows_bwd", r"gather_rows"),
+                ("matmul", r"gemm|Gemm|nvjet|xmma|cutlass|cublas|bmm"))
+
+
+def deform_facts(net, batch, fn, train: bool = False) -> dict:
+    """The deformable path on one device batch: the device ms of the
+    rigid and of the deformable KPConv ops in one forward (CUDA events
+    recorded by hooks before and after each op, median of 5 forwards; the
+    eval forward, or with `train` the train-mode one), the profiler's
+    split of `fn` (a forward or a train step) by kernel kind with the
+    device's idle share, and with `train` each deformable op's fitting
+    and repulsive terms on this batch and the largest fitting term."""
+    import torch
+    from dpcr_agb_tpu_torch.models.kpconv import KPConvOp
+    ops = [(n, m) for n, m in net.named_modules() if isinstance(m, KPConvOp)]
+    events, hooks = [], []
+    for name, m in ops:
+        def pre(mod, args, name=name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events.append((name, mod.deformable, e, None))
+
+        def post(mod, args, out, name=name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            n, d, start, _ = events[-1]
+            events[-1] = (n, d, start, e)
+        hooks += [m.register_forward_pre_hook(pre),
+                  m.register_forward_hook(post)]
+    was = net.training
+    net.train(train)
+    per = {"rigid": [], "deformable": []}
+    try:
+        with torch.no_grad():
+            for _ in range(6):
+                events.clear()
+                net(batch)
+                torch.cuda.synchronize()
+                rep = {"rigid": 0.0, "deformable": 0.0}
+                for _, d, a, b in events:
+                    rep["deformable" if d else "rigid"] += a.elapsed_time(b)
+                for k, v in rep.items():
+                    per[k].append(v)
+    finally:
+        for h in hooks:
+            h.remove()
+        net.train(was)
+    out = {"ops": {"rigid": sum(not m.deformable for _, m in ops),
+                   "deformable": sum(m.deformable for _, m in ops)},
+           "forward_op_device_ms": {k: statistics.median(v[1:])
+                                    for k, v in per.items()},
+           "profile": device_profile(fn, kinds=DEFORM_KINDS)}
+    if train:
+        net.train()
+        with torch.no_grad():
+            net(batch)
+        terms = {n: {k: float(v) for k, v in m.terms.items()}
+                 for n, m in ops if m.terms is not None}
+        net.train(was)
+        if len(terms) != out["ops"]["deformable"] or not all(
+                np.isfinite(list(t.values())).all() for t in terms.values()):
+            raise AssertionError(f"deform terms {terms}")
+        out["terms"] = terms
+        out["largest_fitting"] = max(t["fitting"] for t in terms.values())
     return out
 
 
@@ -2895,8 +3064,9 @@ def run_model(key: str, tmp: str, plot_dir: str, smi: str, seed: int,
     # (of the fps rows, PointNet's forward shares the input's sampling)
     shared = [r for r in have if r["kernels_phase"] == spec["kernels"]
               and (r.get("case") or "").startswith(spec.get("shares", ""))]
-    if spec["kernels"] == "kpconv":
-        krows = phase_kpconv_kernels(bundles["float32"], batch, smi, seed)
+    if spec["kernels"] == "kpconv" and not shared:
+        krows = phase_kpconv_kernels(bundles["float32"], batch, smi, seed,
+                                     spec.get("kp_cases") or KP_CASES)
     elif spec["kernels"] == "fps" and not shared:
         krows = phase_fps_kernels(key, bundles["float32"], batch, smi)
     elif spec["kernels"] is None or shared:
@@ -2991,6 +3161,22 @@ TRAINERS = {
         "forward": {"fps": 1}, "step": {}, "kernels_phase": "fps",
         "rows": lambda r: r["case"].startswith("input:"),
         "eval_bit_equal": True, "dtype": "float32", "plots": 48},
+    # KPConv's command, levels 3-4 deformable and modulated, with a
+    # parameter regularizer and the head on its own constant lr
+    "trainer-kpconv-deform": {
+        "phase": "trainer_kpconv_deform", "model_name": "KPConv",
+        "groups": ["models=instance/kpconv", "data.transform_type=xy",
+                   "training=nfi/kpconv",
+                   "models.KPConv.config.architecture=["
+                   + ",".join(KPCONV_DEFORM_ARCH) + "]",
+                   "models.KPConv.config.modulated=True",
+                   "+models.KPConv.regularizers={type: elastic, "
+                   "lambda: 1e-4}",
+                   "+models.KPConv.head_optim_settings={lr: 1e-4}"],
+        "forward": {"kpconv_fused": 9},
+        "step": {"kpconv_fused_bwd": 9, "gather_rows_bwd": 9},
+        "kernels_phase": "kpconv", "eval_bit_equal": True, "plots": 48,
+        "optimizer_groups": True},
     # SENet14's command in map mode: no kernel; the host maps built in the
     # loader's threads
     "trainer-map": {
@@ -3345,8 +3531,10 @@ def phase_trainer(tmp: str, smi: str, krows: list,
     if not same_w or not moved:
         raise AssertionError(f"{what}: calibrate_bn changed the weights "
                              f"({not same_w}) or no BN stat ({moved})")
+    groups = optimizer_groups_check(root, key, what, ckpt) \
+        if spec.get("optimizer_groups") else {}
     out = {"phase": what, "model": model_name, "dtype": dtname,
-           "plots": n_plots, "batch_size": TRAINER_BS,
+           "plots": n_plots, "batch_size": TRAINER_BS, **groups,
            "splits": splits, "generate_seconds": generate_seconds,
            "process_seconds": process_seconds,
            "train_main_seconds": train_seconds, "numerics": pinned,
@@ -3369,6 +3557,47 @@ def phase_trainer(tmp: str, smi: str, krows: list,
         out["host_pyramid_ms_per_batch"] = clock.ms
         out["host_pyramid_ms_median"] = statistics.median(clock.ms)
     emit(out)
+
+
+def optimizer_groups_check(root: str, key: str, what: str, ckpt) -> dict:
+    """The trainer's `.ckpt` with per-group settings: its optimizer leaves
+    are optax's multi_transform state (the backbone's count, exp_avg and
+    exp_avg_var over its parameters, then the head's), the head's count
+    equal to the backbone's; a run resumed from the run's directory
+    (epochs done: one final test stage) reads them back into its two
+    groups, bit for bit."""
+    import torch
+    from dpcr_agb_tpu_torch import train
+    from dpcr_agb_tpu_torch.training.optim import (GROUPS, MultiTransform,
+                                                   jax_state)
+    leaves = ckpt.optimizer[1]["opt_state"]["flat"]
+    run_dir = os.path.join(root, "run")
+    resumed = train.main(trainer_overrides(root, key) + [
+        f"training.checkpoint_dir={run_dir}", f"run_dir={root}/resumed"])
+    torch.cuda.synchronize()
+    opt = resumed.runner.optimizer
+    if not isinstance(opt, MultiTransform):
+        raise AssertionError(f"{what}: the resumed optimizer is {opt}")
+    named = dict(resumed.net.named_parameters())
+    again = jax_state(opt, named)
+    sizes = {k: 1 + 2 * len(opt.names[k]) for k in GROUPS}
+    counts = [int(np.asarray(leaves[0])),
+              int(np.asarray(leaves[sizes["backbone"]]))]
+    if len(leaves) != sum(sizes.values()) or len(again) != len(leaves) \
+            or any(not np.array_equal(np.asarray(a), np.asarray(b))
+                   for a, b in zip(again, leaves)) \
+            or counts[0] != counts[1] or counts[0] < 1:
+        raise AssertionError(f"{what}: optimizer leaves {len(leaves)} (want "
+                             f"{sizes}), counts {counts}, read back "
+                             f"{len(again)}")
+    lrs = {k: opt.optimizers[k].param_groups[0]["lr"] for k in GROUPS}
+    out = {"optimizer_groups": {k: len(opt.names[k]) for k in GROUPS},
+           "optimizer_leaves": len(leaves), "group_counts": counts,
+           "group_lr_after_resume": lrs, "resumed_reads_back": True,
+           "regularizer": resumed.runner.regularizer is not None}
+    del resumed
+    torch.cuda.empty_cache()
+    return out
 
 
 # Map mode (`dense_dims=null`, SENet14-map and SENet50-map): the host
@@ -4189,6 +4418,129 @@ def phase_transforms(tmp: str, smi: str, krows: list, seed: int) -> None:
           "eval_main_seconds": eval_seconds, "card": smi})
 
 
+NORMS_TRAINER_PLOTS = 24
+
+
+def phase_norms(tmp: str, plot_dir: str, smi: str, seed: int) -> None:
+    """SENet14 (sparse level 0) with norm_type `in` and `ln` (see the
+    module docstring)."""
+    import logging
+    import types
+    import torch
+    from dpcr_agb_tpu_torch import kernels, predict, train
+    from dpcr_agb_tpu_torch.data.synthetic import generate_nfi_like_dataset
+    files = sorted(glob.glob(os.path.join(plot_dir, "*.npz")))
+    step_rows = {"stem_sites": 1, "max_pool_k3s2_rows": 1,
+                 "stem_sites_dw": 1, "max_pool_k3s2_bwd": 1}
+    fwd_rows = {"stem_sites": 1, "max_pool_k3s2_rows": 1}
+    for norm_type in ("in", "ln"):
+        for dtname, option in model_options("SENet14").items():
+            what = f"norms {norm_type} {dtname}"
+            option = {**option, "norm_type": norm_type}
+            ckpt = make_checkpoint(tmp, f"ckpt_norms_{norm_type}_{dtname}",
+                                   "SENet14", option, seed)
+            bundle = predict.load_serving_bundle(ckpt, "SENet14")
+            samples, _ = predict.load_samples(bundle, files)
+            (batch, _), = predict.make_batches(bundle, samples, N_PLOTS)
+            kernels.reset_launches()
+            raw = predict.forward_raw(bundle, batch).float()
+            torch.cuda.synchronize()
+            fwd_launches = dict(kernels.LAUNCHES)
+            with plain_ops():
+                raw_plain = predict.forward_raw(bundle, batch).float()
+            rtol, scale = (1e-3, 1e-3) if dtname == "float32" \
+                else (0.0, 5e-2)
+            err = _check_close(f"{what} raw output", raw, raw_plain, rtol,
+                               scale * _amax(raw_plain))
+            bad = {k: fwd_launches[k] for k in ALL_KERNELS
+                   if fwd_launches[k] != fwd_rows.get(k, 0)}
+            if bad:
+                raise AssertionError(f"{what}: forward launches {bad}")
+            forward_ms = wall_ms(lambda: predict.forward_raw(bundle, batch),
+                                 5, 1)
+            net = bundle.net
+            stats = {"scale": [60.0, 120.0], "center": [150.0, 300.0],
+                     "weights": [0.5, 0.5]}
+            tb = train.setup(files, "SENet14", bf16=dtname == "bfloat16",
+                             batch_size=N_PLOTS, seed=seed).stream.next()
+            run = types.SimpleNamespace(
+                runner=train.build_runner(net, stats, seed=seed),
+                stats=stats)
+            tb = tb.to(run.runner.device)
+            kernels.reset_launches()
+            compared = compare_train_steps(run, tb, dtname, STEP_TOL)
+            step_launches = dict(kernels.LAUNCHES)
+            bad = {k: step_launches[k] for k in ALL_KERNELS
+                   if step_launches[k] != step_rows.get(k, 0)}
+            if bad:
+                raise AssertionError(f"{what}: step launches {bad}")
+            emit({"phase": "norms", "model": "SENet14",
+                  "norm_type": norm_type, "dtype": dtname,
+                  "forward_launches": {k: fwd_launches[k] for k in fwd_rows},
+                  "step_launches": {k: step_launches[k] for k in step_rows},
+                  "raw_max_abs_err_vs_plain": err,
+                  "raw_max_abs_plain": _amax(raw_plain),
+                  "kernel_vs_plain_step": compared,
+                  "forward_ms": forward_ms,
+                  "train_step_ms": wall_ms(lambda: run.runner.train(tb),
+                                           5, 2), "card": smi})
+            del bundle, net, run, tb
+            torch.cuda.empty_cache()
+
+    # the trainer's command with `in` and the panels
+    root = os.path.join(tmp, "norms_trainer")
+    generate_nfi_like_dataset(os.path.join(root, "data", "synthetic"),
+                              n_plots=NORMS_TRAINER_PLOTS)
+    overrides = [o for o in trainer_overrides(root, "trainer")
+                 if not o.startswith(("data.synthetic_plots=",
+                                      "training.epochs="))]
+    overrides += [f"data.synthetic_plots={NORMS_TRAINER_PLOTS}",
+                  "training.epochs=1", "models.SENet14.norm_type=in",
+                  "visualization.format=[csv,tensorboard,wandb]"]
+
+    class Warnings(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    caught = Warnings()
+    logging.getLogger().addHandler(caught)
+    try:
+        t0 = time.perf_counter()
+        trainer = train.main(overrides)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        logging.getLogger().removeHandler(caught)
+    run_dir = os.path.join(root, "run")
+    panels = {}
+    for name, out_dir in (("tensorboard", "tensorboard_viz"),
+                          ("wandb", None)):
+        warned = [m for m in caught.messages
+                  if m.startswith(f"{name} 3D export unavailable")]
+        written = out_dir is not None and bool(
+            glob.glob(os.path.join(run_dir, out_dir, "*")))
+        if len(warned) > 1 or not (warned or written or name == "wandb"):
+            raise AssertionError(f"norms trainer: {name} panel neither "
+                                 f"written nor warned about once: {warned}")
+        panels[name] = {"warnings": warned, "written": written}
+    csvs = sorted(os.path.basename(p) for p in glob.glob(
+        os.path.join(run_dir, "*_preds.csv")))
+    norms = sorted({type(m).__name__ for m in trainer.net.modules()
+                    if "Norm" in type(m).__name__})
+    if "SYNTH_test_preds.csv" not in csvs or norms != [
+            "MaskedInstanceNorm"]:
+        raise AssertionError(f"norms trainer: csvs {csvs}, norms {norms}")
+    emit({"phase": "norms_trainer", "model": "SENet14", "norm_type": "in",
+          "plots": NORMS_TRAINER_PLOTS, "csvs": csvs, "panels": panels,
+          "train_main_seconds": seconds, "card": smi})
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4198,7 +4550,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every phase's JSON to this file")
     ap.add_argument("--only", choices=sorted(MODELS) + sorted(TRAINERS)
-                    + ["treeadd", "transforms"],
+                    + ["treeadd", "transforms", "norms"],
                     default=None,
                     help="run the phases of one path only (all the "
                          "kernels are built either way); 'trainer' and "
@@ -4230,7 +4582,9 @@ def main(argv=None) -> int:
         for key, spec in MODELS.items():
             if args.only in (None, key):
                 t_model = time.perf_counter()
-                with mode_env(spec["env"]):
+                with mode_env(spec["env"]), \
+                        model_config(spec["model_name"],
+                                     spec.get("config", {})):
                     if spec.get("map_mode"):
                         run_map_model(key, tmp, plot_dir, smi, args.seed)
                     else:
@@ -4256,6 +4610,12 @@ def main(argv=None) -> int:
             with mode_env({}):
                 phase_transforms(tmp, smi, krows, args.seed)
             emit({"phase": "model", "model": "transforms",
+                  "seconds": time.perf_counter() - t_model})
+        if args.only in (None, "norms"):
+            t_model = time.perf_counter()
+            with mode_env({}):
+                phase_norms(tmp, plot_dir, smi, args.seed)
+            emit({"phase": "model", "model": "norms",
                   "seconds": time.perf_counter() - t_model})
     missing = [f"{r['name']} {r['dtype']} {r.get('case') or ''}"
                for r in krows if not r["launches"]]

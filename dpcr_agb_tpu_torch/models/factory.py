@@ -44,8 +44,9 @@ def has_bn_schedule(option: dict) -> bool:
 def build_model(option: dict, num_reg_targets: int, in_channels: int,
                 generator: Optional[torch.Generator] = None):
     """(module, conv_type) for one `conf/models` entry; the Minkowski
-    sparse-voxel ResNets and MPointNet, SimplestNet, the rigid KPConv net
-    and PointNeXt (with the PointNet encoder) are ported. MPointNet takes
+    sparse-voxel ResNets and MPointNet, SimplestNet, the KPConv net (rigid,
+    deformable and modulated) and PointNeXt (with the PointNet encoder)
+    are ported. MPointNet takes
     the JAX factory's defaults (relu, mean pool, no dropout, BN momentum
     0.1, no positions) where the entry names none."""
     cls = option["class"]

@@ -1,6 +1,7 @@
 """KPConv (kernel-point convolution) regression net (counterpart of
 `dpcr_agb_tpu/models/kpconv.py`: `KPConvOp`, `BatchNormBlock`, `UnaryBlock`,
-`KPCNN`, `build_kpconv`), rigid kernels on the fused path.
+`KPCNN`, `build_kpconv`): rigid kernels on the fused path, deformable
+ones in plain PyTorch.
 
 The pyramid (points, conv neighbours and pool neighbours of every level)
 comes in `batch.aux`: the entry points' loaders build it on the host
@@ -34,7 +35,16 @@ gets its reverse edge index (`ops.kpconv.reverse_edges`, once per list, shared b
 every op over it), over which the backward sums dx of every KPConv and of
 the strided shortcut's gather in a fixed order.
 
-Not ported yet: deformable and modulated kernels."""
+Deformable blocks (`*_deformable*`) run plain PyTorch in f32, as the JAX
+package computes them in XLA whatever the compute dtype: a rigid offset
+sub-conv predicts per-query kernel-point offsets (and, when `modulated`,
+a 2*sigmoid gate per kernel point), then the conv runs with the shifted
+kernel points. Both read one gather of the neighbours' features
+(`ops.kpconv.gather_rows`, whose backward on the card is the
+`gather_rows_bwd` kernel). In a train-mode forward each deformable op
+records its fitting and repulsive regularizer; `KPCNN.internal_losses`
+hands them to the train step, which adds them to the loss (the JAX
+package's sown `losses` collection)."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -46,14 +56,14 @@ from torch import nn
 from ..nn.blocks import ACTIVATIONS, SeparateLinear, TorchLinear
 from ..nn.norm import MaskedBatchNorm
 from ..ops.kernel_points import load_kernel_points
-from ..ops.kpconv import (gather_rows, kpconv_fused, reverse_edges,
+from ..ops.kpconv import (deformed_influence, gather_rows, influence_weights,
+                          kpconv_apply, kpconv_fused, reverse_edges,
                           shared_rel)
 from ..ops.masked import masked_mean, masked_sum
 from ..ops.neighbors import grid_subsample, radius_neighbors
 
 DEFAULT_POINT_FRACS = (1.0, 0.7, 0.35, 0.18, 0.1, 0.06)
 SHADOW_POS = 1e6
-_LATER = "a later slice of the port"
 
 
 def max_pool_zero_shadow_batched(x: torch.Tensor, nbr: torch.Tensor,
@@ -66,39 +76,108 @@ def max_pool_zero_shadow_batched(x: torch.Tensor, nbr: torch.Tensor,
 
 
 class KPConvOp(nn.Module):
-    """One rigid kernel-point convolution, weights [Kp, Cin, Cout]."""
+    """One kernel-point convolution, weights [Kp, Cin, Cout]; rigid on the
+    fused op, or deformable (offset_weights [Kp, Cin, (3|4)*Kp] and
+    offset_bias, the flax names and init)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_points: np.ndarray, extent: float,
                  influence: str = "linear", aggregation: str = "sum",
-                 deformable: bool = False,
+                 deformable: bool = False, modulated: bool = False,
+                 deform_fitting_power: float = 1.0,
+                 repulse_extent: float = 1.2,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if deformable:
-            raise NotImplementedError(
-                f"deformable and modulated KPConv are left for {_LATER}")
         self.extent = float(extent)
         self.influence = influence
         self.aggregation = aggregation
+        self.deformable = deformable
+        self.modulated = modulated
+        self.deform_fitting_power = float(deform_fitting_power)
+        self.repulse_extent = float(repulse_extent)
         self.dtype = dtype
+        # the train forward's regularizer (deformable only), and its two
+        # terms without a gradient
+        self.loss: Optional[torch.Tensor] = None
+        self.terms: Optional[Dict[str, torch.Tensor]] = None
         # the disposition is static, not a parameter: kept out of state_dict
         self.register_buffer(
             "kernel_points",
             torch.from_numpy(np.ascontiguousarray(kernel_points, np.float32)),
             persistent=False)
+        n_kp = kernel_points.shape[0]
         bound = 1.0 / np.sqrt(in_channels * out_channels)
         self.weights = nn.Parameter(torch.empty(
-            kernel_points.shape[0], in_channels, out_channels).uniform_(
+            n_kp, in_channels, out_channels).uniform_(
                 -bound, bound, generator=generator))
+        if deformable:
+            offset_dim = (4 if modulated else 3) * n_kp
+            bound = 1.0 / np.sqrt(in_channels * offset_dim)
+            self.offset_weights = nn.Parameter(torch.empty(
+                n_kp, in_channels, offset_dim).uniform_(
+                    -bound, bound, generator=generator))
+            self.offset_bias = nn.Parameter(torch.zeros(offset_dim))
 
     def forward(self, nbr: torch.Tensor, x: torch.Tensor,
                 rel: torch.Tensor, rev=None) -> torch.Tensor:
         """nbr [B,Nq,K], x [B,Ns,Cin], rel [B,Nq,K,3] -> [B,Nq,Cout] f32;
         rev: nbr's reverse edge index for the backward (optional)."""
+        if self.deformable:
+            return self._deformable(nbr, x, rel, rev)
         return kpconv_fused(x, nbr, rel, self.weights, self.kernel_points,
                             self.extent, self.influence, self.aggregation,
                             self.dtype, rev)
+
+    def _deformable(self, nbr, x, rel, rev) -> torch.Tensor:
+        """The deformable branch of the JAX `KPConvOp`, in f32."""
+        kp = self.kernel_points
+        n_kp = kp.shape[0]
+        nx = gather_rows(x.float(), nbr, rev)                # [B,Nq,K,C]
+        w_rigid = influence_weights(rel, kp, self.extent, self.influence,
+                                    self.aggregation)
+        off = kpconv_apply(nx, w_rigid, self.offset_weights) \
+            + self.offset_bias
+        offsets = off[..., :3 * n_kp].reshape(*off.shape[:-1], n_kp, 3) \
+            * self.extent
+        modulations = 2.0 * torch.sigmoid(off[..., 3 * n_kp:]) \
+            if self.modulated else None
+        w, min_d2 = deformed_influence(rel, kp, offsets, self.extent,
+                                       self.influence, self.aggregation)
+        out = kpconv_apply(nx, w, self.weights, modulations)
+        self.loss = self.terms = None
+        if self.training:
+            fitting, repulsive = self._deform_terms(offsets, min_d2)
+            self.terms = {"fitting": fitting.detach(),
+                          "repulsive": repulsive.detach()}
+            self.loss = self.deform_fitting_power * (2.0 * fitting
+                                                     + repulsive)
+        return out
+
+    def _deform_terms(self, offsets, min_d2):
+        """(fitting, repulsive) of the loss deform_fitting_power * (2 *
+        fitting + repulsive): fitting is the mean over every query row
+        (padded ones too) and kernel point of min_d2 / extent^2; repulsive
+        pushes each deformed kernel point (in units of the extent) away from
+        the others, held fixed, closer than repulse_extent. The JAX package
+        takes the square root of 0 on the diagonal of the pairwise distances
+        and masks the term after it, so its gradient there is 0 * inf = NaN;
+        here the diagonal is set to 1 before the root, which leaves every
+        value as it was (the masked terms are 0 either way) and gives the
+        diagonal a zero gradient, as leaving each point out of its own sum
+        does."""
+        n_kp = self.kernel_points.shape[0]
+        ext2 = self.extent * self.extent
+        fitting = torch.mean(torch.abs(min_d2 / ext2))
+        kp_locs = (self.kernel_points + offsets) / self.extent
+        sq = torch.sum(torch.square(kp_locs.unsqueeze(-2)
+                                    - kp_locs.detach().unsqueeze(-3)), -1)
+        eye = torch.eye(n_kp, dtype=torch.bool, device=sq.device)
+        d = torch.sqrt(torch.where(eye, torch.ones_like(sq), sq))
+        rep = torch.square(torch.clamp(d - self.repulse_extent, max=0.0)) \
+            * (~eye).to(sq.dtype)
+        repulsive = torch.mean(torch.sum(rep, dim=(-1, -2))) / n_kp
+        return fitting, repulsive
 
 
 class BatchNormBlock(nn.Module):
@@ -151,7 +230,9 @@ class KPCNN(nn.Module):
                  point_fracs: Optional[Sequence[float]] = None,
                  neighborhood_limits: Optional[Sequence[int]] = None,
                  kernel_seed: int = 42, kp_disposition: str = "auto",
-                 deform_radius: float = 5.0,
+                 deform_radius: float = 5.0, modulated: bool = False,
+                 deform_fitting_power: float = 1.0,
+                 repulse_extent: float = 1.2,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -165,16 +246,14 @@ class KPCNN(nn.Module):
         self.dtype = dtype
         self.act = ACTIVATIONS[activation]
         self.levels, self.global_block = self._layer_plan()
-        if any("deformable" in b for lv in self.levels for b in lv):
-            raise NotImplementedError(
-                f"deformable and modulated KPConv are left for {_LATER}")
         common = dict(act_name=activation, use_bn=use_batch_norm,
                       bn_momentum=batch_norm_momentum, generator=generator)
 
-        def kpconv(cin, cout, kp_disp, extent):
+        def kpconv(cin, cout, kp_disp, extent, deform):
             return KPConvOp(cin, cout, kp_disp, extent, kp_influence,
-                            aggregation_mode, dtype=dtype,
-                            generator=generator)
+                            aggregation_mode, deform, modulated,
+                            deform_fitting_power, repulse_extent,
+                            dtype=dtype, generator=generator)
 
         # the channel plan of the reference (architectures.py:91-125)
         in_dim, out_dim = in_features_dim, first_features_dim
@@ -190,10 +269,11 @@ class KPCNN(nn.Module):
             for block in layer_blocks:
                 self.blocks.append((bi, block, l, in_dim, out_dim))
                 name = f"block{bi}"
+                deform = "deformable" in block
                 if block.startswith("simple"):
                     width = out_dim // 2
-                    self.add_module(f"{name}_kpconv",
-                                    kpconv(in_dim, width, kp_disp, extent))
+                    self.add_module(f"{name}_kpconv", kpconv(
+                        in_dim, width, kp_disp, extent, deform))
                     self.add_module(f"{name}_norm", BatchNormBlock(
                         width, use_batch_norm, batch_norm_momentum))
                     in_dim = width
@@ -202,8 +282,8 @@ class KPCNN(nn.Module):
                     if in_dim != quarter:
                         self.add_module(f"{name}_unary1", UnaryBlock(
                             in_dim, quarter, **common))
-                    self.add_module(f"{name}_kpconv",
-                                    kpconv(quarter, quarter, kp_disp, extent))
+                    self.add_module(f"{name}_kpconv", kpconv(
+                        quarter, quarter, kp_disp, extent, deform))
                     self.add_module(f"{name}_normconv", BatchNormBlock(
                         quarter, use_batch_norm, batch_norm_momentum))
                     self.add_module(f"{name}_unary2", UnaryBlock(
@@ -250,27 +330,39 @@ class KPCNN(nn.Module):
         return [max(16, int(-(-int(n0 * fracs[min(l, len(fracs) - 1)]) // 8)
                             * 8)) for l in range(len(self.levels))]
 
+    def internal_losses(self) -> Dict[str, torch.Tensor]:
+        """The regularizer terms the last train-mode forward recorded, by
+        module name (the deformable ops'; none in eval mode or for a rigid
+        architecture)."""
+        return {name: m.loss for name, m in self.named_modules()
+                if isinstance(m, KPConvOp) and m.loss is not None}
+
     @torch.no_grad()
     def device_pyramid(self, pos: torch.Tensor,
                        mask: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The pyramid of pos [B,N,3], mask [B,N] in the form `batch.aux`
         carries it: kp_pts{l} [B,N_l,3], kp_mask{l}, kp_conv{l} [B,N_l,K]
-        and kp_pool{l} [B,N_{l+1},K] (queries of level l+1 over level l)."""
+        and kp_pool{l} [B,N_{l+1},K] (queries of level l+1 over level l).
+        A level with a deformable block searches both lists at
+        deform_radius / conv_radius times its radius."""
         n_levels = len(self.levels)
         caps = self.level_caps(pos.shape[1])
         klims = list(self.neighborhood_limits or [40] * n_levels)
+        deform_scale = self.deform_radius / self.conv_radius
         out: Dict[str, torch.Tensor] = {}
         p_l, m_l = pos.float(), mask
         r = self.first_subsampling_dl * self.conv_radius
         for l in range(n_levels):
+            r_search = r * deform_scale \
+                if any("deformable" in b for b in self.levels[l]) else r
             out[f"kp_pts{l}"], out[f"kp_mask{l}"] = p_l, m_l
-            out[f"kp_conv{l}"] = radius_neighbors(p_l, m_l, p_l, m_l, r,
-                                                  klims[l])
+            out[f"kp_conv{l}"] = radius_neighbors(p_l, m_l, p_l, m_l,
+                                                  r_search, klims[l])
             if l < n_levels - 1:
                 dl = 2 * r / self.conv_radius
                 p_n, m_n = grid_subsample(p_l, m_l, dl, caps[l + 1])
-                out[f"kp_pool{l}"] = radius_neighbors(p_n, m_n, p_l, m_l, r,
-                                                      klims[l])
+                out[f"kp_pool{l}"] = radius_neighbors(p_n, m_n, p_l, m_l,
+                                                      r_search, klims[l])
                 p_l, m_l = p_n, m_n
             r *= 2
         return out
@@ -351,15 +443,12 @@ def build_kpconv(option: dict, num_reg_targets: int, in_channels: int,
                  generator: Optional[torch.Generator] = None) -> KPCNN:
     """The model of the `conf/models/instance/kpconv.yaml` entry, with the
     defaults of the JAX `build_kpconv`; extra_options.bf16 selects the bf16
-    compute dtype of the fused op."""
+    compute dtype of the fused op (deformable ops stay f32)."""
     config = option["config"]
     in_dim = config.get("in_features_dim", "FEAT")
     if isinstance(in_dim, str):            # the FEAT placeholder
         in_dim = max(in_channels, 1)
     extra = dict(option.get("extra_options", {}) or {})
-    if bool(config.get("modulated", False)):
-        raise NotImplementedError(
-            f"deformable and modulated KPConv are left for {_LATER}")
     return KPCNN(
         architecture=list(config["architecture"]),
         num_reg_targets=num_reg_targets,
@@ -380,5 +469,8 @@ def build_kpconv(option: dict, num_reg_targets: int, in_channels: int,
         neighborhood_limits=extra.get("neighborhood_limits"),
         kp_disposition=extra.get("kp_disposition", "auto"),
         deform_radius=float(config.get("deform_radius", 5.0)),
+        modulated=bool(config.get("modulated", False)),
+        deform_fitting_power=float(config.get("deform_fitting_power", 1.0)),
+        repulse_extent=float(config.get("repulse_extent", 1.2)),
         dtype=torch.bfloat16 if extra.get("bf16", False) else torch.float32,
         generator=generator)

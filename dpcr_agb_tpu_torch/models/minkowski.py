@@ -53,7 +53,7 @@ from torch import nn
 
 from ..nn.blocks import (ACTIVATIONS, DropPath, Dropout, SELayer,
                          SeparateLinear, trunc_normal_)
-from ..nn.norm import MaskedBatchNorm
+from ..nn.norm import MaskedBatchNorm, MaskedInstanceNorm, MaskedLayerNorm
 from ..ops.dense_grid import (POOL_BWD_MODES, STEM_MODES, dense_conv,
                               dense_max_pool, level_dims, occupancy_pool,
                               scatter_to_dense)
@@ -65,7 +65,6 @@ from ..ops.host_pyramid import resnet_pyramid_plan
 from ..ops.voxel import (build_grid, downsample, hypercube_offsets,
                          kernel_map, max_pool_apply, sparse_conv_apply)
 
-_LATER = "a later slice of the port"
 DEFAULT_LEVEL_FRACS = (1.0, 0.75, 0.4, 0.2, 0.1, 0.05, 0.03)
 
 
@@ -134,11 +133,17 @@ class SparseConv(nn.Module):
 
 
 def make_norm(norm_type: str, features: int, bn_momentum: float):
+    """The norm of a `norm_type`: masked BN (with or without its affine),
+    layer norm (`ln`) or instance norm (`in`)."""
     if norm_type in ("bn", "bn_no_affine"):
         return MaskedBatchNorm(features, momentum=bn_momentum,
                                affine=norm_type == "bn")
-    raise NotImplementedError(f"norm_type={norm_type!r} is left for {_LATER}"
-                              " (ported: bn, bn_no_affine)")
+    if norm_type == "ln":
+        return MaskedLayerNorm(features)
+    if norm_type == "in":
+        return MaskedInstanceNorm(features)
+    raise NotImplementedError(
+        f"norm_type={norm_type!r} (bn, bn_no_affine, in, ln)")
 
 
 class ResBlock(nn.Module):

@@ -1,6 +1,8 @@
-"""Masked batch normalization (counterpart of `MaskedBatchNorm` in
-`dpcr_agb_tpu/nn/norm.py`).
+"""Normalization over padded (masked) feature tensors (counterparts of
+`MaskedBatchNorm`, `MaskedLayerNorm`, `MaskedInstanceNorm` and `MaskedGRN`
+in `dpcr_agb_tpu/nn/norm.py`).
 
+MaskedBatchNorm:
   * eval: running `mean`/`var` buffers (f32), applied in the activation
     dtype as (x - mean) * rsqrt(var + eps) * scale + bias, at every row
     (padding rows too: the caller masks downstream)
@@ -43,3 +45,67 @@ class MaskedBatchNorm(nn.Module):
         if self.scale is not None:
             y = y * self.scale.to(dt) + self.bias.to(dt)
         return y
+
+
+class MaskedLayerNorm(nn.Module):
+    """Per-row layer norm over the channels, in the activation dtype (as
+    the JAX one computes it); padding rows come out as garbage and are
+    masked downstream. No running stats."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        mean = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(x - mean), dim=-1, keepdim=True)
+        y = (x - mean) * torch.rsqrt(var + self.epsilon)
+        return y * self.scale + self.bias
+
+
+class MaskedInstanceNorm(nn.Module):
+    """Per-sample, per-channel norm over the valid rows, in f32, cast back
+    to the activation dtype: x [B, ..., C] with mask x.shape[:-1], the
+    moments over every axis between the batch and the channels (the JAX
+    one's rows of a [B, V, C] tensor; a dense volume's cells). No running
+    stats."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        axes = tuple(range(1, x.dim() - 1))
+        m = mask.unsqueeze(-1).float()
+        xf = x.float()
+        count = torch.clamp(torch.sum(m, dim=axes, keepdim=True), min=1e-12)
+        mean = torch.sum(xf * m, dim=axes, keepdim=True) / count
+        var = torch.sum(torch.square(xf - mean) * m, dim=axes,
+                        keepdim=True) / count
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
+        return (y * self.scale + self.bias).to(x.dtype)
+
+
+class MaskedGRN(nn.Module):
+    """Global response normalization over the valid rows: each channel's
+    L2 norm over every row of the batch, divided by its mean over the
+    channels, gates x as a learnable residual; zero at masked rows. No
+    model of the JAX package builds it."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.zeros(1, features))
+        self.beta = nn.Parameter(torch.zeros(1, features))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        m = mask.unsqueeze(-1)
+        xm = torch.where(m, x, torch.zeros_like(x))
+        axes = tuple(range(x.dim() - 1))
+        gx = torch.sqrt(torch.sum(torch.square(xm), dim=axes, keepdim=True))
+        nx = gx / (torch.mean(gx, dim=-1, keepdim=True) + 1e-6)
+        return torch.where(m, self.gamma * (x * nx) + self.beta + x,
+                           torch.zeros_like(x))

@@ -313,3 +313,48 @@ def shared_rel(q_pts: torch.Tensor, s_pts: torch.Tensor, nbr: torch.Tensor,
         idx = nbr.long() + (torch.arange(b, device=nbr.device)
                             * s_pad.shape[1])[:, None, None]
         return s_pad.reshape(-1, 3)[idx] - q_pts[:, :, None, :]
+
+
+def deformed_influence(rel: torch.Tensor, kernel_points: torch.Tensor,
+                       offsets: torch.Tensor, extent: float,
+                       influence: str = "linear", aggregation: str = "sum"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The deformable branch of `kp_influence_weights` (`dpcr_agb_tpu/
+    models/kpconv.py`): rel [B,Nq,K,3] (the shadow neighbour parked at
+    SHADOW_POS), kernel_points [Kp,3], offsets [B,Nq,Kp,3] that shift the
+    kernel points per query -> (all_w [B,Nq,K,Kp], min_d2 [B,Nq,Kp], the
+    least squared distance of each deformed kernel point to a neighbour,
+    shadow included). Differentiable in offsets."""
+    _check_modes(influence, aggregation)
+    kp = kernel_points + offsets                             # [B,Nq,Kp,3]
+    diff = rel.unsqueeze(-2) - kp.unsqueeze(2)               # [B,Nq,K,Kp,3]
+    sq_d = torch.sum(torch.square(diff), dim=-1)
+    min_d2 = torch.amin(sq_d, dim=2)
+    if influence == "constant":
+        w = torch.ones_like(sq_d)
+    elif influence == "linear":
+        w = torch.clamp(1.0 - torch.sqrt(sq_d) / extent, min=0.0)
+    else:
+        sigma = extent * 0.3
+        w = torch.exp(-sq_d / (2 * sigma * sigma + 1e-9))
+    if aggregation == "closest":
+        first = torch.argmin(sq_d, dim=-1, keepdim=True)
+        w = w * torch.zeros_like(w).scatter_(-1, first, 1.0)
+    return w, min_d2
+
+
+def kpconv_apply(nx: torch.Tensor, all_w: torch.Tensor,
+                 weights: torch.Tensor,
+                 modulations: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`kpconv_apply` of the JAX package over gathered rows, in f32: nx
+    [B,Nq,K,C] (the neighbours' features, `gather_rows`), all_w
+    [B,Nq,K,Kp], weights [Kp,C,Cout], modulations [B,Nq,Kp] scaling each
+    kernel point's weighted features -> [B,Nq,Cout]. Two batched matmuls
+    (sum over K, then over Kp and C)."""
+    b, nq, k, c = nx.shape
+    kp = all_w.shape[-1]
+    weighted = torch.matmul(all_w.transpose(-1, -2), nx)     # [B,Nq,Kp,C]
+    if modulations is not None:
+        weighted = weighted * modulations.unsqueeze(-1)
+    return torch.matmul(weighted.reshape(b, nq, kp * c),
+                        weights.reshape(kp * c, -1))

@@ -16,9 +16,13 @@ optimizer by the step runner.
 `SGD`, `Adam` and `AdamW` are the optax chains that the JAX trainer builds
 for those `training.optim.optimizer.class` names (optax.sgd behind
 add_decayed_weights, optax.adam, optax.adamw with its defaults), the lr
-again a function of the update count. `jax_state` / `load_jax_state` give
-and take each optimizer's state as the leaves of the JAX trainer's optax
-state in tree order (the `.ckpt` layout), and `Accumulator` is
+again a function of the update count. `MultiTransform` is the JAX
+trainer's optax.multi_transform of per-group settings (the model option's
+`head_optim_settings` and `backbone_optim_settings`): the parameters
+whose path names `head_namespace` form the `head` group, the rest the
+`backbone`, each with its own optimizer. `jax_state` / `load_jax_state`
+give and take an optimizer's state as the leaves of the JAX trainer's
+optax state in tree order (the `.ckpt` layout), and `Accumulator` is
 optax.MultiSteps (gradient accumulation): it averages the gradients of k
 batches and steps once.
 
@@ -38,7 +42,69 @@ import torch
 f32 = np.float32
 
 
-class AdaBelief(torch.optim.Optimizer):
+class _JaxState:
+    """An optimizer's state as the JAX trainer's optax leaves (`jax_state`,
+    `load_jax_state`) and as `weights.opt_state_from_optax`'s named form
+    (`load_named`); `MultiTransform` offers the same three."""
+
+    def jax_state(self, named_params: Dict[str, torch.Tensor]
+                  ) -> List[np.ndarray]:
+        order = _jax_order(named_params)
+        count = np.asarray(self.param_groups[0]["count"], np.int32)
+        leaves: List[np.ndarray] = []
+        for slot in type(self).STATE:
+            if slot == "count":
+                leaves.append(count.copy())
+                continue
+            for name in order:
+                p = named_params[name]
+                t = (self.state.get(p) or {}).get(slot)
+                leaves.append(
+                    np.zeros(tuple(p.shape), np.float32) if t is None
+                    else t.detach().cpu().numpy().astype(np.float32))
+        return leaves
+
+    def n_leaves(self, n_params: int) -> int:
+        return sum(1 if s == "count" else n_params for s in type(self).STATE)
+
+    def load_jax_state(self, named_params: Dict[str, torch.Tensor],
+                       leaves: List) -> None:
+        order = _jax_order(named_params)
+        want = self.n_leaves(len(order))
+        if len(leaves) != want:
+            raise ValueError(f"optimizer state mismatch: {len(leaves)} saved "
+                             f"vs {want} expected for {type(self).__name__}")
+        it = iter(leaves)
+        count = None
+        for slot in type(self).STATE:
+            if slot == "count":
+                count = int(np.asarray(next(it)))
+                continue
+            for name in order:
+                p = named_params[name]
+                self.state[p][slot] = torch.as_tensor(
+                    np.asarray(next(it), np.float32)).reshape(p.shape).to(
+                    p.device)
+        for group in self.param_groups:
+            group["count"] = count
+
+    def load_named(self, named_params: Dict[str, torch.Tensor],
+                   named: dict) -> None:
+        """The AdaBelief state from {"count", "exp_avg": {name: tensor},
+        "exp_avg_var": {name: tensor}} keyed by parameter name."""
+        if set(named["exp_avg"]) != set(named_params):
+            raise ValueError(
+                f"optimizer state names differ from the model's parameters: "
+                f"{sorted(set(named['exp_avg']) ^ set(named_params))[:8]}")
+        for name, p in named_params.items():
+            self.state[p] = {
+                k: named[k][name].to(p.device, torch.float32).reshape(p.shape)
+                for k in ("exp_avg", "exp_avg_var")}
+        for group in self.param_groups:
+            group["count"] = int(named["count"])
+
+
+class AdaBelief(_JaxState, torch.optim.Optimizer):
     """AdaBelief over `params` with lr = lr_fn(count), in the JAX
     `adabelief`'s default branches: rectified, degenerating to SGD while
     num_sma < 5, weight decay decoupled and scaled by the lr. The update
@@ -110,7 +176,7 @@ class AdaBelief(torch.optim.Optimizer):
         group["lr"] = float(lr)
 
 
-class _Scheduled(torch.optim.Optimizer):
+class _Scheduled(_JaxState, torch.optim.Optimizer):
     """An optimizer whose lr is lr_fn(update count), the count kept per
     group as `count`."""
 
@@ -220,50 +286,144 @@ def make_optimizer(name: str, params, lr_fn: Callable,
     return OPTIMIZERS[key](params, lr_fn, **options)
 
 
-def jax_state(opt: torch.optim.Optimizer,
-              named_params: Dict[str, torch.Tensor]) -> List[np.ndarray]:
+GROUPS = ("backbone", "head")
+
+
+def group_of(name: str, head_namespace: str) -> str:
+    """The group of a parameter: `head` when a part of its path (its
+    `state_dict` key split at the dots, the flax path with the leaf's
+    name) contains head_namespace, else `backbone`."""
+    return "head" if any(head_namespace in p for p in name.split(".")) \
+        else "backbone"
+
+
+class MultiTransform:
+    """optax.multi_transform over the `backbone` and `head` groups: one
+    optimizer a group, each with its own settings and update count. It
+    offers what the step runner and the checkpoints use of an optimizer:
+    `param_groups` (both groups' in GROUPS order), `zero_grad`, `step`,
+    `state_dict` and `load_state_dict` (a dict of the two)."""
+
+    def __init__(self, optimizers: Dict[str, torch.optim.Optimizer],
+                 names: Dict[str, List[str]], scheduled: List[str]):
+        self.optimizers = optimizers
+        self.names = names          # group -> its parameters' names
+        self.scheduled = scheduled  # groups whose lr follows the schedule
+
+    @property
+    def param_groups(self) -> list:
+        return [g for k in GROUPS for g in self.optimizers[k].param_groups]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for opt in self.optimizers.values():
+            opt.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> None:
+        for k in GROUPS:
+            self.optimizers[k].step()
+
+    def state_dict(self) -> dict:
+        return {k: self.optimizers[k].state_dict() for k in GROUPS}
+
+    def load_state_dict(self, state: dict) -> None:
+        for k in GROUPS:
+            self.optimizers[k].load_state_dict(state[k])
+
+    def _own(self, k: str, named_params: Dict[str, torch.Tensor]) -> dict:
+        return {n: named_params[n] for n in self.names[k]}
+
+    def jax_state(self, named_params: Dict[str, torch.Tensor]
+                  ) -> List[np.ndarray]:
+        """The groups' chains one after the other in sorted order
+        (`backbone`, `head`), each over its own parameters only (optax's
+        masked leaves carry none of the other group's)."""
+        return [leaf for k in GROUPS for leaf in
+                self.optimizers[k].jax_state(self._own(k, named_params))]
+
+    def load_jax_state(self, named_params: Dict[str, torch.Tensor],
+                       leaves: List) -> None:
+        leaves = list(leaves)
+        sizes = {k: self.optimizers[k].n_leaves(len(self.names[k]))
+                 for k in GROUPS}
+        if len(leaves) != sum(sizes.values()):
+            raise ValueError(f"optimizer state mismatch: {len(leaves)} "
+                             f"saved vs {sum(sizes.values())} expected for "
+                             f"the backbone and head groups")
+        start = 0
+        for k in GROUPS:
+            self.optimizers[k].load_jax_state(
+                self._own(k, named_params), leaves[start:start + sizes[k]])
+            start += sizes[k]
+
+    def load_named(self, named_params: Dict[str, torch.Tensor],
+                   named: dict) -> None:
+        """{group: the named form over the group's parameters}."""
+        for k in GROUPS:
+            self.optimizers[k].load_named(self._own(k, named_params),
+                                          named[k])
+
+    @property
+    def lr_fn(self) -> Optional[Callable]:
+        """The schedule of the groups that follow one (None when both set
+        their own `lr`)."""
+        return self.optimizers[self.scheduled[0]].lr_fn \
+            if self.scheduled else None
+
+    @lr_fn.setter
+    def lr_fn(self, lr_fn: Callable) -> None:
+        """A new schedule (the plateau's scale) for the groups that follow
+        one; a group with its own `lr` keeps its constant."""
+        for k in self.scheduled:
+            self.optimizers[k].lr_fn = lr_fn
+
+
+def make_grouped_optimizer(name: str,
+                           named_params: Dict[str, torch.Tensor],
+                           lr_fn: Callable, options: dict,
+                           head_settings: dict, backbone_settings: dict,
+                           head_namespace: str = "final") -> MultiTransform:
+    """The JAX trainer's per-group optimizer: each group gets the
+    optimizer `name` with `options` overridden by its settings; a group
+    whose settings name `lr` runs that constant instead of the schedule.
+    The elementwise clip of the recipe stays the step runner's (one clip
+    value for both groups, as each group's chain clips with it)."""
+    names = {k: [] for k in GROUPS}
+    for n in named_params:
+        names[group_of(n, head_namespace)].append(n)
+    empty = [k for k in GROUPS if not names[k]]
+    if empty:
+        raise ValueError(f"per-group optimizer settings: no parameter falls "
+                         f"in the {empty[0]} group (head_namespace="
+                         f"{head_namespace!r})")
+    optimizers, scheduled = {}, []
+    for k, settings in (("backbone", backbone_settings),
+                        ("head", head_settings)):
+        settings = dict(settings or {})
+        fn = lr_fn
+        if "lr" in settings:
+            fn = constant(float(settings["lr"]))
+        else:
+            scheduled.append(k)
+        opts = {**{o: v for o, v in options.items() if o != "lr"},
+                **{o: v for o, v in settings.items() if o != "lr"}}
+        optimizers[k] = make_optimizer(
+            name, [named_params[n] for n in names[k]], fn, opts)
+    return MultiTransform(optimizers, names, scheduled)
+
+
+def jax_state(opt, named_params: Dict[str, torch.Tensor]
+              ) -> List[np.ndarray]:
     """The optimizer's state as the leaves of the JAX trainer's optax
     state, in tree order: per-parameter slots in the order of the flax
-    paths (sorted level by level), counts as int32 scalars."""
-    order = _jax_order(named_params)
-    count = np.asarray(opt.param_groups[0]["count"], np.int32)
-    leaves: List[np.ndarray] = []
-    for slot in type(opt).STATE:
-        if slot == "count":
-            leaves.append(count.copy())
-            continue
-        for name in order:
-            p = named_params[name]
-            st = opt.state.get(p) or {}
-            t = st.get(slot)
-            leaves.append(np.zeros(tuple(p.shape), np.float32) if t is None
-                          else t.detach().cpu().numpy().astype(np.float32))
-    return leaves
+    paths (sorted level by level), counts as int32 scalars; a
+    `MultiTransform`'s is optax's multi_transform state."""
+    return opt.jax_state(named_params)
 
 
-def load_jax_state(opt: torch.optim.Optimizer,
-                   named_params: Dict[str, torch.Tensor],
+def load_jax_state(opt, named_params: Dict[str, torch.Tensor],
                    leaves: List) -> None:
     """Set the optimizer's state from `jax_state`'s leaves."""
-    order = _jax_order(named_params)
-    slots = type(opt).STATE
-    want = sum(1 if s == "count" else len(order) for s in slots)
-    if len(leaves) != want:
-        raise ValueError(f"optimizer state mismatch: {len(leaves)} saved vs "
-                         f"{want} expected for {type(opt).__name__}")
-    it = iter(leaves)
-    count = None
-    for slot in slots:
-        if slot == "count":
-            count = int(np.asarray(next(it)))
-            continue
-        for name in order:
-            p = named_params[name]
-            opt.state[p][slot] = torch.as_tensor(
-                np.asarray(next(it), np.float32)).reshape(p.shape).to(
-                p.device)
-    for group in opt.param_groups:
-        group["count"] = count
+    opt.load_jax_state(named_params, list(leaves))
 
 
 def _jax_order(named_params: Dict[str, torch.Tensor]) -> List[str]:

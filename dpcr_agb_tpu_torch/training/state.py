@@ -20,7 +20,10 @@ A model state is `{"params": ..., "batch_stats": ...}` as flax nests them;
 (counterpart of `ModelCheckpoint` in `dpcr_agb_tpu/training/state.py`):
 `latest` after each train stage, `best_<metric>` snapshots on the
 selection stage only, per-stage stats, and the optimizer's state as the
-leaves of the JAX trainer's optax state (`training/optim.jax_state`)."""
+leaves of the JAX trainer's optax state (`training/optim.jax_state`; with
+per-group settings its multi_transform state, the `backbone` group's
+chain, then the `head` group's). The `.pt` train state carries a
+per-group optimizer's two state_dicts."""
 from __future__ import annotations
 
 import hashlib
@@ -76,18 +79,9 @@ def load_train_state(runner: StepRunner, checkpoint_dir: str,
 def load_named_optimizer_state(runner: StepRunner, named: dict) -> None:
     """Set the AdaBelief state from {"count", "exp_avg": {name: tensor},
     "exp_avg_var": {name: tensor}} keyed by parameter name (the form
-    `weights.opt_state_from_optax` returns)."""
-    params = dict(runner.net.named_parameters())
-    if set(named["exp_avg"]) != set(params):
-        raise ValueError(
-            f"optimizer state names differ from the model's parameters: "
-            f"{sorted(set(named['exp_avg']) ^ set(params))[:8]}")
-    for name, p in params.items():
-        runner.optimizer.state[p] = {
-            k: named[k][name].to(p.device, torch.float32).reshape(p.shape)
-            for k in ("exp_avg", "exp_avg_var")}
-    for group in runner.optimizer.param_groups:
-        group["count"] = int(named["count"])
+    `weights.opt_state_from_optax` returns); a per-group optimizer takes
+    {group: such a dict} over each group's parameters."""
+    runner.optimizer.load_named(dict(runner.net.named_parameters()), named)
 
 
 def dpcr_env_snapshot() -> Dict[str, str]:

@@ -3,7 +3,11 @@
 
 One train step: forward in training mode (BN batch moments over occupied
 cells and running-stat updates, DropPath from the runner's generator),
-the standardized regression loss, the backward, then the optimizer update
+the standardized regression loss plus the terms the model recorded in
+that forward (`internal_losses`: deformable KPConv's fitting and
+repulsive regularizer, summed by module name as jax orders the sown
+`losses` collection) plus the parameter regularizer of the model option
+(`training/regularizers.py`), the backward, then the optimizer update
 behind the elementwise gradient clip; with an `Accumulator` (gradient
 accumulation) the update comes every k-th batch, from the mean gradient.
 PyTorch runs eagerly, so there is no jitted program: the runner holds the
@@ -15,7 +19,7 @@ trackers and the prediction writers. A batch copied to the card by
 from __future__ import annotations
 
 import logging
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -46,8 +50,10 @@ class StepRunner:
     def __init__(self, net: torch.nn.Module, spec: InstanceSpec,
                  optimizer: torch.optim.Optimizer,
                  grad_clip: Optional[float] = None, seed: int = 0,
-                 accumulator: Optional[Accumulator] = None):
+                 accumulator: Optional[Accumulator] = None,
+                 regularizer: Optional[Callable] = None):
         self.net = net
+        self.regularizer = regularizer
         self.spec = spec
         self.optimizer = optimizer
         self.grad_clip = grad_clip
@@ -83,6 +89,13 @@ class StepRunner:
         self.optimizer.zero_grad(set_to_none=True)
         out = self._outputs(self.net(batch, generator=self.generator),
                             batch, training=True)
+        terms = self.net.internal_losses() \
+            if hasattr(self.net, "internal_losses") else {}
+        if terms:
+            out["loss"] = out["loss"] + sum(terms[k] for k in sorted(terms))
+        if self.regularizer is not None:
+            out["loss"] = out["loss"] + self.regularizer(
+                dict(self.net.named_parameters()))
         out["loss"].backward()
         params = [p for g in self.optimizer.param_groups
                   for p in g["params"]]

@@ -25,9 +25,12 @@ eval, calibrate_bn and predict rebuild the same caps. Explicit
 False` keeps the default 40 a level. `debugging.find_neighbour_dist` logs
 the caps of `num_find_neighbour_samples` plots at the start of `train`.
 
-Not ported, and refused by name: per-group optimizer settings
-(`head_optim_settings`, `backbone_optim_settings`), parameter
-regularizers and multi-process runs."""
+The model option's `regularizers` add an L1, L2 or elastic penalty over
+the parameters to the loss (`training/regularizers.py`), and its
+`head_optim_settings` / `backbone_optim_settings` give the parameters
+under `head_namespace` (default `final`) and the rest optimizers of their
+own (`training/optim.MultiTransform`), as the JAX trainer's
+optax.multi_transform does. Not ported: multi-process runs."""
 from __future__ import annotations
 
 import copy
@@ -49,7 +52,9 @@ from ..models.factory import (build_model, collate_spec, f32_only,
 from ..nn.norm import MaskedBatchNorm
 from ..utils.neighbor_calibration import run_find_neighbour_dist
 from ..visualization.visualizer import Visualizer
-from .optim import Accumulator, bn_momentum_fn, make_lr_fn, make_optimizer
+from .optim import (Accumulator, bn_momentum_fn, make_grouped_optimizer,
+                    make_lr_fn, make_optimizer)
+from .regularizers import build_regularizer
 from .state import ModelCheckpoint, check_env_snapshot, dpcr_env_snapshot
 from .step import StepRunner, host
 
@@ -129,7 +134,6 @@ class Trainer:
             raise ValueError(f"Model {self.model_name!r} not found in models "
                              f"config. Available: {sorted(cfg['models'])}")
         self.option = copy.deepcopy(_plain(cfg["models"][self.model_name]))
-        self._check_ported(self.option)
         self._auto_calibrate_kpconv_limits()
         if bool(get_t("enable_mixed", False)):
             if f32_only(self.option):
@@ -172,12 +176,22 @@ class Trainer:
         self.optimizer_name = str(opt.get("class", "AdaBelief"))
         self._opt_params = dict(opt.get("params", {}) or {})
         grad_clip = float(optim_cfg.get("grad_clip", -1) or -1)
+        head_set = dict(self.option.get("head_optim_settings") or {})
+        back_set = dict(self.option.get("backbone_optim_settings") or {})
+        if head_set or back_set:
+            optimizer = make_grouped_optimizer(
+                self.optimizer_name, dict(self.net.named_parameters()),
+                self.lr_fn, self._opt_params, head_set, back_set,
+                str(self.option.get("head_namespace", "final")))
+        else:
+            optimizer = make_optimizer(self.optimizer_name,
+                                       self.net.parameters(), self.lr_fn,
+                                       self._opt_params)
         self.runner = StepRunner(
-            self.net, self.spec,
-            make_optimizer(self.optimizer_name, self.net.parameters(),
-                           self.lr_fn, self._opt_params),
+            self.net, self.spec, optimizer,
             grad_clip=grad_clip if grad_clip > 0 else None, seed=self.seed,
-            accumulator=Accumulator(accum) if accum > 1 else None)
+            accumulator=Accumulator(accum) if accum > 1 else None,
+            regularizer=build_regularizer(self.option))
         self.bn_momentum_fn = bn_momentum_fn(optim_cfg.get("bn_scheduler"))
         sched_cfg = optim_cfg.get("lr_scheduler") or {}
         self._plateau = None
@@ -205,14 +219,6 @@ class Trainer:
         self.visualizer = Visualizer(cfg.get("visualization", {}) or {},
                                      num_batches, self.batch_size,
                                      self.run_dir)
-
-    def _check_ported(self, option: dict) -> None:
-        for key in ("head_optim_settings", "backbone_optim_settings"):
-            if option.get(key):
-                raise NotImplementedError(f"{key}: per-group optimizer "
-                                          "settings are not ported")
-        if option.get("regularizers"):
-            raise NotImplementedError("model regularizers are not ported")
 
     def _auto_calibrate_kpconv_limits(self) -> None:
         """KPConv's per-level neighbour caps from 16 training plots (see the

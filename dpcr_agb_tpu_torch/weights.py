@@ -8,11 +8,12 @@ kernels [in, out]), so the bridge is a rename: the nested path
 "stage0_block0.se.fc1.kernel". BN running stats (`mean`, `var`) live in
 `batch_stats` on the flax side and are buffers in the port. Plain nested
 dicts of numpy arrays in, no flax needed. `opt_state_from_optax` carries
-the optax state of the JAX recipe (clip, then AdaBelief) across with the
-same names. `in_channels_of` reads a model's input width off its weights,
-which is how a JAX checkpoint's model is rebuilt: the JAX serving bundle
-builds KPConv's input width from a feature count it leaves at 0 (-> 1),
-and flax infers the other models' from the first batch."""
+the optax state of the JAX recipe (clip, then AdaBelief, or per group an
+optax.multi_transform of two such chains) across with the same names.
+`in_channels_of` reads a model's input width off its weights, which is
+how a JAX checkpoint's model is rebuilt: the JAX serving bundle builds
+KPConv's input width from a feature count it leaves at 0 (-> 1), and
+flax infers the other models' from the first batch."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -28,7 +29,9 @@ def _flatten(tree: dict, prefix: str = ""):
         key = f"{prefix}{k}"
         if isinstance(v, dict):
             yield from _flatten(v, key + ".")
-        else:
+        elif not (isinstance(v, tuple) and len(v) == 0):
+            # an empty tuple is optax's MaskedNode: a leaf of the other
+            # group in a per-group state, which carries nothing
             yield key, v
 
 
@@ -89,7 +92,13 @@ def opt_state_from_optax(opt_state) -> dict:
     {"count": int, "exp_avg": {name: tensor}, "exp_avg_var": {name:
     tensor}} with the state_dict names of the parameters. Any object with
     `count`, `exp_avg` and `exp_avg_var` attributes (a NamedTuple) works;
-    the clip state carries nothing."""
+    the clip state carries nothing. A per-group state (optax.multi_transform:
+    `inner_states` of masked chains) gives {group: that dict} over the
+    group's own parameters."""
+    inner = getattr(opt_state, "inner_states", None)
+    if inner is not None:
+        return {k: opt_state_from_optax(getattr(v, "inner_state", v))
+                for k, v in sorted(inner.items())}
     ada = next(s for s in opt_state if hasattr(s, "exp_avg_var"))
     return {"count": int(np.asarray(ada.count)),
             "exp_avg": from_flax(ada.exp_avg, None),

@@ -246,8 +246,31 @@ def test_per_level_extent_and_kernel_points():
                                      "modulated": True}}, 2, 3),
 ], ids=["op", "architecture", "modulated"])
 def test_deformable_kpconv_waits_for_a_later_slice(make):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make()
+    """Deformable and modulated KPConv are ported (their parity with the
+    JAX package is in tests/test_torch_deformable.py): each builds and
+    gives a finite forward of the right shape in train mode, recording
+    the regularizer only where an op is deformable."""
+    rng = np.random.default_rng(0)
+    m = make()
+    m.train()
+    if isinstance(m, KPConvOp):
+        nbr = torch.from_numpy(rng.integers(0, 9, (2, 6, 4)).astype(
+            np.int32))
+        x = torch.from_numpy(rng.standard_normal((2, 8, 3)).astype(
+            np.float32))
+        rel = torch.from_numpy(rng.uniform(-0.1, 0.1, (2, 6, 4, 3)).astype(
+            np.float32))
+        out = m(nbr, x, rel)
+        assert out.shape == (2, 6, 4) and m.loss is not None
+        losses = {"op": m.loss}
+    else:
+        out = m(Batch(**_fields(rng)).to("cpu"))
+        assert out.shape == (2, 2)
+        losses = m.internal_losses()
+        assert bool(losses) == any("deformable" in b
+                                   for b in m.architecture)
+    assert torch.isfinite(out).all()
+    assert all(torch.isfinite(v) for v in losses.values())
 
 
 def test_factory_builds_kpconv_with_the_dense_collate():

@@ -140,7 +140,7 @@ def test_full_width_senet14_builds_with_flax_names():
 
 
 @pytest.mark.parametrize("option,env", [
-    ({"norm_type": "in"}, {}),
+    ({"norm_type": "gn"}, {}),
     ({}, {"DPCR_L0": "dense3d"}),
     ({}, {"DPCR_SPARSE_POOL": "row"}),
     ({}, {"DPCR_STEM_MODE": "zfold"}),
@@ -148,15 +148,22 @@ def test_full_width_senet14_builds_with_flax_names():
     ({"first_stride": 2}, {"DPCR_POOL_FWD": "knockout"}),
 ])
 def test_unported_modes_raise(option, env, monkeypatch):
-    """The instance and layer norms are the part of the file left for a
-    later slice (map mode builds since slice 15:
-    tests/test_torch_map_mode.py); an unknown value of a mode variable
-    raises when the model is built."""
+    """A norm type neither package has (the instance and layer norms build
+    since slice 17: tests/test_torch_norms.py; map mode since slice 15:
+    tests/test_torch_map_mode.py) raises naming the four types, as the
+    JAX `make_norm` does; an unknown value of a mode variable raises when
+    the model is built."""
     for k, val in env.items():
         monkeypatch.setenv(k, val)
     with pytest.raises((NotImplementedError, ValueError),
-                       match="later slice" if not env else "one of"):
+                       match="bn, bn_no_affine, in, ln" if not env
+                       else "one of"):
         build_resnet("SENet14", {"first_stride": 1, **option}, 2, 3)
+    if not env:
+        from dpcr_agb_tpu.models.minkowski import make_norm as jmake_norm
+        with pytest.raises(NotImplementedError,
+                           match="bn, bn_no_affine, in, ln"):
+            jmake_norm(option["norm_type"], 8, 0.1)
 
 
 @pytest.mark.parametrize("name,option,env,sparse", [
@@ -188,7 +195,7 @@ def test_once_unported_modes_build_and_run(name, option, env, sparse, case,
 def test_bottleneck_archs_raise():
     """Since slice 15 the bottleneck archs raise in neither mode: in map
     mode, as every arch, they build with the dense grid's parameters; a
-    norm the port lacks still raises."""
+    norm neither package has still raises."""
     mapped = build_resnet("SENet50", {"first_stride": 1,
                                       "extra_options": {"dense_dims": None}},
                           2, 3)
@@ -197,5 +204,5 @@ def test_bottleneck_archs_raise():
     assert net.stage0_block0.conv3.kernel.shape == (1, 64, 256)
     assert {k: v.shape for k, v in mapped.state_dict().items()} \
         == {k: v.shape for k, v in net.state_dict().items()}
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_resnet("SENet50", {"first_stride": 1, "norm_type": "ln"}, 2, 3)
+    with pytest.raises(NotImplementedError, match="norm_type='gn'"):
+        build_resnet("SENet50", {"first_stride": 1, "norm_type": "gn"}, 2, 3)
