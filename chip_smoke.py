@@ -9,7 +9,7 @@
                                   trainer|trainer-kpconv|trainer-pointnext|
                                   trainer-pointnet|trainer-map|
                                   trainer-kpconv-deform|treeadd|
-                                  transforms|norms]
+                                  transforms|norms|export]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   device   the card's name and power limit, the float32 settings pinned by
@@ -284,6 +284,30 @@ Then (`--only trainer` runs it alone):
            visualization.format=[csv,tensorboard,wandb] for one epoch on
            24 plots: the test CSV written, and each panel written or its
            one warning logged (the package missing)
+  export   (`--only export`) the serving models as one `torch.export`
+           program each (`python -m dpcr_agb_tpu_torch.export_model`):
+           the serve phase's seed checkpoints of SENet14 (sparse level 0,
+           f32 and bf16), SENet14 with the dense level 0 (f32) and
+           PointNeXt-S (f32), exported at the serving batch's shape (bs16,
+           its V bucket or 12000 points) on the card. Each `.pt2` is
+           loaded by a fresh python3 process of its own through
+           `export_model.load` (no module of the model code imported,
+           checked there; the four start together and, once all have
+           loaded, take turns under a lock), which runs the serving
+           batch: its predictions
+           against `predict.predictions` of the eager forward (f32 within
+           1e-5 * max|pred|, bf16 within 5e-3 * max|pred|; bit_equal
+           printed; the batch with the program's full z extent, beside
+           how far the post_collate's z bucket moves the eager
+           predictions) and its launches for one call exactly sparse level 0
+           stem_sites 1 + max_pool_k3s2_rows 1, dense level 0
+           firewall_copy 2 + max_pool_k3s2 1, PointNeXt-S fps 5, every
+           other kernel 0. Readings: export_seconds, artifact_mb,
+           load_seconds, and the loaded program's forward ms on a
+           device-resident batch beside the eager forward's (median of 5
+           after one warm-up). `torch.library.opcheck` of the five
+           custom ops on the CUDA inputs that the eager forwards give
+           them; KPConv and SENet14 in map mode refused with ValueError
 Then a total line with the script's seconds, the kernels summary line, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`. Without CUDA (or without the rest of
 the repository) it exits non-zero before printing any result."""
@@ -306,6 +330,7 @@ import numpy as np
 
 # published H100 SXM peaks (dense): f32 outside the tensor cores, bf16
 # tensor cores, HBM bandwidth
+REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 
@@ -470,6 +495,7 @@ STEP_TOL = {"float32": {"loss": 1e-5, "grads": 1e-4, "grad": 1e-3,
 # and allows each quantity 4 times what one rounding does to it.
 
 RECORD = []
+T_IMPORT = time.perf_counter()
 # the KPConv layer sweep of the kernels phase (its sums stand beside the
 # serve and train profiles)
 KP_SWEEP: dict = {}
@@ -521,6 +547,9 @@ def model_options(model_name: str) -> dict:
 
 
 def emit(obj: dict) -> None:
+    """Print one phase's JSON line (with the script's seconds so far,
+    `at_seconds`) and keep it for --out."""
+    obj.setdefault("at_seconds", time.perf_counter() - T_IMPORT)
     RECORD.append(obj)
     print(json.dumps(obj), flush=True)
 
@@ -2764,10 +2793,11 @@ def phase_train(key: str, dtname: str, plot_dir: str, out_dir: str,
     runner = run.runner
     step_s = wall_ms(lambda: runner.train(batch), 5, 2) / 1e3
     # the same steps with cuDNN held to its deterministic algorithms (the
-    # entry points leave that choice to cuDNN)
+    # entry points leave that choice to cuDNN): a reading, median of 3
+    # after one warm-up (since the export phase, to keep the script's time)
     torch.backends.cudnn.deterministic = True
     try:
-        det_step_s = wall_ms(lambda: runner.train(batch), 5, 2) / 1e3
+        det_step_s = wall_ms(lambda: runner.train(batch), 3, 1) / 1e3
     finally:
         torch.backends.cudnn.deterministic = pinned["cudnn_deterministic"]
     deform = deform_facts(runner.net, batch, lambda: runner.train(batch),
@@ -4541,6 +4571,292 @@ def phase_norms(tmp: str, plot_dir: str, smi: str, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+# The export phase: the serving models as torch.export programs. Per
+# export: the path (its model and mode variables), the dtype, and the
+# launches of one call of the loaded program (every other kernel 0)
+EXPORTS = (("SENet14", "float32"), ("SENet14", "bfloat16"),
+           ("SENet14-denseL0", "float32"), ("PointNeXt", "float32"))
+EXPORT_LAUNCHES = {
+    "SENet14": _only(stem_sites=1, max_pool_k3s2_rows=1),
+    "SENet14-denseL0": _only(firewall_copy=2, max_pool_k3s2=1),
+    "PointNeXt": _only(fps=5)}
+# the loaded program's predictions against the eager path's, a share of
+# max|pred|
+EXPORT_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+# the paths whose export must raise: (path, model_name, dense_dims)
+EXPORT_REFUSED = (("KPConv", "KPConv", None),
+                  ("SENet14-map", "SENet14", "null"))
+# run by a fresh python3 per program, all started together: load the
+# program (torch and the op registrations only); once every process has
+# loaded (files in a barrier directory), one at a time under a lock: one
+# call of the serving batch with its launches, then its forward on the
+# device-resident batch, median of 5 after one warm-up
+EXPORT_LOADER = r"""
+import fcntl, json, os, statistics, sys, time
+import numpy as np
+import torch
+from dpcr_agb_tpu_torch import export_model, kernels
+path, inputs, preds_path, barrier, n_procs = sys.argv[1:6]
+t0 = time.perf_counter()
+if torch.cuda.is_available():   # the context, apart from the load
+    torch.zeros(1, device="cuda")
+cuda_init_seconds = time.perf_counter() - t0
+t0 = time.perf_counter()
+module = export_model.load(path)
+load_seconds = time.perf_counter() - t0
+dev = next(iter(module.state_dict().values())).device   # the program's
+sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
+with np.load(inputs) as z:
+    args = [torch.from_numpy(z[k]).to(dev)
+            for k in ("pos", "x", "mask", "coords")]
+sync()
+open(os.path.join(barrier, str(os.getpid())), "w").close()
+deadline = time.time() + 600
+while len(os.listdir(barrier)) < int(n_procs):
+    if time.time() > deadline:
+        raise SystemExit("the other loading processes never arrived")
+    time.sleep(0.05)
+lock = open(barrier + ".lock", "w")
+fcntl.flock(lock, fcntl.LOCK_EX)
+kernels.reset_launches()
+with torch.no_grad():
+    preds = module(*args)
+    sync()
+    launches = dict(kernels.LAUNCHES)
+    times = []
+    for i in range(6):
+        sync()
+        t = time.perf_counter()
+        module(*args)
+        sync()
+        if i:
+            times.append((time.perf_counter() - t) * 1e3)
+model_code = sorted(k for k in sys.modules
+                    if k.startswith("dpcr_agb_tpu_torch.models"))
+assert not model_code, f"the model code was imported: {model_code}"
+np.save(preds_path, preds.float().cpu().numpy())
+print(json.dumps({"load_seconds": load_seconds,
+                  "cuda_init_seconds": cuda_init_seconds,
+                  "launches": launches,
+                  "forward_ms": statistics.median(times),
+                  "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}))
+"""
+
+
+@contextlib.contextmanager
+def captured_op_args():
+    """The arguments of the first call of each custom op (by name and
+    dtype) while the block runs, detached (a weight that a forward passes
+    as it is would be a parameter); the ops run as they are."""
+    from dpcr_agb_tpu_torch.kernels import ops as kops
+    seen, saved = {}, {n: getattr(kops, n) for n in kops.OPS}
+
+    def wrap(name, op):
+        def call(*args):
+            dtype = next(a.dtype for a in args if a.is_floating_point())
+            key = (name, str(dtype).replace("torch.", ""))
+            seen.setdefault(key, tuple(
+                a.detach() if hasattr(a, "detach") else a for a in args))
+            return op(*args)
+        return call
+
+    for n, op in saved.items():
+        setattr(kops, n, wrap(n, op))
+    try:
+        yield seen
+    finally:
+        for n, op in saved.items():
+            setattr(kops, n, op)
+
+
+def prepare_export(key: str, dtname: str, tmp: str, plot_dir: str,
+                   seed: int, op_args: dict) -> dict:
+    """One export of the phase up to its loading process: the checkpoint,
+    the eager serving batch and forward (its ops' first arguments into
+    op_args), the program written on the card and its sidecar checked,
+    the batch written for the loading process."""
+    import dataclasses
+    import torch
+    from dpcr_agb_tpu_torch import export_model, predict
+    from dpcr_agb_tpu_torch.models.factory import export_aux
+    spec = MODELS[key]
+    model_name = spec["model_name"]
+    what = f"export {key} {dtname}"
+    ckpt = make_checkpoint(tmp, f"ckpt_export_{key}_{dtname}", model_name,
+                           model_options(model_name)[dtname], seed)
+    bundle = predict.load_serving_bundle(ckpt, model_name)
+    files = sorted(glob.glob(os.path.join(plot_dir, "*.npz")))
+    samples, _ = predict.load_samples(bundle, files)
+    (bucketed, _), = predict.make_batches(bundle, samples, N_PLOTS)
+    # the program bakes the full z extent (export_aux); the dense grid's
+    # empty cells hold BN(0), which the next conv reads, so the z bucket
+    # that post_collate picks gives other predictions: held apart
+    aux = export_aux(bundle.net)
+    batch = dataclasses.replace(bucketed, aux=aux) if aux else bucketed
+    with captured_op_args() as seen:
+        want = predict.predictions(bundle, predict.forward_raw(bundle,
+                                                               batch))
+    bucket_diff = None if aux is None else float(np.abs(
+        predict.predictions(bundle, predict.forward_raw(bundle, bucketed))
+        - want).max())
+    for k, args in seen.items():
+        op_args.setdefault(k, args)
+    on_card = batch.to(bundle.device)
+    with torch.no_grad():
+        eager_ms = wall_ms(lambda: bundle.net(on_card), 5, 1)
+    n = int(batch.mask.shape[1])
+    out = os.path.join(tmp, f"export_{key}_{dtname}.pt2")
+    t0 = time.perf_counter()
+    export_model.main([f"checkpoint_dir={ckpt}", f"model_name={model_name}",
+                       f"output={out}", f"batch_size={N_PLOTS}",
+                       f"num_points={n}",
+                       f"feature_dim={int(batch.x.shape[-1])}"])
+    export_seconds = time.perf_counter() - t0
+    with open(out + ".json") as f:
+        sidecar = json.load(f)
+    if sidecar["platforms"] != [bundle.device.type] \
+            or sidecar["dtype"] != dtname \
+            or (sidecar["modes"] or {}).get("l0_mode", "sparse") \
+            != spec["env"].get("DPCR_L0", "sparse"):
+        raise AssertionError(f"{what}: sidecar {sidecar}")
+    del bundle, on_card
+    torch.cuda.empty_cache()
+    # the serving batch as the program takes it (it is the exported shape)
+    coords = batch.coords if batch.coords is not None else np.full(
+        (N_PLOTS, n, 3), export_model.PAD_COORD, np.int32)
+    inputs = os.path.join(tmp, f"export_{key}_{dtname}_in.npz")
+    np.savez(inputs, pos=batch.pos, x=batch.x, mask=batch.mask,
+             coords=coords)
+    return {"key": key, "dtname": dtname, "what": what, "n": n,
+            "out": out, "inputs": inputs, "want": want,
+            "preds": os.path.join(tmp, f"export_{key}_{dtname}_preds.npy"),
+            "export_seconds": export_seconds, "eager_ms": eager_ms,
+            "bucket_diff": bucket_diff, "modes": sidecar["modes"]}
+
+
+def load_exports(prepared: list, tmp: str) -> tuple:
+    """The loading processes of every prepared export, started together
+    (see EXPORT_LOADER) -> (their JSON lines, the seconds until the last
+    one ended). Every process is stopped before this returns."""
+    barrier = os.path.join(tmp, "export_barrier")
+    os.makedirs(barrier)
+    env = {**os.environ, "PYTHONPATH": REPO}
+    logs = [e["out"] + ".log" for e in prepared]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for e, log in zip(prepared, logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", EXPORT_LOADER, e["out"],
+                     e["inputs"], e["preds"], barrier, str(len(prepared))],
+                    stdout=f, stderr=subprocess.STDOUT, cwd=REPO, env=env))
+        for p in procs:
+            p.wait(timeout=900)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    lines = []
+    for e, p, log in zip(prepared, procs, logs):
+        with open(log) as f:
+            out = f.read()
+        if p.returncode:
+            raise AssertionError(f"{e['what']}: the loading process failed:"
+                                 f"\n{out[-4000:]}")
+        lines.append(json.loads(out.strip().splitlines()[-1]))
+    return lines, seconds
+
+
+def check_export(e: dict, child: dict, seconds: float, smi: str) -> dict:
+    """An export's loading process against its eager forward: launches of
+    one call, predictions; emits the export line."""
+    key, dtname, what, want = e["key"], e["dtname"], e["what"], e["want"]
+    got = np.load(e["preds"])
+    if child["cudnn_allow_tf32"]:
+        raise AssertionError(f"{what}: load left TF32 on in cuDNN")
+    bad = {k: v for k, v in child["launches"].items()
+           if v != EXPORT_LAUNCHES[key][k]}
+    if bad:
+        raise AssertionError(f"{what}: launches {bad} in one call of the "
+                             f"loaded program (expected "
+                             f"{EXPORT_LAUNCHES[key]})")
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    if got.shape != want.shape or not np.isfinite(got).all() \
+            or err > EXPORT_TOL[dtname] * scale:
+        raise AssertionError(f"{what}: the loaded program's predictions "
+                             f"differ from the eager path's by {err} "
+                             f"(allowed {EXPORT_TOL[dtname]} * {scale})")
+    row = {"phase": "export", "model": key, "dtype": dtname,
+           "shape": {"batch_size": N_PLOTS, "num_points": e["n"]},
+           "export_seconds": e["export_seconds"],
+           "artifact_mb": os.path.getsize(e["out"]) / 1e6,
+           "load_seconds": child["load_seconds"],
+           "cuda_init_seconds": child["cuda_init_seconds"],
+           "loading_processes_seconds": seconds,
+           "forward_ms": child["forward_ms"],
+           "eager_forward_ms": e["eager_ms"],
+           "launches": child["launches"], "max_abs_diff": err,
+           "max_abs_pred": scale,
+           "tolerance": f"{EXPORT_TOL[dtname]} * max|pred|",
+           "bit_equal": bool(np.array_equal(got, want)),
+           "z_bucket_batch_max_abs_diff": e["bucket_diff"],
+           "modes": e["modes"], "card": smi}
+    emit(row)
+    return row
+
+
+def phase_export(tmp: str, plot_dir: str, smi: str, seed: int,
+                 krows: list) -> None:
+    """The export phase (see the module docstring); the launches of one
+    call of each loaded program go into the kernel rows of its dtype."""
+    import torch
+    from dpcr_agb_tpu_torch import export_model, train
+    from dpcr_agb_tpu_torch.kernels import ops as kops
+    op_args: dict = {}
+    prepared = []
+    for key, dtname in EXPORTS:
+        with mode_env(MODELS[key]["env"]):
+            prepared.append(prepare_export(key, dtname, tmp, plot_dir, seed,
+                                           op_args))
+        torch.cuda.empty_cache()
+    lines, seconds = load_exports(prepared, tmp)
+    for e, child in zip(prepared, lines):
+        row = check_export(e, child, seconds, smi)
+        for r in krows:
+            n = row["launches"].get(r["name"])
+            if n and r["dtype"] == e["dtname"]:
+                r.setdefault("launches_by_path", {})[f"export {e['key']}"] = n
+    opcheck = {}
+    for (name, dtname), args in sorted(op_args.items()):
+        torch.library.opcheck(getattr(kops, name), args)
+        opcheck[f"{name} {dtname}"] = [list(a.shape) if hasattr(a, "shape")
+                                       else a for a in args]
+    missing = set(kops.OPS) - {name for name, _ in op_args}
+    if missing:
+        raise AssertionError(f"export: no eager forward called {missing}")
+    refused = {}
+    for key, model_name, dense_dims in EXPORT_REFUSED:
+        ckpt = make_checkpoint(tmp, f"ckpt_export_{key}", model_name,
+                               train.model_option(model_name, False,
+                                                  dense_dims=dense_dims),
+                               seed)
+        try:
+            with mode_env({}):
+                export_model.main([f"checkpoint_dir={ckpt}",
+                                   f"model_name={model_name}",
+                                   f"output={tmp}/refused.pt2"])
+        except ValueError as e:
+            refused[key] = str(e)
+        else:
+            raise AssertionError(f"export: {key} was exported")
+    emit({"phase": "export_checks", "opcheck_passed": opcheck,
+          "refused": refused, "card": smi})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4550,7 +4866,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every phase's JSON to this file")
     ap.add_argument("--only", choices=sorted(MODELS) + sorted(TRAINERS)
-                    + ["treeadd", "transforms", "norms"],
+                    + ["treeadd", "transforms", "norms", "export"],
                     default=None,
                     help="run the phases of one path only (all the "
                          "kernels are built either way); 'trainer' and "
@@ -4616,6 +4932,11 @@ def main(argv=None) -> int:
             with mode_env({}):
                 phase_norms(tmp, plot_dir, smi, args.seed)
             emit({"phase": "model", "model": "norms",
+                  "seconds": time.perf_counter() - t_model})
+        if args.only in (None, "export"):
+            t_model = time.perf_counter()
+            phase_export(tmp, plot_dir, smi, args.seed, krows)
+            emit({"phase": "model", "model": "export",
                   "seconds": time.perf_counter() - t_model})
     missing = [f"{r['name']} {r['dtype']} {r.get('case') or ''}"
                for r in krows if not r["launches"]]

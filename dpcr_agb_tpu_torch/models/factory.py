@@ -1,6 +1,6 @@
 """Model building and collate policy (counterpart of `_build_minkowski`,
 `_build_simplest`, `_build_kpconv`, `_build_pointnext`,
-`make_post_collate` and `_collate_spec` of
+`make_post_collate`, `export_aux` and `_collate_spec` of
 `dpcr_agb_tpu/models/factory.py`)."""
 from __future__ import annotations
 
@@ -122,6 +122,26 @@ def make_post_collate(net) -> Optional[Callable[[Batch], Batch]]:
                                    aux={"zcells": np.zeros(zb, np.int8)})
 
     return post_collate
+
+
+def export_aux(net) -> Optional[dict]:
+    """The static `batch.aux` of a fixed-shape export (`export_model.py`),
+    or None. The models whose aux is input-dependent, KPCNN's neighbour
+    pyramids and map mode's kernel maps (both built per batch by the host
+    post-collate), cannot be baked into an artifact and raise. The
+    dense-grid nets get their FULL z extent (length dense_dims[2]), so
+    that serving inputs of any height fit: the smallest z bucket that a
+    probe through `make_post_collate` would pick would crop tall plots."""
+    if isinstance(net, KPCNN) or (
+            isinstance(net, SparseResNet) and net.dense_dims is None):
+        raise ValueError(
+            f"{type(net).__name__} consumes host-precomputed, input-dependent "
+            "batch.aux (neighbor pyramids / kernel maps) and cannot be "
+            "exported as a standalone artifact; serve it with "
+            "dpcr_agb_tpu_torch.predict")
+    if isinstance(net, SparseResNet):
+        return {"zcells": np.zeros(net.dense_dims[2], np.int8)}
+    return None
 
 
 def collate_spec(conv_type: str, data_cfg: dict) -> CollateSpec:

@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops as kernel_ops
+
 
 def firewall_copy_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the `firewall_copy` kernel: a fresh
@@ -28,12 +30,9 @@ def firewall_copy_plain(x: torch.Tensor) -> torch.Tensor:
 
 def firewall_copy(x: torch.Tensor) -> torch.Tensor:
     """x of any strides -> a fresh contiguous tensor of equal values. The
-    `firewall_copy` kernel on CUDA tensors, the plain version on CPU
-    ones."""
-    if x.is_cuda:
-        from .. import kernels
-        return kernels.firewall_copy(x)
-    return firewall_copy_plain(x)
+    op `dpcr_port::firewall_copy`: the `firewall_copy` kernel on CUDA
+    tensors, the plain version on CPU ones."""
+    return kernel_ops.firewall_copy(x)
 
 
 class _LayoutFirewall(torch.autograd.Function):

@@ -24,6 +24,7 @@ from typing import Tuple
 
 import torch
 
+from ..kernels import ops as kernel_ops
 from .voxel import build_grid, downsample
 
 _FAR = 1e8
@@ -110,10 +111,8 @@ def fps_plain(pos: torch.Tensor, mask: torch.Tensor, n_samples: int,
 
 def fps(pos: torch.Tensor, mask: torch.Tensor, n_samples: int,
         start: int = 0) -> torch.Tensor:
-    """`fps_plain`'s function: the `fps` kernel on CUDA tensors (it raises
-    for a shape it cannot take), the plain version on CPU ones."""
-    if pos.is_cuda:
-        from .. import kernels
-        return kernels.fps(pos.contiguous(), mask.contiguous(), n_samples,
-                           start)
-    return fps_plain(pos, mask, n_samples, start)
+    """`fps_plain`'s function, the op `dpcr_port::fps`: the `fps` kernel on
+    CUDA tensors (it raises for a shape it cannot take), the plain version
+    on CPU ones."""
+    return kernel_ops.fps(pos.contiguous(), mask.contiguous(), n_samples,
+                          start)

@@ -25,6 +25,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops as kernel_ops
 from .dense_grid import (NEG_INF, dense_max_pool_xla, occupancy_pool,
                          scatter_to_dense, windowed_max)
 
@@ -54,12 +55,10 @@ def masked_max_pool_plain(x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
 
 def masked_max_pool(x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
     """x [B,D,H,W,C], occupancy occ [B,D,H,W,1] of x's dtype ->
-    [B,ceil(D/2),ceil(H/2),ceil(W/2),C]. The `max_pool_k3s2` kernel on CUDA
-    tensors, the plain version on CPU ones."""
-    if x.is_cuda:
-        from .. import kernels
-        return kernels.max_pool_k3s2(x, occ)
-    return masked_max_pool_plain(x, occ)
+    [B,ceil(D/2),ceil(H/2),ceil(W/2),C]. The op `dpcr_port::max_pool_k3s2`:
+    the `max_pool_k3s2` kernel on CUDA tensors, the plain version on CPU
+    ones."""
+    return kernel_ops.max_pool_k3s2(x, occ)
 
 
 def masked_max_pool_rows_plain(coords: torch.Tensor, mask: torch.Tensor,
@@ -77,13 +76,12 @@ def masked_max_pool_rows(coords: torch.Tensor, mask: torch.Tensor,
                          h_rows: torch.Tensor, dims: Sequence[int]
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rows [B,V,C] (coords int32 [B,V,3], mask bool [B,V]) -> (pooled
-    level-1 volume [B,d1,h1,w1,C], its occupancy [B,d1,h1,w1,1]). The
-    `max_pool_k3s2_rows` kernel on CUDA tensors (no C-wide full-resolution
-    volume), the plain version on CPU ones."""
-    if h_rows.is_cuda:
-        from .. import kernels
-        return kernels.max_pool_k3s2_rows(coords, mask, h_rows, dims)
-    return masked_max_pool_rows_plain(coords, mask, h_rows, dims)
+    level-1 volume [B,d1,h1,w1,C], its occupancy [B,d1,h1,w1,1]). The op
+    `dpcr_port::max_pool_k3s2_rows`: the `max_pool_k3s2_rows` kernel on
+    CUDA tensors (no C-wide full-resolution volume), the plain version on
+    CPU ones."""
+    return kernel_ops.max_pool_k3s2_rows(coords, mask, h_rows,
+                                         [int(n) for n in dims])
 
 
 def _pool_parents(coords: torch.Tensor, mask: torch.Tensor,

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops as kernel_ops
 from .dense_grid import scatter_to_dense
 from .pool import _pool_parents
 
@@ -78,11 +79,9 @@ def stem_conv_sites(vol: torch.Tensor, coords: torch.Tensor,
     """vol [B,D,H,W,Cin], coords [B,V,3] int32, mask [B,V] bool, weights
     [343,Cin,Cout], optional bias [Cout] -> [B,V,Cout] in vol's dtype:
     y[b,v] = sum_o vol[b, c_v + o - 3] @ W[o] (+ bias), zero at masked rows.
-    The `stem_sites` kernel on CUDA tensors, the plain version on CPU ones."""
-    if vol.is_cuda:
-        from .. import kernels
-        return kernels.stem_sites(vol, coords, mask, weights, bias)
-    return stem_conv_sites_plain(vol, coords, mask, weights, bias)
+    The op `dpcr_port::stem_sites`: the `stem_sites` kernel on CUDA
+    tensors, the plain version on CPU ones."""
+    return kernel_ops.stem_sites(vol, coords, mask, weights, bias)
 
 
 def stem_conv_sites_dw_plain(vol: torch.Tensor, coords: torch.Tensor,

@@ -40,9 +40,9 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from .data.batch import CollateSpec
+from .data.batch import Batch, CollateSpec
 from .device import numerics, resolve_device
-from .models.base import InstanceSpec
+from .models.base import InstanceSpec, convert_outputs, reg_output
 from .models.factory import build_model, collate_spec, make_post_collate
 from .transforms import Compose, instantiate_transforms
 from .weights import from_flax, in_channels_of
@@ -208,6 +208,38 @@ class ServingBundle:
     data_cfg: dict
     option: dict
     device: torch.device
+
+
+class ExportModule(torch.nn.Module):
+    """A bundle's net as a function of plain tensors, the form that
+    `export_model.py` exports: (pos [B,N,3] f32, x [B,N,C] f32, mask [B,N]
+    bool, coords [B,N,3] int32 with PAD_COORD padding) -> de-standardized
+    predictions [B, T] f32. The Batch is built as the JAX package's
+    `scripts/export_model.py` builds it (zero targets and indices, coords
+    only for the sparse collate, the static `aux`), and the head output
+    goes through `reg_output(convert_outputs(...))` as `predict.predictions`
+    does."""
+
+    def __init__(self, bundle: ServingBundle, aux: Optional[dict]):
+        super().__init__()
+        self.net = bundle.net
+        self.spec = bundle.spec
+        self.aux = aux
+        self.use_coords = bool(bundle.collate_spec.use_coords)
+
+    def forward(self, pos: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
+                coords: torch.Tensor) -> torch.Tensor:
+        bs, t, dev = pos.shape[0], len(self.spec.scale), pos.device
+        batch = Batch(
+            pos=pos, x=x, mask=mask,
+            y_reg=torch.zeros((bs, t), dtype=torch.float32, device=dev),
+            y_reg_mask=torch.zeros((bs, t), dtype=torch.bool, device=dev),
+            area_idx=torch.zeros(bs, dtype=torch.int32, device=dev),
+            label_idx=torch.zeros(bs, dtype=torch.int64, device=dev),
+            is_double=torch.zeros(bs, dtype=torch.bool, device=dev),
+            coords=coords if self.use_coords else None, aux=self.aux)
+        raw = self.net(batch)
+        return reg_output(self.spec, convert_outputs(self.spec, raw.float()))
 
 
 def save_checkpoint(checkpoint_dir: str, model_name: str,

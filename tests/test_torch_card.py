@@ -18,7 +18,10 @@ on the card, which launch none of the port's kernels and agree with the
 CPU's; `fps` against its plain version, indices exactly and the same bits
 twice, at PointNeXt's samplings, at B 1 and 32 and at its edges
 (duplicates in different CTAs of a cluster, an integer grid's exact ties,
-starts other than 0), under each cluster size.
+starts other than 0), under each cluster size; the five custom ops of
+`kernels/ops.py` on CUDA tensors (one launch a call, the plain version's
+values, `torch.library.opcheck`) and a narrow SENet14 exported and loaded
+on the card.
 This file imports no JAX, so it runs on the GPU machine:
 
     python -m pytest --noconftest -m cuda tests/test_torch_imports.py \\
@@ -642,3 +645,79 @@ def test_fps_every_cluster_size_gives_the_plain_indices():
             assert kernels.LAUNCHES["fps"] == 1
             assert torch.equal(got, want), (kind, c)
             assert (smid >= 0).all(), (kind, c)
+
+
+@pytest.mark.cuda
+def test_custom_ops_dispatch_to_the_kernels_and_pass_opcheck(tmp_path):
+    """The five ops of `kernels/ops.py` on CUDA tensors: each launches its
+    kernel once a call (the launch count moves, the plain version is not
+    taken), equals its plain version on the CPU copies (exact; the stem
+    within 1e-4 of max|plain|), and passes `torch.library.opcheck`; a
+    narrow SENet14 exported on the card holds both sparse-level-0 ops and
+    its loaded program launches each once a call."""
+    _card()
+    from dpcr_agb_tpu_torch import export_model, kernels
+    from dpcr_agb_tpu_torch.kernels import ops as kops
+    from dpcr_agb_tpu_torch.models.factory import build_model
+    from dpcr_agb_tpu_torch.serving import save_checkpoint
+    from dpcr_agb_tpu_torch import train
+    g = torch.Generator().manual_seed(5)
+    b, d, h, w, cin = 2, 10, 9, 11, 3
+    vol = torch.randn(b, d, h, w, cin, generator=g)
+    coords = torch.randint(0, 9, (b, 40, 3), generator=g, dtype=torch.int32)
+    mask = torch.rand(b, 40, generator=g) > 0.3
+    cases = {
+        "stem_sites": (vol, coords, mask,
+                       torch.randn(343, cin, 64, generator=g),
+                       torch.randn(64, generator=g)),
+        "max_pool_k3s2_rows": (coords, mask,
+                               torch.randn(b, 40, 64, generator=g),
+                               [d, h, w]),
+        "max_pool_k3s2": (torch.randn(b, d, h, w, 64, generator=g),
+                          (torch.rand(b, d, h, w, 1, generator=g) > 0.5
+                           ).float()),
+        "firewall_copy": (vol.permute(0, 3, 1, 2, 4),),
+        "fps": (torch.rand(b, 300, 3, generator=g),
+                torch.rand(b, 300, generator=g) > 0.2, 64, 0)}
+    for name, args in cases.items():
+        op = getattr(kops, name)
+        cuda = tuple(a.cuda() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+        before = kernels.LAUNCHES[name]
+        got = op(*cuda)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + 1, name
+        want = op(*args)
+        for gt, wt in zip(got if isinstance(got, tuple) else (got,),
+                          want if isinstance(want, tuple) else (want,)):
+            assert gt.is_cuda and gt.dtype == wt.dtype, name
+            tol = 1e-4 * float(wt.abs().max()) if name == "stem_sites" \
+                else 0.0
+            torch.testing.assert_close(gt.cpu(), wt, rtol=0, atol=tol)
+        torch.library.opcheck(op, cuda)
+
+    option = train.model_option("SENet14", False, dense_dims=[24, 24, 16])
+    net, _ = build_model(option, 2, 3, generator=g)
+    save_checkpoint(str(tmp_path), "SENet14", net, option, 3,
+                    train.MODELS["SENet14"][1](),
+                    {"scale": [4.0, 8.0], "center": [100.0, 200.0],
+                     "weights": [0.5, 0.5]}, ["BMag_ha", "V_ha"])
+    path = export_model.main([f"checkpoint_dir={tmp_path}",
+                              "model_name=SENet14",
+                              f"output={tmp_path}/m.pt2", "batch_size=2",
+                              "num_points=64"])
+    program = export_model.load(path)
+    coords = torch.full((2, 64, 3), export_model.PAD_COORD,
+                        dtype=torch.int32)
+    coords[:, :40] = torch.randint(0, 16, (2, 40, 3), generator=g)
+    mask = torch.zeros(2, 64, dtype=torch.bool)
+    mask[:, :40] = True
+    kernels.reset_launches()
+    with torch.no_grad():
+        out = program(torch.zeros(2, 64, 3).cuda(),
+                      torch.rand(2, 64, 3, generator=g).cuda(),
+                      mask.cuda(), coords.cuda())
+    torch.cuda.synchronize()
+    assert out.shape == (2, 2) and bool(torch.isfinite(out).all())
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "stem_sites": 1, "max_pool_k3s2_rows": 1}

@@ -38,6 +38,7 @@ from dpcr_agb_tpu import native as jnative
 from dpcr_agb_tpu.config import compose_from_checkpoint as jcompose
 from dpcr_agb_tpu.config import load_config as jload
 from dpcr_agb_tpu.data import instantiate_dataset as jdataset
+from dpcr_agb_tpu.ops import layout as jlayout
 from dpcr_agb_tpu.training.trainer import Trainer as JTrainer
 from dpcr_agb_tpu.utils import neighbor_calibration as jcal
 from dpcr_agb_tpu_torch import predict
@@ -70,6 +71,18 @@ def _port(tmp, name, *extra):
 
 def _limits(trainer):
     return trainer.option.get("extra_options", {}).get("neighborhood_limits")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_layout_restored():
+    """The JAX trainer's StepRunner sets the JAX package's batch layout
+    (`dpcr_agb_tpu.ops.layout`) for its 8-device mesh and leaves it set:
+    the files that run after this one in the same test worker get it back
+    as it was (a leaked per-sample layout moved the JAX reference of
+    `tests/test_torch_train.py` past its tolerance)."""
+    saved = (jlayout.BATCH_LOCAL, jlayout.DATA_PARALLEL_DEGREE)
+    yield
+    jlayout.set_batch_local(*saved)
 
 
 @pytest.fixture(scope="module")

@@ -41,6 +41,7 @@ import calibrate_bn as jcalibrate  # noqa: E402
 import eval as jeval  # noqa: E402
 from dpcr_agb_tpu.config import load_config as jload
 from dpcr_agb_tpu.models import minkowski as jmink
+from dpcr_agb_tpu.ops import layout as jlayout
 from dpcr_agb_tpu.training import optim as joptim
 from dpcr_agb_tpu.training.trainer import Trainer as JTrainer
 from dpcr_agb_tpu_torch import calibrate_bn as tcalibrate
@@ -73,6 +74,18 @@ def _overrides(data, run, epochs, *extra):
             "models.SENet14.drop_path=0.0",
             "models.SENet14.extra_options={dense_dims: [24, 24, 24]}",
             "+data.buckets=[16384]", f"run_dir={run}", *extra]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_layout_restored():
+    """The JAX trainer's StepRunner sets the JAX package's batch layout
+    (`dpcr_agb_tpu.ops.layout`) for its 8-device mesh and leaves it set:
+    the files that run after this one in the same test worker get it back
+    as it was (a leaked per-sample layout moved the JAX reference of
+    `tests/test_torch_train.py` past its tolerance)."""
+    saved = (jlayout.BATCH_LOCAL, jlayout.DATA_PARALLEL_DEGREE)
+    yield
+    jlayout.set_batch_local(*saved)
 
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from dpcr_agb_tpu.config import load_config as jload  # noqa: E402
+from dpcr_agb_tpu.ops import layout as jlayout  # noqa: E402
 from dpcr_agb_tpu.training import regularizers as jreg  # noqa: E402
 from dpcr_agb_tpu.training.trainer import Trainer as JTrainer  # noqa: E402
 from dpcr_agb_tpu.visualization.visualizer import \
@@ -48,6 +49,18 @@ from dpcr_agb_tpu_torch.weights import (opt_state_from_optax,  # noqa: E402
 
 CONF = os.path.join(ROOT, "conf")
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_layout_restored():
+    """The JAX trainer's StepRunner sets the JAX package's batch layout
+    (`dpcr_agb_tpu.ops.layout`) for its 8-device mesh and leaves it set:
+    the files that run after this one in the same test worker get it back
+    as it was (a leaked per-sample layout moved the JAX reference of
+    `tests/test_torch_train.py` past its tolerance)."""
+    saved = (jlayout.BATCH_LOCAL, jlayout.DATA_PARALLEL_DEGREE)
+    yield
+    jlayout.set_batch_local(*saved)
 
 
 # --- regularizers ------------------------------------------------------------
