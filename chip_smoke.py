@@ -9,7 +9,7 @@
                                   trainer|trainer-kpconv|trainer-pointnext|
                                   trainer-pointnet|trainer-map|
                                   trainer-kpconv-deform|treeadd|
-                                  transforms|norms|export]
+                                  transforms|norms|export|multigpu]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   device   the card's name and power limit, the float32 settings pinned by
@@ -308,6 +308,40 @@ Then (`--only trainer` runs it alone):
            after one warm-up). `torch.library.opcheck` of the five
            custom ops on the CUDA inputs that the eager forwards give
            them; KPConv and SENet14 in map mode refused with ValueError
+  multigpu (`--only multigpu`) several processes on the card, each a
+           `chip_smoke.py --worker` process started with the variables
+           torchrun sets and DPCR_MULTIHOST=1 (`parallel.
+           maybe_init_distributed` starts the group in it):
+    multigpu_step  two gloo ranks on cuda:0 (NCCL refuses two ranks on
+           one device), SENet14 at full width on the sparse level 0 from
+           --seed, one train step on the train phase's bs16 batch with its
+           V bucket (16384) and z bucket (the full 104) pinned, 8 samples
+           a rank, f32 and bf16: (a) each rank's kernel step against the
+           plain step of its split at STEP_TOL; (b) the 2 ranks' step
+           against the one-process step on all 16 samples: the loss, the
+           parameters after the step and the BN running stats at STEP_TOL
+           (bf16: and all gradients as one vector), each gradient's error
+           and the level-0 pool routes that flip reported; (c) both ranks'
+           parameters bit-equal; each rank's launches exactly stem_sites,
+           max_pool_k3s2_rows, stem_sites_dw and max_pool_k3s2_bwd once
+           and every other kernel 0
+    multigpu_nccl1  the f32 step on the whole batch with world size 1
+           over NCCL, every collective running, against the step with no
+           process group (STEP_TOL; bit_equal reported)
+    trainer_multigpu  the trainer phase's SENet14 command, 2 epochs, 48
+           plots, global bs16, in f32 (training.enable_mixed=False), then
+           in bf16 (MULTIGPU_TRAINER_RUNS; each rank runs both, a process
+           group each), on two gloo ranks on the card (each its own data
+           root) against one process with the same pinned shapes: f32,
+           every numeric metric within rtol 1e-3; bf16, the metrics'
+           relative differences reported (the ranks round their weight
+           gradients to bf16 before the SUM); both dtypes, rank 0 writes
+           the .ckpt, metrics.jsonl and the prediction files, rank 1
+           nothing, and each rank's launches equal its forwards and steps
+           as the trainer phase counts them; readings: each rank's
+           step_seconds and plots/s beside the one-process run's, the
+           gradient all-reduce's ms a step (CUDA events; gloo through the
+           host: no NCCL link is measured)
 Then a total line with the script's seconds, the kernels summary line, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`. Without CUDA (or without the rest of
 the repository) it exits non-zero before printing any result."""
@@ -4857,6 +4891,588 @@ def phase_export(tmp: str, plot_dir: str, smi: str, seed: int,
           "refused": refused, "card": smi})
 
 
+# ---- several processes on the card: the multigpu phases ---------------------
+
+MULTIGPU_WORLD = 2
+MULTIGPU_PLOTS = 48      # trainer_multigpu's synthetic plots (global bs16)
+MULTIGPU_DEVICE = "cuda:0"
+# each rank's launches in one train step of SENet14's sparse level 0
+MULTIGPU_STEP = _only(stem_sites=1, max_pool_k3s2_rows=1, stem_sites_dw=1,
+                      max_pool_k3s2_bwd=1)
+
+
+def run_ranks(mode: str, world: int, out_dir: str, backend: str,
+              args: list, timeout: int = 600, groups: int = 1) -> list:
+    """`world` processes of `chip_smoke.py --worker mode` (`start_ranks`),
+    waited for (`wait_ranks`)."""
+    return wait_ranks(mode, start_ranks(mode, world, out_dir, backend, args,
+                                        groups), timeout)
+
+
+def start_ranks(mode: str, world: int, out_dir: str, backend: str,
+                args: list, groups: int = 1) -> list:
+    """`world` processes of `chip_smoke.py --worker mode`, each with the
+    variables torchrun sets (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT), DPCR_MULTIHOST=1 and DPCR_DIST_BACKEND=backend, all
+    started together. A worker that starts `groups` process groups one
+    after another takes the next of SMOKE_PORTS for each."""
+    import socket
+    socks = [socket.socket() for _ in range(groups)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        ports = [str(s.getsockname()[1]) for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+    procs = []
+    for r in range(world):
+        env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(world),
+               "LOCAL_RANK": str(r), "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": ports[0], "SMOKE_PORTS": ",".join(ports),
+               "DPCR_MULTIHOST": "1", "DPCR_DIST_BACKEND": backend}
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", mode,
+             "--worker-dir", out_dir, *args], env=env, cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def wait_ranks(mode: str, procs: list, timeout: int = 600) -> list:
+    """Each rank's JSON result (its last stdout line) in rank order. A rank
+    that fails, or outlives `timeout`, fails the phase (every rank is
+    killed first)."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, p.returncode, o[-3000:]) for r, (p, o)
+           in enumerate(zip(procs, outs)) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"{mode}: ranks failed: {bad}")
+    return [json.loads(o.strip().splitlines()[-1]) for o in outs]
+
+
+def pinned_global_batch(run):
+    """The train phase's first bs16 batch with the shapes every rank takes
+    under several processes: the V bucket at the ladder's top, the z
+    bucket at the full extent (the trainer's and `make_post_collate`'s
+    rules when the world holds more than one rank)."""
+    import dataclasses
+    from dpcr_agb_tpu_torch.data.batch import normalize_sparse_rows
+    stream, net = run.stream, run.runner.net
+    stream.spec = dataclasses.replace(stream.spec,
+                                      buckets=(max(stream.spec.buckets),))
+    dims = tuple(net.dense_dims)
+
+    def post(batch):
+        batch = normalize_sparse_rows(batch, dims)
+        return dataclasses.replace(
+            batch, aux={"zcells": np.zeros(dims[2], np.int8)})
+    stream.post_collate = post
+    return stream.next()
+
+
+def step_record(runner, batch) -> dict:
+    """One kernel-path train step of `runner` on a device batch: the
+    reported loss, the parameters, BN stats and gradients after it (on the
+    host), its launches, and the level-0 pool's routes (for each row and
+    channel, how many windows take it as their max: the plain backward of
+    a cotangent of ones on the pool's captured input)."""
+    import torch
+    from dpcr_agb_tpu_torch import kernels
+    from dpcr_agb_tpu_torch.ops import pool
+    seen, routed = [], pool.masked_max_pool_rows
+
+    def capture(coords, mask, h_rows, dims):
+        y, occ_l = routed(coords, mask, h_rows, dims)
+        seen.append((coords, mask, h_rows.detach(), y.detach(), occ_l, dims))
+        return y, occ_l
+    kernels.reset_launches()
+    pool.masked_max_pool_rows = capture
+    try:
+        out = runner.train(batch)
+        torch.cuda.synchronize()
+    finally:
+        pool.masked_max_pool_rows = routed
+    launches = dict(kernels.LAUNCHES)
+    coords, mask, h_rows, y, occ_l, dims = seen[0]
+    routes = pool.masked_max_pool_bwd_rows_plain(
+        coords, mask, h_rows, y, occ_l, torch.ones_like(y), dims)
+    net = runner.net
+    return {"loss": float(out["loss"]), "launches": launches,
+            "params": {k: p.detach().cpu() for k, p in
+                       net.named_parameters()},
+            "grads": {k: p.grad.detach().cpu() for k, p in
+                      net.named_parameters()},
+            "stats": {k: b.detach().cpu() for k, b in net.named_buffers()},
+            "routes": routes.cpu()}
+
+
+def multigpu_setup(plot_dir: str, dtname: str, seed: int):
+    """SENet14 at full width built from `seed` on the card, its runner,
+    and the pinned global train batch (host)."""
+    from dpcr_agb_tpu_torch import train
+    files = sorted(glob.glob(os.path.join(plot_dir, "*.npz")))
+    run = train.setup(files, "SENet14", bf16=dtname == "bfloat16",
+                      batch_size=N_PLOTS, seed=seed, device=MULTIGPU_DEVICE)
+    return run, pinned_global_batch(run)
+
+
+def worker_multigpu_step(out_dir: str, plot_dir: str, seed: int) -> dict:
+    """A rank of `multigpu_step`: for each dtype, its half of the global
+    batch through one kernel step (its record saved for the parent) and
+    one plain step from the same state (the within-rank check, (a))."""
+    import copy
+    import torch
+    from dpcr_agb_tpu_torch import parallel, train
+    rank, world = parallel.rank(), parallel.world_size()
+    out = {"rank": rank, "world": world,
+           "backend": torch.distributed.get_backend()}
+    for dtname in ("float32", "bfloat16"):
+        run, host = multigpu_setup(plot_dir, dtname, seed)
+        local = parallel.shard_batch(host, rank, world).to(MULTIGPU_DEVICE)
+        runner = run.runner
+        plain = train.build_runner(copy.deepcopy(runner.net), run.stats,
+                                   seed=0)
+        plain.generator.set_state(runner.generator.get_state())
+        before = {n: p.detach().clone()
+                  for n, p in plain.net.named_parameters()}
+        rec = step_record(runner, local)
+        with plain_ops():
+            out_p = plain.train(local)
+        torch.cuda.synchronize()
+        errs, grad = _step_errors(runner, plain, before, rec["loss"],
+                                  float(out_p["loss"]))
+        torch.save(rec, os.path.join(out_dir, f"step_{dtname}_{rank}.pt"))
+        out[dtname] = {
+            "loss": rec["loss"], "launches": rec["launches"],
+            "local_samples": int(local.mask.shape[0]),
+            "kernel_vs_plain_step": {
+                "errors": errs, "tolerance": STEP_TOL[dtname],
+                "worst_grads": sorted(grad.items(),
+                                      key=lambda kv: -kv[1])[:3]}}
+        del run, runner, plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def worker_nccl1(out_dir: str, plot_dir: str, seed: int) -> dict:
+    """The rank of `multigpu_nccl1`: world size 1 over NCCL, the f32 step
+    on the whole global batch with every collective running."""
+    import torch
+    run, host = multigpu_setup(plot_dir, "float32", seed)
+    rec = step_record(run.runner, host.to(MULTIGPU_DEVICE))
+    torch.save(rec, os.path.join(out_dir, "nccl1_float32.pt"))
+    return {"backend": torch.distributed.get_backend(),
+            "world": torch.distributed.get_world_size(),
+            "loss": rec["loss"], "launches": rec["launches"]}
+
+
+def _rel_dict(got: dict, want: dict, floor: float = 0.0) -> dict:
+    return {k: _rel(got[k], want[k], floor) for k in want}
+
+
+def global_vs_split(one: dict, ranks: list, dtname: str) -> dict:
+    """(b) and (c): the 2-rank step (rank 0's record; the ranks' routes put
+    together) against the one-process step on the whole batch, gated at
+    STEP_TOL (f32: the loss, the parameters, the BN stats; bf16: those and
+    all gradients as one vector), and the ranks' parameters bit for
+    bit."""
+    import torch
+    r0 = ranks[0]
+    tol = STEP_TOL[dtname]
+    names = sorted(one["params"])
+
+    def flat(d):
+        return torch.cat([d[n].reshape(-1).double() for n in names])
+    norm = torch.linalg.vector_norm(flat(one["grads"])).item()
+    grad = _rel_dict(r0["grads"], one["grads"], 1e-3 * norm)
+    errs = {"loss": abs(r0["loss"] - one["loss"]) / max(abs(one["loss"]),
+                                                        1e-30),
+            "grads": _rel(flat(r0["grads"]), flat(one["grads"])),
+            "grad": max(grad.values()),
+            "params": _rel(flat(r0["params"]), flat(one["params"])),
+            "stat": max(_rel_dict(r0["stats"], one["stats"]).values())}
+    # each gradient is reported, not gated: a conv bias ahead of a
+    # train-mode BN has a gradient of rounding noise, whose pattern turns
+    # on how the BN backward's sums are split between the ranks (and in
+    # f32 a near-tie in a pool window may route to another row)
+    gated = ("loss", "params", "stat") if dtname == "float32" \
+        else ("loss", "grads", "params", "stat")
+    routes = torch.cat([r["routes"] for r in ranks])
+    flipped = int((routes != one["routes"]).sum())
+    same_ranks = all(torch.equal(r0["params"][n], r["params"][n])
+                     for r in ranks[1:] for n in names)
+    bad = {k: errs[k] for k in gated if not errs[k] <= tol[k]}
+    out = {"errors": errs, "gated": list(gated), "tolerance": tol,
+           "worst_grads": sorted(grad.items(), key=lambda kv: -kv[1])[:3],
+           "pool_routes": routes.numel(), "pool_routes_flipped": flipped,
+           "ranks_params_bit_equal": same_ranks}
+    if bad or not same_ranks:
+        starts = next((n for n in names if not torch.equal(
+            r0["params"][n], one["params"][n])), None)
+        raise AssertionError(
+            f"multigpu_step {dtname}: 2 ranks vs one process out of "
+            f"tolerance {bad} (ranks bit-equal: {same_ranks}); the "
+            f"parameters differ from {starts}; {out}")
+    return out
+
+
+def phase_multigpu_step(tmp: str, plot_dir: str, smi: str, seed: int,
+                        krows: list, procs: list) -> dict:
+    """SENet14 (sparse level 0, full width) one train step from one state
+    on the pinned bs16 batch: two gloo ranks on the card (8 samples each,
+    started as `procs`) against one process (see the module docstring);
+    returns the one-process f32 record for multigpu_nccl1."""
+    import torch
+    out_dir = os.path.join(tmp, "multigpu")
+    t0 = time.perf_counter()
+    ranks = wait_ranks("multigpu_step", procs)
+    ranks_seconds = time.perf_counter() - t0
+    result = {"phase": "multigpu_step", "model": "SENet14",
+              "world": MULTIGPU_WORLD, "backend": ranks[0]["backend"],
+              "device": MULTIGPU_DEVICE, "ranks_seconds": ranks_seconds}
+    one_f32 = None
+    for dtname in ("float32", "bfloat16"):
+        for r in ranks:
+            d = r[dtname]
+            bad = {k: v for k, v in d["launches"].items()
+                   if v != MULTIGPU_STEP[k]}
+            if bad:
+                raise AssertionError(f"multigpu_step {dtname} rank "
+                                     f"{r['rank']}: launches {bad}, "
+                                     f"expected {MULTIGPU_STEP}")
+            errs = d["kernel_vs_plain_step"]["errors"]
+            over = {k: v for k, v in errs.items()
+                    if not v <= STEP_TOL[dtname][k]}
+            if over:
+                raise AssertionError(
+                    f"multigpu_step {dtname} rank {r['rank']}: kernel step "
+                    f"vs plain step of its split out of tolerance {over}: "
+                    f"{d['kernel_vs_plain_step']}")
+        run, host = multigpu_setup(plot_dir, dtname, seed)
+        one = step_record(run.runner, host.to(MULTIGPU_DEVICE))
+        if dtname == "float32":
+            one_f32 = one
+        del run
+        torch.cuda.empty_cache()
+        recs = [torch.load(os.path.join(out_dir, f"step_{dtname}_{r}.pt"),
+                           weights_only=False)
+                for r in range(MULTIGPU_WORLD)]
+        result[dtname] = {
+            "loss_two_ranks": recs[0]["loss"], "loss_one_process": one["loss"],
+            "launches_per_rank": [r[dtname]["launches"] for r in ranks],
+            "kernel_vs_plain_step_per_rank": [
+                r[dtname]["kernel_vs_plain_step"] for r in ranks],
+            "two_ranks_vs_one_process": global_vs_split(one, recs, dtname)}
+        for row in krows:
+            if row["kernels_phase"] == "sparse_l0" and row["dtype"] == \
+                    dtname and MULTIGPU_STEP.get(row["name"]):
+                row.setdefault("launches_by_path", {})["multigpu_step"] = \
+                    [r[dtname]["launches"][row["name"]] for r in ranks]
+    result["card"] = smi
+    emit(result)
+    return one_f32
+
+
+def phase_multigpu_nccl1(tmp: str, smi: str, one: dict,
+                         procs: list) -> None:
+    """The f32 step with world size 1 under NCCL (every collective
+    running; its rank started as `procs`) against the step with no process
+    group."""
+    import torch
+    out_dir = os.path.join(tmp, "multigpu")
+    rank = wait_ranks("nccl1", procs)[0]
+    rec = torch.load(os.path.join(out_dir, "nccl1_float32.pt"),
+                     weights_only=False)
+    if rank["backend"] != "nccl" or rank["world"] != 1:
+        raise AssertionError(f"multigpu_nccl1: {rank}")
+    bad = {k: v for k, v in rec["launches"].items() if v != MULTIGPU_STEP[k]}
+    if bad:
+        raise AssertionError(f"multigpu_nccl1: launches {bad}")
+    names = sorted(one["params"])
+    errs = {"loss": abs(rec["loss"] - one["loss"]) / max(abs(one["loss"]),
+                                                         1e-30),
+            "params": _rel(torch.cat([rec["params"][n].reshape(-1)
+                                      for n in names]),
+                           torch.cat([one["params"][n].reshape(-1)
+                                      for n in names])),
+            "stat": max(_rel_dict(rec["stats"], one["stats"]).values())}
+    tol = STEP_TOL["float32"]
+    bit_equal = all(torch.equal(rec["params"][n], one["params"][n])
+                    for n in names) and all(
+        torch.equal(rec["stats"][n], one["stats"][n]) for n in one["stats"])
+    over = {k: v for k, v in errs.items() if not v <= tol[k]}
+    if over:
+        raise AssertionError(f"multigpu_nccl1: NCCL world 1 vs no group out "
+                             f"of tolerance {over}")
+    emit({"phase": "multigpu_nccl1", "model": "SENet14", "dtype": "float32",
+          "backend": "nccl", "world": 1, "errors_vs_no_group": errs,
+          "tolerance": {k: tol[k] for k in errs}, "bit_equal": bit_equal,
+          "loss": rec["loss"], "launches": rec["launches"], "card": smi})
+
+
+def multigpu_trainer_overrides(root: str) -> list:
+    """The trainer phase's SENet14 command (bf16 through enable_mixed) on
+    MULTIGPU_PLOTS plots under `root`."""
+    return [o if not o.startswith("data.synthetic_plots=")
+            else f"data.synthetic_plots={MULTIGPU_PLOTS}"
+            for o in trainer_overrides(root, "trainer")]
+
+
+# trainer_multigpu runs the trainer command in both dtypes. f32 is gated:
+# the ranks' summed gradient is the one-process gradient to f32 rounding.
+# bf16 is reported: each rank rounds its weight gradients to bf16 before
+# the SUM, where one process (and the JAX program) rounds the global
+# batch's once; one step stays within STEP_TOL's bf16 row
+# (`multigpu_step`), but the metrics drift past the 1e-3 bound within two
+# epochs (PERF.md §6)
+MULTIGPU_TRAINER_RUNS = (("float32", ("training.enable_mixed=False",)),
+                         ("bfloat16", ()))
+
+
+def worker_trainer(out_dir: str) -> dict:
+    """A rank of `trainer_multigpu`: train.main with the trainer command
+    for each of MULTIGPU_TRAINER_RUNS in turn, each under its own root
+    (its data and run dir) and its own process group, the runner's calls
+    and the kernels' launches counted, each step's gradient all-reduce
+    timed with CUDA events."""
+    import torch
+    from dpcr_agb_tpu_torch import kernels, parallel, train
+    from dpcr_agb_tpu_torch.training import step as step_mod
+    rank = int(os.environ["RANK"])
+    ports = os.environ["SMOKE_PORTS"].split(",")
+    reduce = step_mod.all_reduce_grads
+    out = {}
+    for (dtname, extra), port in zip(MULTIGPU_TRAINER_RUNS, ports):
+        os.environ["MASTER_PORT"] = port
+        root = os.path.join(out_dir, dtname, f"rank{rank}")
+        reduce_ms = []
+
+        def timed(params):
+            params = list(params)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            reduce(params)
+            end.record()
+            end.synchronize()
+            reduce_ms.append(start.elapsed_time(end))
+        kernels.reset_launches()
+        step_mod.all_reduce_grads = timed
+        try:
+            with StepCounter() as counter:
+                trainer = train.main(
+                    multigpu_trainer_overrides(root) + list(extra)
+                    + [f"device={MULTIGPU_DEVICE}"])
+                torch.cuda.synchronize()
+        finally:
+            step_mod.all_reduce_grads = reduce
+        if parallel.world_size() != 1 or torch.distributed.is_initialized():
+            raise AssertionError("train.main left its process group "
+                                 "running")
+        run_dir = os.path.join(root, "run")
+        out[dtname] = {
+            "rank": rank, "world": trainer._world,
+            "bf16": bool((trainer.option.get("extra_options") or {}).get(
+                "bf16")),
+            "launches": dict(kernels.LAUNCHES),
+            "calls": dict(counter.calls), "forwards": counter.forwards,
+            "history": [{k: h[k] for k in ("epoch", "stage", "batches",
+                                           "seconds")
+                         if k in h} | ({k: h[k] for k in (
+                             "step_seconds", "data_seconds", "plots_per_s",
+                             "tracked_losses")} if h["stage"] == "train"
+                             else {}) for h in trainer.history],
+            "allreduce_ms": reduce_ms,
+            "files": sorted(os.listdir(run_dir))
+            if os.path.isdir(run_dir) else []}
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def trainer_one_process(root: str, dtname: str, extra, spec: dict):
+    """The trainer command on one process with the shapes the ranks take:
+    the V bucket at the ladder's top and the z bucket at the full extent
+    (the dense grid's empty cells enter the next conv through BN, so the
+    z extent moves the outputs: PERF.md §6). Returns its train epochs'
+    history and its seconds."""
+    import torch
+    from dpcr_agb_tpu_torch import kernels, train
+    from dpcr_agb_tpu_torch.models import factory
+    what = f"trainer_multigpu {dtname}: one process"
+    pinned = factory.world_size
+    factory.world_size = lambda: MULTIGPU_WORLD
+    kernels.reset_launches()
+    try:
+        with StepCounter() as counter:
+            t0 = time.perf_counter()
+            one = train.main(
+                multigpu_trainer_overrides(root) + list(extra)
+                + ["+data.buckets=[16384]", f"device={MULTIGPU_DEVICE}"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        factory.world_size = pinned
+    check_trainer_launches(what, dict(kernels.LAUNCHES), counter, spec)
+    if bool((one.option.get("extra_options") or {}).get("bf16")) != \
+            (dtname == "bfloat16"):
+        raise AssertionError(f"{what}: the command did not train in "
+                             f"{dtname}")
+    hist = [h for h in one.history if h["stage"] == "train"]
+    del one
+    torch.cuda.empty_cache()
+    return hist, seconds
+
+
+def _metrics(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [{k: v for k, v in r.items() if isinstance(v, (int, float))}
+            for r in recs]
+
+
+def phase_trainer_multigpu(tmp: str, smi: str, krows: list) -> None:
+    """The trainer phase's SENet14 command on MULTIGPU_PLOTS plots, 2
+    epochs, global bs16, in f32 and in bf16: two gloo ranks on the card
+    against one process with the same pinned shapes (see the module
+    docstring). The f32 metrics are gated, the bf16 ones reported."""
+    root = os.path.join(tmp, "trainer_multigpu")
+    spec = TRAINERS["trainer"]
+    ones = {dtname: trainer_one_process(
+        os.path.join(root, dtname, "one"), dtname, extra, spec)
+        for dtname, extra in MULTIGPU_TRAINER_RUNS}
+    t0 = time.perf_counter()
+    ranks = run_ranks("trainer", MULTIGPU_WORLD, root, "gloo", [],
+                      groups=len(MULTIGPU_TRAINER_RUNS))
+    ranks_seconds = time.perf_counter() - t0
+
+    class _Counted:
+        def __init__(self, r):
+            self.calls, self.forwards = r["calls"], r["forwards"]
+    missed = []
+    for dtname, _ in MULTIGPU_TRAINER_RUNS:
+        what = f"trainer_multigpu {dtname}"
+        runs = [r[dtname] for r in ranks]
+        for r in runs:
+            if r["world"] != MULTIGPU_WORLD or \
+                    r["bf16"] != (dtname == "bfloat16"):
+                raise AssertionError(f"{what}: rank {r['rank']} saw world "
+                                     f"{r['world']}, bf16 {r['bf16']}")
+            check_trainer_launches(f"{what}: rank {r['rank']}",
+                                   r["launches"], _Counted(r), spec)
+        want_files = {"SENet14.ckpt", "metrics.jsonl",
+                      "SYNTH_test_preds.csv", "SYNTH_val_preds.csv"}
+        if not want_files <= set(runs[0]["files"]) or runs[1]["files"]:
+            raise AssertionError(f"{what}: rank 0 wrote {runs[0]['files']}"
+                                 f", rank 1 {runs[1]['files']}")
+        got = _metrics(os.path.join(root, dtname, "rank0", "run"))
+        want = _metrics(os.path.join(root, dtname, "one", "run"))
+        if len(got) != len(want) or any(g.keys() != w.keys()
+                                        for g, w in zip(got, want)):
+            raise AssertionError(f"{what}: metrics records differ in keys")
+        worst, where, rel_by_key = 0.0, None, {}
+        for g, w in zip(got, want):
+            for k in g:
+                rel = abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                rel_by_key[f"{g.get('epoch')}:{k}"] = [rel, g[k], w[k]]
+                if rel > worst:
+                    worst, where = rel, (g.get("epoch"), k, g[k], w[k])
+        gated = dtname == "float32"
+        one_hist, one_seconds = ones[dtname]
+        train_hist = [[h for h in r["history"] if h["stage"] == "train"]
+                      for r in runs]
+        rels = sorted(v[0] for v in rel_by_key.values())
+        emit({"phase": "trainer_multigpu", "model": "SENet14",
+              "dtype": dtname, "plots": MULTIGPU_PLOTS,
+              "batch_size": TRAINER_BS, "world": MULTIGPU_WORLD,
+              "backend": "gloo", "device": MULTIGPU_DEVICE,
+              "interconnect": "none: two ranks on one card over gloo "
+                              "through the host (no NCCL link measured)",
+              "metrics_max_rel_diff": worst, "metrics_worst": where,
+              "metrics_median_rel_diff": rels[len(rels) // 2],
+              "metrics_rtol": 1e-3, "metrics_gated": gated,
+              "metrics_rel_diff_two_ranks_one_process": rel_by_key,
+              "launches_per_rank": [{k: v for k, v in r["launches"].items()
+                                     if v} for r in runs],
+              "forwards_per_rank": [r["forwards"] for r in runs],
+              "steps_per_rank": [r["calls"]["train"] for r in runs],
+              "files_rank0": runs[0]["files"],
+              "files_rank1": runs[1]["files"],
+              "step_seconds_per_rank": [[h["step_seconds"] for h in th]
+                                        for th in train_hist],
+              "plots_per_s_per_rank": [[h["plots_per_s"] for h in th]
+                                       for th in train_hist],
+              "step_seconds_one_process": [h["step_seconds"]
+                                           for h in one_hist],
+              "plots_per_s_one_process": [h["plots_per_s"]
+                                          for h in one_hist],
+              "allreduce_ms_per_step": [r["allreduce_ms"] for r in runs],
+              "one_process_seconds": one_seconds,
+              "ranks_seconds_both_dtypes": ranks_seconds, "card": smi})
+        for row in krows:
+            if row["kernels_phase"] == "sparse_l0" and \
+                    row["dtype"] == dtname and row["name"] in MULTIGPU_STEP \
+                    and MULTIGPU_STEP[row["name"]]:
+                row.setdefault("launches_by_path", {})[
+                    "trainer_multigpu"] = [r["launches"][row["name"]]
+                                           for r in runs]
+        if gated and worst > 1e-3:
+            missed.append(f"{dtname}: metrics differ by {worst} relative "
+                          f"(> 1e-3) first at {where}")
+    if missed:
+        raise AssertionError(f"trainer_multigpu: 2 ranks vs one process, "
+                             f"{missed}")
+
+
+def phase_multigpu(tmp: str, plot_dir: str, smi: str, seed: int,
+                   krows: list) -> None:
+    """The three multigpu phases; the NCCL rank and the two gloo ranks
+    of the step start together (they share the card, not a group)."""
+    out_dir = os.path.join(tmp, "multigpu")
+    os.makedirs(out_dir, exist_ok=True)
+    args = ["--plots", plot_dir, "--seed", str(seed)]
+    steps = start_ranks("multigpu_step", MULTIGPU_WORLD, out_dir, "gloo",
+                        args)
+    nccl1 = start_ranks("nccl1", 1, out_dir, "nccl", args)
+    try:
+        one = phase_multigpu_step(tmp, plot_dir, smi, seed, krows, steps)
+        phase_multigpu_nccl1(tmp, smi, one, nccl1)
+    finally:
+        for p in steps + nccl1:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    phase_trainer_multigpu(tmp, smi, krows)
+
+
+def worker_main(args) -> int:
+    """`--worker`: one rank of a multigpu phase (started by run_ranks);
+    prints its JSON result as its last line."""
+    from dpcr_agb_tpu_torch import parallel
+    if args.worker == "trainer":
+        # train.main starts the group
+        out = worker_trainer(args.worker_dir)
+    else:
+        if not parallel.maybe_init_distributed(MULTIGPU_DEVICE):
+            raise AssertionError("no process group: run by run_ranks")
+        try:
+            fn = {"multigpu_step": worker_multigpu_step,
+                  "nccl1": worker_nccl1}[args.worker]
+            out = fn(args.worker_dir, args.plots, args.seed)
+        finally:
+            parallel.destroy()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4866,12 +5482,17 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every phase's JSON to this file")
     ap.add_argument("--only", choices=sorted(MODELS) + sorted(TRAINERS)
-                    + ["treeadd", "transforms", "norms", "export"],
+                    + ["treeadd", "transforms", "norms", "export",
+                       "multigpu"],
                     default=None,
                     help="run the phases of one path only (all the "
                          "kernels are built either way); 'trainer' and "
                          "'trainer-kpconv' run that trainer phase alone, "
                          "with no kernels rows")
+    # one rank of a multigpu phase, started by run_ranks
+    ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--worker-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--plots", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -4885,6 +5506,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the dpcr_agb_tpu_torch package is missing: {e}",
               file=sys.stderr)
         return 2
+    if args.worker:
+        return worker_main(args)
     from dpcr_agb_tpu_torch.device import pin_numerics
     pinned = pin_numerics()
 
@@ -4937,6 +5560,12 @@ def main(argv=None) -> int:
             t_model = time.perf_counter()
             phase_export(tmp, plot_dir, smi, args.seed, krows)
             emit({"phase": "model", "model": "export",
+                  "seconds": time.perf_counter() - t_model})
+        if args.only in (None, "multigpu"):
+            t_model = time.perf_counter()
+            with mode_env({}):
+                phase_multigpu(tmp, plot_dir, smi, args.seed, krows)
+            emit({"phase": "model", "model": "multigpu",
                   "seconds": time.perf_counter() - t_model})
     missing = [f"{r['name']} {r['dtype']} {r.get('case') or ''}"
                for r in krows if not r["launches"]]

@@ -15,6 +15,7 @@ from typing import Dict
 
 import numpy as np
 
+from .query import query_mask
 from .table import Table
 
 log = logging.getLogger(__name__)
@@ -94,10 +95,12 @@ def process_label_files(area: dict, area_name: str, targets: Dict[str, dict],
     if not nans_allowed:
         labels = labels.select(~missing.any(axis=1))
 
-    if area.get("label_query") is not None:
-        raise NotImplementedError(
-            f"label_query ({area['label_query']!r}) is not ported: the port "
-            "reads no pandas query expressions (ROADMAP.md §1 item 1)")
+    query = area.get("label_query")
+    if query is not None:
+        labels = labels.select(query_mask(labels, query))
+        if n_labels > len(labels):
+            log.warning(f"{n_labels - len(labels)} samples filtered by: "
+                        f"{query}")
     return labels.reset_index()
 
 

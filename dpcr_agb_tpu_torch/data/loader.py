@@ -7,7 +7,9 @@ Determinism: each sample's transform generator comes from
 SeedSequence(entropy=seed, spawn_key=(epoch, position + 1)) and the
 sampler's from (epoch, 0), a pure function of the run's seed, the epoch
 and the position in the epoch's index stream, whatever the threads do: the
-same batches as the JAX package's loader.
+same batches as the JAX package's loader. With `shard=(rank, world)`
+(several processes) each process builds its contiguous slice of every
+global batch; the slices put together are the one-process batches.
 
 `put_fn` runs on the loader thread after post_collate, e.g.
 `data.batch.device_put` with a copy stream of the loader's own: the copy of
@@ -36,13 +38,20 @@ class Loader:
                  pre_batch_collate: Optional[Callable] = None,
                  shard: Optional[Tuple[int, int]] = None,
                  put_fn: Optional[Callable] = None):
-        if shard not in (None, (0, 1)):
-            raise NotImplementedError(
-                f"loader shard {shard}: multi-process loading is not ported "
-                "(ROADMAP.md §1 item 8)")
-        if double_batch and batch_size % 2:
-            raise ValueError("double_batch pairs are adjacent; batch_size "
-                             "must be even")
+        # several processes: shard=(rank, world). batch_size stays global;
+        # every process walks the same index stream (one seed) and builds
+        # only its contiguous batch_size/world slice of each batch, each
+        # sample's generator keyed on its global position, so the ranks'
+        # batches put together are the one-process batch bit for bit
+        self.shard = tuple(shard) if shard is not None else (0, 1)
+        pi, pc = self.shard
+        if batch_size % pc:
+            raise ValueError(f"batch_size {batch_size} must divide by "
+                             f"process_count {pc}")
+        if double_batch and (batch_size // pc) % 2:
+            raise ValueError("double_batch pairs are adjacent; the local "
+                             "per-process batch must be even")
+        self.local_batch_size = batch_size // pc
         self.dataset = dataset
         self.transform = transform
         self.batch_size = batch_size
@@ -88,16 +97,29 @@ class Loader:
         return self.transform(rng, sample)
 
     def _build(self, epoch: int, bi: int, batch_idx: np.ndarray) -> Batch:
-        """One whole batch: chains, collate, post_collate, put_fn."""
+        """This process's part of one batch: chains, collate, post_collate,
+        put_fn."""
+        # the double-batch pairing looks at the global index stream, then
+        # the process keeps its own contiguous slice
         doubles = np.zeros(len(batch_idx), dtype=bool)
         doubles[1:] = batch_idx[1:] == batch_idx[:-1]
+        local = self.local_batch_size
+        lo = min(self.shard[0] * local, len(batch_idx))
+        hi = min(lo + local, len(batch_idx))
         samples = [self._make_sample(epoch, bi * self.batch_size + j,
                                      batch_idx[j], doubles[j])
-                   for j in range(len(batch_idx))]
+                   for j in range(lo, hi)]
+        empty = not samples
+        if empty:
+            # a ragged final batch left this process nothing: an all-padding
+            # batch keeps it in the collectives
+            samples = [self._make_sample(epoch, bi * self.batch_size,
+                                         batch_idx[0], False)]
         if self.pre_batch_collate is not None:
             # may drop samples; the dropped tail becomes batch padding
             samples = self.pre_batch_collate(samples)
-        b = collate(samples, self.spec, pad_to_batch=self.batch_size)
+        b = collate(samples, self.spec, pad_to_batch=local,
+                    n_valid=0 if empty else None)
         if self.post_collate is not None:
             b = self.post_collate(b)
         if self.put_fn is not None:

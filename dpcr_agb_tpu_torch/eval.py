@@ -20,6 +20,7 @@ import sys
 from .cli import CONF_DIR, split_device, visualization_group
 from .config import compose_from_checkpoint, load_config
 from .device import resolve_device
+from .parallel import destroy, maybe_init_distributed
 from .training.trainer import Trainer
 
 
@@ -30,7 +31,15 @@ def main(overrides=None):
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     overrides = list(overrides if overrides is not None else sys.argv[1:])
     device, overrides = split_device(overrides)
-    dev = resolve_device(device)
+    started = maybe_init_distributed(device)
+    try:
+        return _evaluate(resolve_device(device), overrides)
+    finally:
+        if started:
+            destroy()
+
+
+def _evaluate(dev, overrides):
     cfg = compose_from_checkpoint(overrides)
     if cfg is None:
         cfg = load_config(CONF_DIR, "eval", overrides)

@@ -10,6 +10,8 @@ from typing import Callable, Dict, Sequence
 import numpy as np
 import torch
 
+from ..parallel import all_reduce_sum
+
 F16_EPS = float(np.finfo(np.float16).eps)
 
 
@@ -162,5 +164,15 @@ def compute_reg_loss(spec: InstanceSpec, reg_out: torch.Tensor,
     for name in spec.loss_names:
         el = elementwise(REG_LOSSES[name])
         w = y_mask.to(el.dtype)
-        loss = loss + torch.sum(el * w) / torch.clamp(torch.sum(w), min=1.0)
+        loss = loss + torch.sum(el * w) / _target_count(w)
     return torch.mean(torch.as_tensor(spec.weights, device=dev)) * loss
+
+
+def _target_count(w: torch.Tensor) -> torch.Tensor:
+    """The loss's denominator: the present targets, clamped at 1. Under a
+    process group it counts the global batch's (a SUM over ranks, taken
+    without gradient, clamped after the sum), so that the per-rank losses,
+    each its local numerator over it, add up to the global loss and their
+    gradients' SUM is its gradient; a mean of per-rank means would be
+    another loss wherever the ranks hold different numbers of targets."""
+    return torch.clamp(all_reduce_sum(torch.sum(w).detach()), min=1.0)

@@ -13,6 +13,7 @@ import torch
 from ..data.batch import Batch, CollateSpec, normalize_sparse_rows
 from ..ops.host_pyramid import (kpconv_pyramid_plan, make_kpconv_post_collate,
                                 make_sparse_post_collate)
+from ..parallel import world_size
 from .kpconv import DEFAULT_POINT_FRACS, KPCNN, build_kpconv
 from .minkowski import SparseResNet, build_resnet
 from .pointnet import MPointNet
@@ -83,7 +84,8 @@ def build_model(option: dict, num_reg_targets: int, in_channels: int,
 
 def make_post_collate(net) -> Optional[Callable[[Batch], Batch]]:
     """Dense-grid SparseResNet: pick the batch's z bucket (the smallest of
-    {48, 64, 80, z_max} that holds its max z + 1), normalize the rows to
+    {48, 64, 80, z_max} that holds its max z + 1; z_max when the process
+    group holds more than one rank), normalize the rows to
     (D, H, zb) and tag the bucket as aux['zcells'] (length zb). Map-mode
     SparseResNet: its levels and kernel maps built on the host
     (`ops/host_pyramid.py`, native route) at the net's level caps. KPCNN: its
@@ -113,10 +115,17 @@ def make_post_collate(net) -> Optional[Callable[[Batch], Batch]]:
     dxy = net.dense_dims[:2]
 
     def post_collate(batch: Batch) -> Batch:
-        coords = np.asarray(batch.coords)
-        mask = np.asarray(batch.mask)
-        z_need = int(coords[..., 2][mask].max()) + 1 if mask.any() else 1
-        zb = next((b for b in buckets if b >= z_need), z_max_dim)
+        if world_size() > 1:
+            # every rank must take the same shape, and the bucket turns on
+            # the local batch's z extent: the full extent under several
+            # processes, as the JAX package pins it
+            zb = z_max_dim
+        else:
+            coords = np.asarray(batch.coords)
+            mask = np.asarray(batch.mask)
+            z_need = int(coords[..., 2][mask].max()) + 1 if mask.any() \
+                else 1
+            zb = next((b for b in buckets if b >= z_need), z_max_dim)
         batch = normalize_sparse_rows(batch, (*dxy, zb))
         return dataclasses.replace(batch,
                                    aux={"zcells": np.zeros(zb, np.int8)})

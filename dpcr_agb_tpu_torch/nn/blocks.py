@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masked import masked_mean
+from ..parallel import rank, world_size
 
 # jax.nn.gelu defaults to the tanh approximation; celu uses alpha=0.54
 ACTIVATIONS = {
@@ -103,11 +104,19 @@ class SELayer(nn.Module):
 
 def _keep_mask(shape, keep: float, generator: Optional[torch.Generator],
                device: torch.device) -> torch.Tensor:
-    """Bernoulli(keep) coins drawn from the caller's generator."""
+    """Bernoulli(keep) coins drawn from the caller's generator. Under a
+    process group every rank draws the coins of the global batch (dim 0
+    times the world size; the generators start from one seed, so they
+    agree) and keeps its own rows, as the one-process run on the whole
+    batch draws them."""
     if generator is None:
         raise ValueError("a training-mode dropout needs the caller's "
                          "torch.Generator (forward(..., generator=g))")
-    return torch.rand(shape, generator=generator, device=device) < keep
+    world, r = world_size(), rank()
+    local = shape[0]
+    coins = torch.rand((local * world, *shape[1:]), generator=generator,
+                       device=device) < keep
+    return coins[r * local:(r + 1) * local]
 
 
 class DropPath(nn.Module):

@@ -8,13 +8,18 @@ MaskedBatchNorm:
     (padding rows too: the caller masks downstream)
   * train: biased moments over valid rows only, in f32; the running stats
     follow the torch momentum convention with the unbiased variance
-    (count clamped at 2)"""
+    (count clamped at 2)
+  * under a process group (`parallel`), the moments are the global
+    batch's (`masked_moments`) and the running stats take the global
+    count, so they stay equal on every rank; this also holds for the
+    train-mode forwards of calibrate and enable_bn."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from ..ops.masked import masked_moments
+from ..parallel import all_reduce_sum
 
 
 class MaskedBatchNorm(nn.Module):
@@ -94,7 +99,8 @@ class MaskedGRN(nn.Module):
     """Global response normalization over the valid rows: each channel's
     L2 norm over every row of the batch, divided by its mean over the
     channels, gates x as a learnable residual; zero at masked rows. No
-    model of the JAX package builds it."""
+    model of the JAX package builds it. Under a process group the sum of
+    squares is the global batch's (a SUM over ranks)."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -105,7 +111,8 @@ class MaskedGRN(nn.Module):
         m = mask.unsqueeze(-1)
         xm = torch.where(m, x, torch.zeros_like(x))
         axes = tuple(range(x.dim() - 1))
-        gx = torch.sqrt(torch.sum(torch.square(xm), dim=axes, keepdim=True))
+        gx = torch.sqrt(all_reduce_sum(
+            torch.sum(torch.square(xm), dim=axes, keepdim=True)))
         nx = gx / (torch.mean(gx, dim=-1, keepdim=True) + 1e-6)
         return torch.where(m, self.gamma * (x * nx) + self.beta + x,
                            torch.zeros_like(x))

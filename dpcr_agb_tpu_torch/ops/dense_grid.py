@@ -107,8 +107,18 @@ def dense_conv(x: torch.Tensor, occ_out: torch.Tensor, weights: torch.Tensor,
         return y
     w5 = conv_weight(weights, compute_dtype)
     b5 = None if bias is None else bias.to(compute_dtype)
-    y = F.conv3d(x.to(compute_dtype).permute(0, 4, 1, 2, 3), w5, b5,
-                 stride=stride, padding=k // 2)
+    xc = x.to(compute_dtype).permute(0, 4, 1, 2, 3)
+    if xc.device.type == "cpu" and compute_dtype != torch.float32:
+        # the CPU's bf16 conv3d gives a weight gradient read from
+        # uninitialized memory at some shapes (a k3 stride-2 conv of a
+        # [2,2,1] volume, batch 4): on the CPU the conv runs in f32 on the
+        # exactly widened operands and rounds its output, as a bf16 conv
+        # accumulating in f32 does
+        y = F.conv3d(xc.float(), w5.float(),
+                     None if b5 is None else b5.float(), stride=stride,
+                     padding=k // 2).to(compute_dtype)
+    else:
+        y = F.conv3d(xc, w5, b5, stride=stride, padding=k // 2)
     y = y.permute(0, 2, 3, 4, 1)
     return y * occ_out.to(y.dtype)
 

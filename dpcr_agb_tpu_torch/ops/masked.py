@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import all_reduce_sum
+
 _NEG_INF = -1e30
 
 
@@ -45,9 +47,17 @@ GLOBAL_POOL = {
 def masked_moments(x: torch.Tensor, mask: torch.Tensor, axes,
                    eps: float = 1e-12):
     """Per-channel (mean [C], var [C], count []) over all valid rows of the
-    given axes; x [..., C], mask broadcastable to x[..., 0]."""
+    given axes; x [..., C], mask broadcastable to x[..., 0]. Under a
+    process group (`parallel`) the rows are the global batch's, as the JAX
+    mesh step computes them over the whole sharded batch: two
+    differentiable SUMs over ranks, of (sum m*x, sum m) for the mean, then
+    of sum m*(x - mean)^2 for the centred variance; the clamp applies to
+    the global count."""
     m = mask.unsqueeze(-1).to(x.dtype)
-    count = torch.clamp(torch.sum(m, dim=axes), min=eps)
-    mean = torch.sum(x * m, dim=axes) / count
-    var = torch.sum(torch.square(x - mean) * m, dim=axes) / count
+    s = all_reduce_sum(torch.cat([torch.sum(x * m, dim=axes),
+                                  torch.sum(m, dim=axes).reshape(1)]))
+    count = torch.clamp(s[-1], min=eps)
+    mean = s[:-1] / count
+    var = all_reduce_sum(torch.sum(torch.square(x - mean) * m,
+                                   dim=axes)) / count
     return mean, var, count

@@ -67,12 +67,13 @@ def downsample(grid: VoxelGrid, feats: Optional[torch.Tensor], stride: int,
                v_out: int, mode: str = "unique"
                ) -> Tuple[VoxelGrid, Optional[torch.Tensor]]:
     """Coarsen to the stride lattice: out coords = unique(floor(in/stride))
-    in key order; mode 'mean' also pools feats [B,V,C] by output voxel. If
-    the unique count exceeds v_out, the largest keys are dropped."""
-    if mode not in ("unique", "mean"):
-        raise NotImplementedError(f"downsample mode {mode!r} is left for a "
-                                  "later slice of the port (ported: unique, "
-                                  "mean)")
+    in key order; modes 'mean', 'sum' and 'max' also pool feats [B,V,C] by
+    output voxel ('max' zeroes the unoccupied outputs). If the unique
+    count exceeds v_out, the largest keys are dropped, and so are their
+    contributions."""
+    if mode not in ("unique", "mean", "sum", "max"):
+        raise ValueError(f"downsample mode {mode!r}: unique, mean, sum or "
+                         "max")
     b = grid.coords.shape[0]
     dev = grid.coords.device
     down = torch.div(grid.coords, stride, rounding_mode="floor")
@@ -95,8 +96,23 @@ def downsample(grid: VoxelGrid, feats: Optional[torch.Tensor], stride: int,
         < torch.clamp(n_unique, max=v_out)[:, None]
 
     out_feats = None
-    if feats is not None and mode == "mean":
-        # Segment means without atomics, so that the same cloud always gives
+    if feats is not None and mode == "max":
+        # the maximum is the same in any order: a scatter-max into a
+        # -inf fill, slot v_out taking the dropped rows
+        c = feats.shape[-1]
+        sfeats = torch.gather(feats, 1, order[..., None].expand(-1, -1, c))
+        contrib = torch.where(valid_sorted & (seg < v_out), seg,
+                              torch.full_like(seg, v_out))
+        vals = torch.where(valid_sorted[..., None], sfeats,
+                           torch.full_like(sfeats, float("-inf")))
+        out = torch.full((b, v_out + 1, c), float("-inf"), dtype=feats.dtype,
+                         device=dev)
+        out.scatter_reduce_(1, contrib[..., None].expand(-1, -1, c), vals,
+                            reduce="amax", include_self=True)
+        out_feats = torch.where(out_mask[..., None], out[:, :v_out],
+                                torch.zeros_like(out[:, :v_out]))
+    elif feats is not None and mode in ("mean", "sum"):
+        # Segment sums without atomics, so that the same cloud always gives
         # the same barycentres (a float scatter_add_ on CUDA adds in a
         # varying order, and a barycentre that moves by one rounding can
         # move a neighbour across a search radius). The members of a voxel
@@ -122,7 +138,8 @@ def downsample(grid: VoxelGrid, feats: Optional[torch.Tensor], stride: int,
         total = torch.gather(prefix, 1, gather_c[:, 1:]) \
             - torch.gather(prefix, 1, gather_c[:, :-1])
         cnt = (start[:, 1:] - start[:, :-1])[..., None]
-        out_feats = (total / torch.clamp(cnt, min=1)).to(feats.dtype)
+        out_feats = (total / torch.clamp(cnt, min=1) if mode == "mean"
+                     else total).to(feats.dtype)
     return build_grid(out_coords, out_mask), out_feats
 
 

@@ -65,6 +65,7 @@ import torch
 from .cli import CONF_DIR, split_device
 from .data.batch import Batch, collate
 from .device import resolve_device
+from .parallel import destroy, maybe_init_distributed
 from .models.base import InstanceSpec
 from .models.factory import (build_model, collate_spec, f32_only,
                               make_post_collate)
@@ -298,12 +299,17 @@ def train_from_config(overrides: List[str]):
     from .config import load_config
     from .training.trainer import Trainer
     device, overrides = split_device(overrides)
-    dev = resolve_device(device)
-    cfg = load_config(CONF_DIR, "config", overrides)
-    if cfg.get("pretty_print"):
-        print(cfg.pretty())
-    trainer = Trainer(cfg, device=dev)
-    trainer.train()
+    started = maybe_init_distributed(device)
+    try:
+        dev = resolve_device(device)
+        cfg = load_config(CONF_DIR, "config", overrides)
+        if cfg.get("pretty_print"):
+            print(cfg.pretty())
+        trainer = Trainer(cfg, device=dev)
+        trainer.train()
+    finally:
+        if started:
+            destroy()
     return trainer
 
 
@@ -316,6 +322,10 @@ def main(overrides=None):
     overrides = list(overrides if overrides is not None else sys.argv[1:])
     if not any(o.startswith("input=") for o in overrides):
         return train_from_config(overrides)
+    if os.environ.get("DPCR_MULTIHOST", "0") == "1":
+        raise ValueError("the input= form trains in one process; several "
+                         "processes take the config form (the root "
+                         "grammar)")
     args = _parse(overrides)
     files = sorted(glob.glob(args["input"]))
     if os.path.isdir(args["input"]):

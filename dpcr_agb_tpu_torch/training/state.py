@@ -240,7 +240,9 @@ class ModelCheckpoint:
     def __init__(self, load_dir: str, check_name: str, selection_stage: str,
                  run_config: Optional[dict] = None,
                  dataset_properties: Optional[dict] = None,
-                 resume: bool = False, save_dir: Optional[str] = None):
+                 resume: bool = False, save_dir: Optional[str] = None,
+                 write: bool = True):
+        # write=False (a rank other than 0): read, never write the file
         self.check_name = check_name
         self.selection_stage = selection_stage
         self.save_dir = Path(save_dir or load_dir or ".")
@@ -248,7 +250,8 @@ class ModelCheckpoint:
         path = Path(load_dir or ".") / f"{check_name}.ckpt"
         if resume and path.exists():
             self.checkpoint = Checkpoint.from_bytes(path.read_bytes())
-            if Path(load_dir).resolve() != self.save_dir.resolve():
+            if write and Path(load_dir).resolve() != \
+                    self.save_dir.resolve():
                 (self.save_dir / f"{check_name}.ckpt").write_bytes(
                     path.read_bytes())
         else:

@@ -15,7 +15,18 @@ model, the optimizer, a `torch.Generator` on the model's device, and the
 step, epoch and sample counts. Every step's outputs carry the batch's
 per-sample metadata (`sample_meta`), as the JAX steps echo it, for the
 trackers and the prediction writers. A batch copied to the card by
-`data.batch.device_put` is waited for (`wait_ready`) before it is read."""
+`data.batch.device_put` is waited for (`wait_ready`) before it is read.
+
+Under a process group (`parallel`) each rank steps on its slice of the
+global batch and the step gives the global batch's numbers, as the JAX
+step over a mesh does: BN takes the global moments and the loss the
+global target count (both through differentiable collectives), the
+gradients are summed over ranks before the clip and the update, the
+reported loss is the ranks' sum and the outputs' rows are gathered from
+every rank. Explicit collectives rather than DistributedDataParallel:
+DDP averages the gradients where the sum is the global loss's gradient,
+broadcasts the buffers at every forward and orders its buckets its own
+way."""
 from __future__ import annotations
 
 import logging
@@ -28,6 +39,8 @@ from ..data.batch import wait_ready
 from ..models.base import (InstanceSpec, compute_reg_loss, convert_outputs,
                            reg_output)
 from ..nn.blocks import Dropout
+from ..parallel import (all_gather_rows, all_reduce_grads, all_reduce_sum,
+                        world_size)
 from ..weights import from_flax, to_flax
 from .optim import Accumulator, jax_state, load_jax_state
 
@@ -72,10 +85,15 @@ class StepRunner:
         return {"loss": loss, "reg_out": reg_out}
 
     def _result(self, out: Dict[str, torch.Tensor], batch) -> dict:
-        loss = out["loss"].detach()
+        """The step's outputs; under a process group the loss is the SUM
+        of the ranks' (the global loss) and the rows are every rank's, in
+        rank order (the global batch's)."""
+        loss = all_reduce_sum(out["loss"].detach())
+        meta = {k: all_gather_rows(v) for k, v in _sample_meta(batch).items()}
         return {"loss": loss, "loss_reg": loss,
-                "reg_out": reg_output(self.spec, out["reg_out"].detach()),
-                "sample_meta": _sample_meta(batch)}
+                "reg_out": all_gather_rows(
+                    reg_output(self.spec, out["reg_out"].detach())),
+                "sample_meta": meta}
 
     def _on_device(self, batch):
         return wait_ready(batch.to(self.device))
@@ -89,22 +107,30 @@ class StepRunner:
         self.optimizer.zero_grad(set_to_none=True)
         out = self._outputs(self.net(batch, generator=self.generator),
                             batch, training=True)
+        # the model's terms (means over the batch's rows, equal row counts
+        # on every rank) and the parameter penalty are global: each rank
+        # adds 1/world of them, so the ranks' losses add up to them and
+        # their gradients' SUM is their gradient
         terms = self.net.internal_losses() \
             if hasattr(self.net, "internal_losses") else {}
         if terms:
-            out["loss"] = out["loss"] + sum(terms[k] for k in sorted(terms))
+            out["loss"] = out["loss"] + sum(
+                terms[k] for k in sorted(terms)) / world_size()
         if self.regularizer is not None:
             out["loss"] = out["loss"] + self.regularizer(
-                dict(self.net.named_parameters()))
+                dict(self.net.named_parameters())) / world_size()
         out["loss"].backward()
         params = [p for g in self.optimizer.param_groups
                   for p in g["params"]]
+        # the global loss's gradient (the SUM of the ranks'), then the clip
+        # and the update, as the JAX step clips the global gradient
+        all_reduce_grads(params)
         if self.accumulator is None or self.accumulator.add(params):
             if self.grad_clip:
                 torch.nn.utils.clip_grad_value_(params, self.grad_clip)
             self.optimizer.step()
         self.step += 1
-        self.num_samples += int(batch.mask.shape[0])
+        self.num_samples += int(batch.mask.shape[0]) * world_size()
         return self._result(out, batch)
 
     @torch.no_grad()

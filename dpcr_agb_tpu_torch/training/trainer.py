@@ -30,10 +30,27 @@ the parameters to the loss (`training/regularizers.py`), and its
 `head_optim_settings` / `backbone_optim_settings` give the parameters
 under `head_namespace` (default `final`) and the rest optimizers of their
 own (`training/optim.MultiTransform`), as the JAX trainer's
-optax.multi_transform does. Not ported: multi-process runs."""
+optax.multi_transform does.
+
+Several processes, one card each (`torchrun` with DPCR_MULTIHOST=1; the
+entry points start the group, `parallel.maybe_init_distributed`): each
+rank loads its contiguous batch_size/world slice of every global batch
+(`Loader(shard=(rank, world))`) and the step runner gives the global
+batch's numbers (`training/step.py`). As the JAX trainer: batch_size must
+divide by the world size; the V bucket is pinned to the ladder's top and
+the z bucket to the full extent (`models/factory.make_post_collate`), so
+every rank takes the same shapes; a dense collate without `num_points`
+and a `pre_batch_collate` hook (ClampBatchSize: a per-shard clamp would
+give another global batch) raise. Rank 0 alone writes the checkpoint,
+metrics.jsonl, the prediction exports, tensorboard and wandb; the other
+ranks track the same gathered rows without writing. The point-cloud
+panels (ply, tensorboard and wandb clouds) are off: the points live in
+the local shard only. Every rank reads the same `.ckpt` on resume, and
+rank 0's weights are broadcast after the restore."""
 from __future__ import annotations
 
 import copy
+import dataclasses
 import logging
 import os
 import time
@@ -50,6 +67,7 @@ from ..models.base import build_instance_spec
 from ..models.factory import (build_model, collate_spec, f32_only,
                               has_bn_schedule, make_post_collate)
 from ..nn.norm import MaskedBatchNorm
+from ..parallel import broadcast_state, is_main, rank, world_size
 from ..utils.neighbor_calibration import run_find_neighbour_dist
 from ..visualization.visualizer import Visualizer
 from .optim import (Accumulator, bn_momentum_fn, make_grouped_optimizer,
@@ -98,6 +116,13 @@ class Trainer:
                                                 False))
         self.num_find_neighbour_samples = int(
             dbg.get("num_find_neighbour_samples", 32))
+        # several processes: rank 0 owns the files
+        self._world = world_size()
+        self._is_main = is_main()
+        if self._world > 1 and self.batch_size % self._world:
+            raise ValueError(
+                f"multi-process run: batch_size {self.batch_size} must "
+                f"divide by the world size {self._world}")
 
         checkpoint_dir = str(get_t("checkpoint_dir", "") or "")
         self.resume = bool(checkpoint_dir)
@@ -110,7 +135,7 @@ class Trainer:
         self.checkpoint = ModelCheckpoint(
             checkpoint_dir or self.run_dir, self.model_name,
             self.selection_stage, run_config=run_config,
-            resume=self.resume, save_dir=self.run_dir)
+            resume=self.resume, save_dir=self.run_dir, write=self._is_main)
         saved_stats = (self.checkpoint.checkpoint.dataset_properties
                        or {}).get("target_stats")
         if self.resume and not self.checkpoint.is_empty():
@@ -204,21 +229,32 @@ class Trainer:
                 "best": None, "bad": 0, "scale": 1.0,
             }
         self._maybe_restore_weights()
+        # every rank starts from rank 0's state
+        broadcast_state(self.net)
 
         wandb_log = bool((self.training_cfg.get("wandb") or {}).get(
-            "log", False))
+            "log", False)) and self._is_main
         if wandb_log:
             wandb_log = _wandb_init(self.training_cfg.get("wandb"),
                                     run_config, self.run_dir)
         tb_log = bool((self.training_cfg.get("tensorboard") or {}).get(
-            "log", False))
-        self.tracker = self.dataset.get_tracker(wandb_log, tb_log,
-                                                log_dir=self.run_dir)
+            "log", False)) and self._is_main
+        # the other ranks compute the same gathered metrics and predictions
+        # and write none of them
+        self.tracker = self.dataset.get_tracker(
+            wandb_log, tb_log,
+            log_dir=self.run_dir if self._is_main else None)
         num_batches = {s: (len(l) if l else 0)
                        for s, l in self.loaders.items()}
-        self.visualizer = Visualizer(cfg.get("visualization", {}) or {},
-                                     num_batches, self.batch_size,
-                                     self.run_dir)
+        self.visualizer = Visualizer(
+            (cfg.get("visualization", {}) or {}) if self._is_main
+            else {"format": []},    # {} would take the csv default
+            num_batches, self.batch_size, self.run_dir)
+        self._wants_pos = self.visualizer.wants_pos
+        if self._world > 1 and self._wants_pos:
+            log.warning("multi-host: ply/3D point-cloud panels are disabled "
+                        "(positions are host-local); csv/gpkg stay global")
+            self._wants_pos = False
 
     def _auto_calibrate_kpconv_limits(self) -> None:
         """KPConv's per-level neighbour caps from 16 training plots (see the
@@ -252,6 +288,27 @@ class Trainer:
         log.info(f"auto-calibrated neighborhood_limits: {limits}")
 
     def _create_loaders(self) -> None:
+        spec, shard = self.collate, None
+        pre_batch = self.dataset.pre_batch_collate_transform
+        if self._world > 1:
+            # every rank must take the same shapes: a bucket chosen from
+            # the local batch could differ between ranks
+            if spec.buckets:
+                spec = dataclasses.replace(spec,
+                                           buckets=(max(spec.buckets),))
+            elif spec.num_points is None:
+                raise ValueError(
+                    "multi-host run with a dense collate needs a "
+                    "deterministic global shape: set the preset's "
+                    "num_points (e.g. transform_type=fixed_xy) or a "
+                    "bucket ladder")
+            if pre_batch is not None:
+                raise ValueError(
+                    "multi-host run is incompatible with "
+                    "pre_batch_collate_transform (per-shard clamping would "
+                    "diverge from the single-process batch); drop the hook "
+                    "or run single-host")
+            shard = (rank(), self._world)
         self.loaders: Dict[str, Optional[Loader]] = {}
         streams = {}
         for split in ("train", "val", "test"):
@@ -268,14 +325,13 @@ class Trainer:
             is_train = split == "train" and not self._eval_mode
             self.loaders[split] = Loader(
                 ds, self.dataset.transform_for(split),
-                batch_size=self.batch_size, spec=self.collate,
+                batch_size=self.batch_size, spec=spec,
                 shuffle=is_train and self.shuffle,
                 double_batch=self.spec.double_batch and is_train,
                 drop_last=is_train, seed=self.seed,
                 num_workers=self.num_workers,
                 post_collate=self.post_collate,
-                pre_batch_collate=self.dataset.pre_batch_collate_transform,
-                put_fn=put_fn)
+                pre_batch_collate=pre_batch, shard=shard, put_fn=put_fn)
         if not any(self.loaders.values()):
             raise RuntimeError("No data available in any split")
         for split, loader in self.loaders.items():
@@ -385,7 +441,8 @@ class Trainer:
             metrics = self.tracker.get_metrics()
             self.checkpoint.save_best_models_under_current_metrics(
                 self.runner, "train", self.start_epoch - 1, metrics,
-                self.tracker.metric_func, self.optimizer_name)
+                self.tracker.metric_func, self.optimizer_name,
+                persist=self._is_main)
 
     def _apply_bn_schedule(self, epoch: int) -> None:
         """The BN-momentum schedule: every masked BN of the model takes the
@@ -480,7 +537,7 @@ class Trainer:
                 out = self.runner.evaluate(
                     batch, enable_dropout=enable_dropout,
                     rng_salt=run * 100003 + bi, enable_bn=enable_bn)
-                if self.visualizer.wants_pos:
+                if self._wants_pos:
                     self._visualize(host(out), batch)
                 pending.append(out)
                 n_batches += 1
@@ -488,7 +545,7 @@ class Trainer:
                     break
         for out in host(pending):
             self._track(out)
-            if not self.visualizer.wants_pos:
+            if not self._wants_pos:
                 self._visualize(out, None)
         self.history.append({"epoch": epoch, "stage": stage,
                              "batches": n_batches,
@@ -519,7 +576,7 @@ class Trainer:
         sample_mask = ~np.asarray(meta["is_double"])
         if meta["valid"] is not None:
             sample_mask &= np.asarray(meta["valid"])
-        wants_pos = self.visualizer.wants_pos and batch is not None
+        wants_pos = self._wants_pos and batch is not None
         self.visualizer.save_visuals(
             out["reg_out"], meta["y_reg"], meta["area_idx"],
             meta["label_idx"], self.dataset.area_names,
@@ -533,7 +590,7 @@ class Trainer:
         improved = self.checkpoint.save_best_models_under_current_metrics(
             self.runner, stage, epoch, metrics, self.tracker.metric_func,
             self.optimizer_name,
-            persist=getattr(self, "_persist_next", True))
+            persist=getattr(self, "_persist_next", True) and self._is_main)
         if improved:
             log.info(f"improved: {', '.join(improved)}")
             self.tracker.publish_best_tables(improved, metrics, epoch)

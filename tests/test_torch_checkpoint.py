@@ -47,6 +47,7 @@ import pytest
 import torch
 
 import predict as jax_predict
+from dpcr_agb_tpu.ops import layout as jlayout
 from dpcr_agb_tpu.config import load_config
 from dpcr_agb_tpu.data.batch import collate as jcollate
 from dpcr_agb_tpu.data.las_io import write_laz14 as jwrite_laz14
@@ -62,6 +63,20 @@ from dpcr_agb_tpu_torch.training import state as pstate
 from dpcr_agb_tpu_torch.training.state import Checkpoint
 from dpcr_agb_tpu_torch.transforms import ModelInference, PointNetForward
 from dpcr_agb_tpu_torch.weights import to_flax
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_layout_restored():
+    """The JAX trainer behind the root CLIs (eval.py, predict.py) sets the
+    JAX package's batch layout (`dpcr_agb_tpu.ops.layout`) for its
+    8-device mesh and keeps it: the files after this one in the same test
+    worker get it back as it was, as tests/test_torch_trainer.py does (a
+    leaked per-sample layout fails tests/test_sparse_stem.py's chunked
+    pool backward)."""
+    saved = (jlayout.BATCH_LOCAL, jlayout.DATA_PARALLEL_DEGREE)
+    yield
+    jlayout.set_batch_local(*saved)
+
 
 CONF = os.path.join(os.path.dirname(__file__), "..", "conf")
 PROPS = {"target_stats": {"scale": [4.0, 8.0], "center": [100.0, 200.0],

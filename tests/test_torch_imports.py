@@ -57,6 +57,21 @@ def test_the_data_and_trainer_layers_are_scanned():
                             ).read_text()
 
 
+def test_the_parallel_and_query_modules_are_scanned():
+    """The data-parallel package and the label-query evaluator are among
+    the sources the import rules read, and neither imports JAX or the
+    JAX package (they import torch, numpy and the standard library)."""
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    for rel in ("parallel/__init__.py", "parallel/mesh.py", "data/query.py",
+                "data/loader.py", "device.py"):
+        assert f"dpcr_agb_tpu_torch/{rel}" in scanned, rel
+        roots = set(_imported_roots(ROOT / "dpcr_agb_tpu_torch" / rel))
+        assert roots <= {"__future__", "ast", "io", "re", "tokenize", "os",
+                         "typing", "numpy", "torch", "dataclasses",
+                         "queue", "threading", "collections",
+                         "concurrent"}, (rel, roots)
+
+
 def test_the_host_pyramid_layers_are_scanned():
     """KPConv's host pyramid, the neighbour-limit calibration and the
     loader of the point-ops library are among the sources the import rules

@@ -312,8 +312,10 @@ def test_downsample_unique_matches_jax_and_other_modes_wait():
     np.testing.assert_array_equal(out.coords.numpy()[out.mask.numpy()],
                                   np.asarray(jout.coords)[np.asarray(
                                       jout.mask)])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        voxel.downsample(grid, None, 2, 48, mode="max")
+    # max and sum are ported (tests/test_torch_map_mode.py); a mode that
+    # neither package has raises
+    with pytest.raises(ValueError, match="unique, mean, sum or max"):
+        voxel.downsample(grid, None, 2, 48, mode="min")
 
 
 @pytest.mark.parametrize("k,tile", [(7, 1024), (7, 32), (120, 1024)],

@@ -149,13 +149,23 @@ def test_process_and_split_equal_jax(tmp_path, fmt, case):
 
 
 def test_label_query_raises_naming_the_roadmap(tmp_path):
+    """label_query filters the labels (more queries in
+    tests/test_torch_label_query.py): the rows the JAX package's pandas
+    query keeps, renumbered, and one that names a missing column raises."""
     (tmp_path / "raw").mkdir()
     _frame(np.random.default_rng(1)).to_csv(tmp_path / "raw" / "l.csv",
                                             index=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    area = {"label_files": "l.csv", "label_query": "BMag_ha > 150",
+            "alias_targets": ["biomass", "vol_dm3"]}
+    want = jlabels.process_label_files(dict(area), "A", TARGETS,
+                                       str(tmp_path))
+    got = tlabels.process_label_files(dict(area), "A", TARGETS,
+                                      str(tmp_path))
+    assert 0 < len(got) < 14
+    assert_same_table(got, want)
+    with pytest.raises(ValueError, match="not a column"):
         tlabels.process_label_files(
-            {"label_files": "l.csv", "label_query": "biomass > 5",
-             "alias_targets": ["biomass", "vol_dm3"]}, "A", TARGETS,
+            {**area, "label_query": "nope > 5"}, "A", TARGETS,
             str(tmp_path))
 
 

@@ -3,7 +3,9 @@ dataset with the same transform chain and seed give the same index streams
 and the same collated batches (every array bit-equal), with 1 and 3 worker
 threads, shuffled with drop_last (train) and in order with a padded last
 batch (eval). A batch copied by `device_put` on the CPU is the same batch
-as tensors; a shard other than (0, 1) raises, naming ROADMAP.md."""
+as tensors; a shard (1, 2) gives the second half of each batch, and a
+batch size or double batch that a shard cannot split raises as the JAX
+loader does."""
 import dataclasses
 import os
 
@@ -99,6 +101,16 @@ def test_device_put_on_the_cpu_and_shards(datasets):
         assert moved.ready is None and isinstance(moved.pos, torch.Tensor)
         assert wait_ready(moved) is moved
         assert_same_batch(host, moved)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLoader(td.datasets["val"], td.transform_for("val"), batch_size=2,
+    # a shard is the process's half of each batch (its reassembly is
+    # held in tests/test_torch_parallel.py); the JAX loader's refusals
+    half = TLoader(td.datasets["val"], td.transform_for("val"), batch_size=2,
+                   spec=_spec(TSpec), shard=(1, 2))
+    assert half.local_batch_size == 1
+    for got, host in zip(half.epoch(0), plain.epoch(0)):
+        np.testing.assert_array_equal(got.label_idx, host.label_idx[1:])
+    with pytest.raises(ValueError, match="divide"):
+        TLoader(td.datasets["val"], td.transform_for("val"), batch_size=3,
                 spec=_spec(TSpec), shard=(1, 2))
+    with pytest.raises(ValueError, match="double_batch"):
+        TLoader(td.datasets["val"], td.transform_for("val"), batch_size=2,
+                spec=_spec(TSpec), double_batch=True, shard=(1, 2))

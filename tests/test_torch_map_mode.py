@@ -35,6 +35,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import predict as jpredict  # noqa: E402
+from dpcr_agb_tpu.ops import layout as jlayout  # noqa: E402
 from dpcr_agb_tpu.data.batch import Batch as JBatch  # noqa: E402
 from dpcr_agb_tpu.models import minkowski as jmink  # noqa: E402
 from dpcr_agb_tpu.models.base import InstanceSpec as JSpec  # noqa: E402
@@ -53,6 +54,20 @@ from dpcr_agb_tpu_torch.nn.norm import MaskedBatchNorm  # noqa: E402
 from dpcr_agb_tpu_torch.ops import host_pyramid as thp  # noqa: E402
 from dpcr_agb_tpu_torch.ops import voxel as tvox  # noqa: E402
 from dpcr_agb_tpu_torch.weights import from_flax  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_layout_restored():
+    """The JAX trainer behind the root CLIs (eval.py, predict.py) sets the
+    JAX package's batch layout (`dpcr_agb_tpu.ops.layout`) for its
+    8-device mesh and keeps it: the files after this one in the same test
+    worker get it back as it was, as tests/test_torch_trainer.py does (a
+    leaked per-sample layout fails tests/test_sparse_stem.py's chunked
+    pool backward)."""
+    saved = (jlayout.BATCH_LOCAL, jlayout.DATA_PARALLEL_DEGREE)
+    yield
+    jlayout.set_batch_local(*saved)
+
 
 PAD = -(2 ** 20)
 STATS = {"scale": [40.0, 80.0], "center": [100.0, 200.0],
@@ -216,6 +231,32 @@ def test_max_pool_apply_and_vjp_equal_jax(ties):
     np.testing.assert_allclose(tf.grad.numpy(), np.asarray(dfw), rtol=1e-6,
                                atol=1e-6)
 
+
+
+@pytest.mark.parametrize("mode", ["max", "sum", "mean"])
+@pytest.mark.parametrize("cap", [128, 24])
+def test_downsample_pooling_equals_jax(mode, cap):
+    """downsample's pooled features against the JAX package's, with an
+    empty sample, masked rows holding values and (cap 24) voxels dropped
+    past v_out with their contributions; max zeroes the unoccupied
+    outputs. max exact; sum and mean within f32 rounding (the port sums
+    each voxel as a difference of f64 prefix sums)."""
+    rng = np.random.default_rng({"max": 1, "sum": 2, "mean": 3}[mode] + cap)
+    coords, mask, jg, tg = _grids(rng)
+    feats = rng.normal(size=mask.shape + (5,)).astype(np.float32)
+    jd, jf = jax.vmap(lambda g, f: jvox.downsample(g, f, 2, cap, mode))(
+        jg, jnp.asarray(feats))
+    td, tf = tvox.downsample(tg, torch.from_numpy(feats), 2, cap, mode)
+    np.testing.assert_array_equal(td.mask.numpy(), np.asarray(jd.mask))
+    assert tf.dtype == torch.float32 and tf.shape == jf.shape
+    if mode == "max":
+        np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+        assert (tf.numpy()[~td.mask.numpy()] == 0).all()
+    else:
+        np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-6,
+                                   atol=1e-6)
+    # cap 24: the first sample's voxels fill every slot and some drop
+    assert cap == 128 or td.mask.numpy()[0].all()
 
 # ---- host pyramid ---------------------------------------------------------
 

@@ -22,6 +22,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import eval as jeval  # noqa: E402
+from dpcr_agb_tpu.ops import layout as jlayout  # noqa: E402
 from dpcr_agb_tpu.config import load_config as jload  # noqa: E402
 from dpcr_agb_tpu.data import dataset as jds  # noqa: E402
 from dpcr_agb_tpu.data import synthetic as jsyn  # noqa: E402
@@ -35,6 +36,20 @@ from dpcr_agb_tpu_torch.data import synthetic as tsyn  # noqa: E402
 from dpcr_agb_tpu_torch.data.las_io import read_las, write_laz  # noqa: E402
 from dpcr_agb_tpu_torch.transforms import TRANSFORM_REGISTRY  # noqa: E402
 from dpcr_agb_tpu_torch.transforms import objects as tobj  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_layout_restored():
+    """The JAX trainer behind the root CLIs (eval.py, predict.py) sets the
+    JAX package's batch layout (`dpcr_agb_tpu.ops.layout`) for its
+    8-device mesh and keeps it: the files after this one in the same test
+    worker get it back as it was, as tests/test_torch_trainer.py does (a
+    leaked per-sample layout fails tests/test_sparse_stem.py's chunked
+    pool backward)."""
+    saved = (jlayout.BATCH_LOCAL, jlayout.DATA_PARALLEL_DEGREE)
+    yield
+    jlayout.set_batch_local(*saved)
+
 
 CONF = os.path.join(ROOT, "conf")
 AREA = "treeDB"

@@ -230,6 +230,34 @@ def test_dense_conv_matches_jax(k, stride):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
+def test_dense_conv_bf16_weight_gradient_matches_jax_and_repeats():
+    """A k3 stride-2 conv of a [2,2,1] volume at batch 4 in bf16 (SENet14's
+    last stage at the narrow test widths), where the CPU's own bf16 conv3d
+    gives a weight gradient read from uninitialized memory: the port's is
+    the same on every call and within 2 bf16 ulps (2^-7) of the largest
+    value of the JAX function's."""
+    import jax
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(4, 2, 2, 1, 32)).astype(np.float32)
+    occ_out = np.ones((4, 1, 1, 1, 1), np.float32)
+    wts = (rng.normal(size=(27, 32, 32)) * 0.2).astype(np.float32)
+    ct = rng.normal(size=(4, 1, 1, 1, 32)).astype(np.float32)
+    gw_want = np.asarray(jax.grad(lambda w: jnp.sum(jdg.dense_conv(
+        jnp.asarray(x), jnp.asarray(occ_out), w, 3, 2,
+        jnp.bfloat16).astype(jnp.float32) * ct))(jnp.asarray(wts)))
+    grads = []
+    for _ in range(3):
+        # fill freed memory with NaN: a read of it shows in the gradient
+        torch.full((1 << 22,), float("nan"))
+        w = T(wts).requires_grad_(True)
+        y = tdg.dense_conv(T(x), T(occ_out), w, 3, 2, torch.bfloat16)
+        assert y.dtype == torch.bfloat16
+        (y.float() * T(ct)).sum().backward()
+        grads.append(w.grad)
+    assert all(torch.equal(g, grads[0]) for g in grads[1:])
+    np.testing.assert_allclose(grads[0].numpy(), gw_want, rtol=0,
+                               atol=2 ** -7 * np.abs(gw_want).max())
+
 @pytest.mark.parametrize("name", ["sum", "mean", "max"])
 def test_masked_pools_match_jax(name):
     rng = np.random.default_rng(7)

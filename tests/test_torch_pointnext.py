@@ -53,6 +53,7 @@ sys.path.insert(0, ROOT)
 
 import eval as jeval  # noqa: E402
 import predict as jax_predict  # noqa: E402
+from dpcr_agb_tpu.ops import layout as jlayout
 from dpcr_agb_tpu.config import load_config as jload
 from dpcr_agb_tpu.data.batch import Batch as JBatch
 from dpcr_agb_tpu.models import pointnext as jpn
@@ -71,6 +72,20 @@ from dpcr_agb_tpu_torch.models.factory import build_model, f32_only
 from dpcr_agb_tpu_torch.ops import neighbors
 from dpcr_agb_tpu_torch.weights import from_flax, in_channels_of, to_flax
 from tests import test_torch_checkpoint as tck
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_layout_restored():
+    """The JAX trainer behind the root CLIs (eval.py, predict.py) sets the
+    JAX package's batch layout (`dpcr_agb_tpu.ops.layout`) for its
+    8-device mesh and keeps it: the files after this one in the same test
+    worker get it back as it was, as tests/test_torch_trainer.py does (a
+    leaked per-sample layout fails tests/test_sparse_stem.py's chunked
+    pool backward)."""
+    saved = (jlayout.BATCH_LOCAL, jlayout.DATA_PARALLEL_DEGREE)
+    yield
+    jlayout.set_batch_local(*saved)
+
 
 CONF = os.path.join(ROOT, "conf")
 STATS = {"scale": [40.0, 80.0], "center": [100.0, 200.0],

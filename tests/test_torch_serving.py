@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import predict as jax_predict
+from dpcr_agb_tpu.ops import layout as jlayout
 from dpcr_agb_tpu.config import load_config
 from dpcr_agb_tpu.data.batch import CollateSpec as JSpec
 from dpcr_agb_tpu.data.batch import collate as jcollate
@@ -28,6 +29,20 @@ from dpcr_agb_tpu_torch.models.factory import collate_spec, make_post_collate
 from dpcr_agb_tpu_torch.models.minkowski import SparseResNet, build_resnet
 from dpcr_agb_tpu_torch.serving import nfi_sparse_xy_data_cfg, save_checkpoint
 from dpcr_agb_tpu_torch.transforms import instantiate_transforms
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_layout_restored():
+    """The JAX trainer behind the root CLIs (eval.py, predict.py) sets the
+    JAX package's batch layout (`dpcr_agb_tpu.ops.layout`) for its
+    8-device mesh and keeps it: the files after this one in the same test
+    worker get it back as it was, as tests/test_torch_trainer.py does (a
+    leaked per-sample layout fails tests/test_sparse_stem.py's chunked
+    pool backward)."""
+    saved = (jlayout.BATCH_LOCAL, jlayout.DATA_PARALLEL_DEGREE)
+    yield
+    jlayout.set_batch_local(*saved)
+
 
 CONF = os.path.join(os.path.dirname(__file__), "..", "conf")
 
