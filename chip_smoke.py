@@ -9,7 +9,8 @@
                                   trainer|trainer-kpconv|trainer-pointnext|
                                   trainer-pointnet|trainer-map|
                                   trainer-kpconv-deform|treeadd|
-                                  transforms|norms|export|multigpu]
+                                  transforms|norms|export|multigpu|
+                                  paper-recipe]
 
 Phases, each printing one JSON line; any failure exits non-zero:
   device   the card's name and power limit, the float32 settings pinned by
@@ -113,18 +114,22 @@ kernel is `fps`):
            routes' raw outputs (printed, not checked)
   train    the full-width model (f32, then bf16) trained by
            `dpcr_agb_tpu_torch.train.main` (it must pin TF32 off and
-           record that in its checkpoint) for 6 steps at bs16 on the same
-           plots and their targets: 6 finite losses, the launches of every
+           record that in its checkpoint) for 2 steps (TRAIN_STEPS) at
+           bs16 on the same plots and their targets: 2 finite losses, the
+           launches of every
            step (KPConv: 14 kpconv_fused, 14 kpconv_fused_bwd and 4
-           gather_rows_bwd; dense level 0: firewall_copy 3, max_pool_k3s2
-           and max_pool_k3s2_bwd_vol 1, the row kernels 0); one step from
+           gather_rows_bwd; dense level 0: firewall_copy 5 (2 in the
+           forward, 2 more as the rematerialized stem conv runs again in
+           the backward, 1 on the cotangent), max_pool_k3s2 and
+           max_pool_k3s2_bwd_vol 1, the row kernels 0); one step from
            one state through the kernels and through the plain versions
            (loss, every gradient, the updated parameters and BN running
            stats within stated tolerances; SENet14 f32: and how far a
            correct reordering of the stem's f32 sum moves that step, a
            reading, not a check: stem_order_witness); train_step_ms
-           (median of 5 steps on a device-resident batch), and again with
-           cudnn.deterministic, plots/s and peak memory (KPConv: on the
+           (median of 3 steps on a device-resident batch), and again with
+           cudnn.deterministic (one step), plots/s and peak memory (KPConv:
+           on the
            host pyramid's batch, with the batch's host_pyramid_ms and the
            device route's device_route_train_step_ms beside it); then
            `predict.main` serves the trained checkpoint (16 finite rows);
@@ -187,7 +192,7 @@ builds (`ops/host_pyramid.py`, native route) and multiply them on the card:
            batch (so the outputs are O(1)), on this batch, which fits the
            volume and the caps: rtol 2e-3, atol 2e-3 * max|dense| (and
            max|out| at the unit variances, the check before slice 16)
-  map_train  `train.main`'s input= form with dense_dims=null for 2 steps
+  map_train  `train.main`'s input= form with dense_dims=null for 1 step
            (finite losses, no launch in any step, the native route for
            every sample); on its first batch: host_map_ms, h2d_ms, the
            step of a fresh model on the device-resident batch, peak memory
@@ -236,8 +241,9 @@ Then (`--only trainer` runs it alone):
            1) a forward and no other kernel, eval.main bit-equal
   trainer_map (`--only trainer-map`) the same for SENet14's command with
            `models.SENet14.extra_options.dense_dims=null`, on 24 plots for one
-           epoch: no kernel launch anywhere; host_pyramid_ms of each batch,
-           its maps built in the loader's threads
+           epoch and one eval.main: no kernel launch anywhere;
+           host_pyramid_ms of each batch, its maps built in the loader's
+           threads
   trainer_kpconv_deform (`--only trainer-kpconv-deform`) the same for
            KPConv's command with the deformable architecture,
            `modulated=True`, an elastic regularizer (lambda 1e-4) and
@@ -320,28 +326,65 @@ Then (`--only trainer` runs it alone):
            plain step of its split at STEP_TOL; (b) the 2 ranks' step
            against the one-process step on all 16 samples: the loss, the
            parameters after the step and the BN running stats at STEP_TOL
-           (bf16: and all gradients as one vector), each gradient's error
-           and the level-0 pool routes that flip reported; (c) both ranks'
-           parameters bit-equal; each rank's launches exactly stem_sites,
-           max_pool_k3s2_rows, stem_sites_dw and max_pool_k3s2_bwd once
-           and every other kernel 0
-    multigpu_nccl1  the f32 step on the whole batch with world size 1
-           over NCCL, every collective running, against the step with no
-           process group (STEP_TOL; bit_equal reported)
-    trainer_multigpu  the trainer phase's SENet14 command, 2 epochs, 48
+           (bf16: and all gradients as one vector; every sum over the
+           global batch is rounded to bf16 once, after the SUM,
+           `parallel/rounding.py`), each gradient's error and the level-0
+           pool routes that flip reported; bf16: how many gradient
+           elements differ from the one-process step and by how many bf16
+           ulps, beside the route before (each rank rounding its partials
+           before the SUM) from the same state, which rounding once must
+           beat: no farther in rel-L2 and at most half its elements off
+           (MULTIGPU_ONCE_SHARE); (c) both ranks' parameters bit-equal;
+           each rank's
+           launches exactly stem_sites, max_pool_k3s2_rows, stem_sites_dw
+           and max_pool_k3s2_bwd once and every other kernel 0; bf16: the
+           2-rank step's ms (host clock, median of 3) with the rounding
+           once (cuDNN's wgrad in f32 on the widened operands) beside the
+           same step rounding each rank's partial (cuDNN's bf16 wgrad, the
+           route before), a reading
+    multigpu_nccl1  the f32 and bf16 steps on the whole batch with world
+           size 1 over NCCL, every collective running, against the steps
+           with no process group: f32 at STEP_TOL (bit_equal reported);
+           bf16, where world size 1 takes the rounding-once route (cuDNN's
+           weight gradient in f32 on the widened operands),
+           all gradients within 5e-4 (MULTIGPU_BF16_GRADS_TOL) and their
+           bf16 ulps; and the 2 ranks' bf16 step against it
+    trainer_multigpu  the trainer phase's SENet14 command, 1 epoch, 48
            plots, global bs16, in f32 (training.enable_mixed=False), then
            in bf16 (MULTIGPU_TRAINER_RUNS; each rank runs both, a process
            group each), on two gloo ranks on the card (each its own data
            root) against one process with the same pinned shapes: f32,
            every numeric metric within rtol 1e-3; bf16, the metrics'
-           relative differences reported (the ranks round their weight
-           gradients to bf16 before the SUM); both dtypes, rank 0 writes
+           relative differences reported beside the route before's
+           (each rank rounded its partials before the SUM: worst 0.468,
+           median 1.04e-3) and gated at rtol 1e-3 where
+           MULTIGPU_TRAINER_GATED says; both dtypes, rank 0 writes
            the .ckpt, metrics.jsonl and the prediction files, rank 1
            nothing, and each rank's launches equal its forwards and steps
            as the trainer phase counts them; readings: each rank's
            step_seconds and plots/s beside the one-process run's, the
            gradient all-reduce's ms a step (CUDA events; gloo through the
            host: no NCCL link is measured)
+  paper_recipe (`--only paper-recipe`) the paper's training recipe on
+           one card: the sparse-voxel nets rematerialize their blocks (and
+           the dense level 0 its stem conv) as the JAX package does, so
+           bs32 fits. SENet14 and SENet50 on the sparse level 0 and SENet14
+           on the dense level 0, full width, at bs32 on 32 plots with the
+           trainer's pinned shapes (V bucket 16384, z 104), f32 and bf16:
+           one step through the kernels against the plain versions
+           (STEP_TOL), the launches of one step exactly (sparse level 0:
+           the four row kernels once; dense level 0: firewall_copy 5,
+           max_pool_k3s2 and max_pool_k3s2_bwd_vol 1), train_step_ms and
+           peak_mem_gb (max_memory_allocated, under the card's memory);
+           SENet50 at bs16 (f32) on the train phase's batch with and
+           without the blocks rematerialized (step ms, peak memory, the
+           cost) beside
+           PERF.md's 75.35 GB / 910.81 ms before; then `train.main` on the
+           root grammar (models=instance/minkowski_baseline
+           model_name=SENet50 training=nfi/minkowski: bs32 and bf16 from
+           the conf) on 48 synthetic plots for 2 epochs: every step at
+           bs32 with a finite loss, launches as the trainer phase counts
+           them
 Then a total line with the script's seconds, the kernels summary line, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`. Without CUDA (or without the rest of
 the repository) it exits non-zero before printing any result."""
@@ -350,6 +393,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import csv
+import dataclasses
 import glob
 import json
 import os
@@ -398,7 +442,7 @@ ALL_KERNELS = ("stem_sites", "max_pool_k3s2", "stem_sites_dw",
                "max_pool_k3s2_rows", "fps")
 N_PLOTS = 16     # one serving batch of bench.py's size, the train batch
 DENSITY = 60.0   # points per m^2: MaxPoints binds (16000 and 6144)
-TRAIN_STEPS = 6
+TRAIN_STEPS = 2   # train.main's steps a run (cut from 6 for the script's time)
 # The execution modes of the sparse-voxel nets' level 0 (the JAX package's
 # variables; the port reads them when a model is built). Every path runs
 # with all five set or cleared, whatever the caller's environment holds.
@@ -437,8 +481,9 @@ KP_CASES_DEFORM = ((0, "deform: level 0, first layer"),
 # rows without the volume form), and where the count is fixed, the
 # launches of each kernel in one forward and in one train step (KPCNN's 14
 # blocks hold one KPConv each and 4 strided shortcuts; the dense level 0
-# copies the stem's input, its output and the output's cotangent, and
-# pools once each way); and whether
+# copies the stem's input and its output, both again when the backward
+# runs the rematerialized stem conv again, and the output's cotangent,
+# and pools once each way); and whether
 # two same-seed runs of train.main must agree bit for bit (every sum of
 # the KPConv step runs in a fixed order; the sparse-voxel nets' f32 steps
 # go through cuDNN's own choice of algorithms)
@@ -462,7 +507,7 @@ MODELS = {
         "backward": ("max_pool_k3s2_bwd_vol",),
         "exact": {"forward": {"firewall_copy": 2, "max_pool_k3s2": 1,
                               "max_pool_k3s2_bwd_vol": 0, **_ROW_KERNELS},
-                  "step": {"firewall_copy": 3, "max_pool_k3s2": 1,
+                  "step": {"firewall_copy": 5, "max_pool_k3s2": 1,
                            "max_pool_k3s2_bwd_vol": 1, **_ROW_KERNELS}}},
     "SENet50": {"model_name": "SENet50", **_SPARSE_L0},
     "MPointNet": {"model_name": "MPointNet", **_NO_KERNELS},
@@ -597,10 +642,17 @@ def nvidia_smi_line() -> str:
 
 
 def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
-    """Median of n CUDA-event timings of fn() after warm-up."""
+    """Median of n CUDA-event timings of fn() after warm-up; a call that
+    takes over SLOW_MS (a plain version or a yardstick, timed beside a
+    kernel) is timed 5 times after one warm-up."""
     import torch
-    for _ in range(warmup):
+    for i in range(warmup):
+        t = time.perf_counter()
         fn()
+        torch.cuda.synchronize()
+        if (time.perf_counter() - t) * 1e3 > SLOW_MS:
+            n, warmup = min(n, 5), 1
+            break
     torch.cuda.synchronize()
     times = []
     for _ in range(n):
@@ -612,6 +664,10 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# a timed call longer than this takes 5 timings, not 20 (time_ms)
+SLOW_MS = 50.0
 
 
 def wall_ms(fn, reps: int = 5, skip: int = 0) -> float:
@@ -2825,13 +2881,13 @@ def phase_train(key: str, dtname: str, plot_dir: str, out_dir: str,
 
     # step time on the device-resident batch
     runner = run.runner
-    step_s = wall_ms(lambda: runner.train(batch), 5, 2) / 1e3
+    step_s = wall_ms(lambda: runner.train(batch), 3, 1) / 1e3
     # the same steps with cuDNN held to its deterministic algorithms (the
-    # entry points leave that choice to cuDNN): a reading, median of 3
-    # after one warm-up (since the export phase, to keep the script's time)
+    # entry points leave that choice to cuDNN): a reading, one step after
+    # one warm-up (cut from a median of 3 for the script's time)
     torch.backends.cudnn.deterministic = True
     try:
-        det_step_s = wall_ms(lambda: runner.train(batch), 3, 1) / 1e3
+        det_step_s = wall_ms(lambda: runner.train(batch), 1, 1) / 1e3
     finally:
         torch.backends.cudnn.deterministic = pinned["cudnn_deterministic"]
     deform = deform_facts(runner.net, batch, lambda: runner.train(batch),
@@ -2928,7 +2984,7 @@ def deform_facts(net, batch, fn, train: bool = False) -> dict:
                    "deformable": sum(m.deformable for _, m in ops)},
            "forward_op_device_ms": {k: statistics.median(v[1:])
                                     for k, v in per.items()},
-           "profile": device_profile(fn, kinds=DEFORM_KINDS)}
+           "profile": device_profile(fn, reps=1, kinds=DEFORM_KINDS)}
     if train:
         net.train()
         with torch.no_grad():
@@ -2946,12 +3002,12 @@ def deform_facts(net, batch, fn, train: bool = False) -> dict:
 
 def kpconv_train_routes(runner, host_batch, batch, what: str) -> dict:
     """KPConv's train batch: its host pyramid (`host_pyramid_facts`), and
-    the device route's step (the batch without aux, median of 5 steps
-    after 2, as train_step_ms), PRs 3-11's route."""
+    the device route's step (the batch without aux, median of 3 steps
+    after 1, as train_step_ms), PRs 3-11's route."""
     import dataclasses
     out = host_pyramid_facts(runner.net, host_batch, what)
     bare = dataclasses.replace(batch, aux=None)
-    step_ms = wall_ms(lambda: runner.train(bare), 5, 2)
+    step_ms = wall_ms(lambda: runner.train(bare), 3, 1)
     return {**out, "device_route_train_step_ms": step_ms,
             "device_route_plots_per_s": N_PLOTS / step_ms * 1e3}
 
@@ -2959,16 +3015,14 @@ def kpconv_train_routes(runner, host_batch, batch, what: str) -> dict:
 def train_reproducible(key: str, dtname: str, args: list, first: dict,
                        files: list, seed: int) -> dict:
     """train.main a second time with the first run's arguments (the same
-    seed and plots) into another checkpoint; its six losses and its final
+    seed and plots) into another checkpoint; its losses and its final
     parameters and BN stats against the first run's, bit for bit. Where
     they differ, one step from the initial state on the first batch, taken
     twice, names the parameters whose gradients differ (the one nearest the
-    loss first: where the difference starts) and the largest difference;
-    then the same two steps under torch.use_deterministic_algorithms(True,
-    warn_only=True), with the ops it warns about, and under
-    cudnn.deterministic alone."""
+    loss first: where the difference starts) and the largest difference
+    (the same two steps under torch.use_deterministic_algorithms and
+    under cudnn.deterministic were dropped for the script's time)."""
     import copy
-    import warnings
     import torch
     from dpcr_agb_tpu_torch import train
     what = f"train {key} {dtname}"
@@ -3017,23 +3071,6 @@ def train_reproducible(key: str, dtname: str, args: list, first: dict,
                 "at": max(diff, key=diff.get)}
 
     out["one_step_twice"] = compare(grads(), grads())
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            det = compare(grads(), grads())
-        finally:
-            torch.use_deterministic_algorithms(False)
-    det["ops_without_a_deterministic_implementation"] = sorted({
-        str(w.message).split(" does not have")[0] for w in caught
-        if "deterministic" in str(w.message)})
-    out["in_deterministic_mode"] = det
-    pinned = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        out["with_cudnn_deterministic"] = compare(grads(), grads())
-    finally:
-        torch.backends.cudnn.deterministic = pinned
     print(f"{what}: two same-seed runs differ: {out}", file=sys.stderr)
     return out
 
@@ -3195,7 +3232,10 @@ TRAINER_SERVE_TOL = 5e-2
 # 0), the kernels phase whose bf16 rows get the launches (of those, the
 # ones `rows` picks), whether eval.main must repeat the train run's test
 # predictions bit for bit, the compute dtype enable_mixed gives (the
-# PointNeXt models have no bf16 form) and the plots generated
+# PointNeXt models have no bf16 form), the plots generated, the epochs
+# (TRAINER_EPOCHS unless named) and the eval.main calls (2 unless named):
+# trainer-map's host maps take one epoch and one eval.main, to keep the
+# script's time
 TRAINERS = {
     "trainer": {
         "phase": "trainer", "model_name": "SENet14",
@@ -3249,7 +3289,7 @@ TRAINERS = {
                    "data.transform_type=sparse_xy", "training=nfi/minkowski",
                    "models.SENet14.extra_options.dense_dims=null"],
         "forward": {}, "step": {}, "kernels_phase": None,
-        "eval_bit_equal": False, "plots": 24},
+        "eval_bit_equal": False, "plots": 24, "epochs": 1, "evals": 1},
 }
 
 
@@ -3260,7 +3300,7 @@ def trainer_overrides(root: str, key: str = "trainer") -> list:
             "lr_scheduler=cosineawr", "update_lr_scheduler_on=on_num_batch",
             f"data.dataroot={root}/data",
             f"data.synthetic_plots={spec.get('plots', TRAINER_PLOTS)}",
-            f"training.epochs={TRAINER_EPOCHS}",
+            f"training.epochs={spec.get('epochs', TRAINER_EPOCHS)}",
             f"training.batch_size={TRAINER_BS}", "training.num_workers=4",
             "visualization=eval", f"run_dir={root}/run"]
 
@@ -3463,13 +3503,14 @@ def phase_trainer(tmp: str, smi: str, krows: list,
         epochs.append({k: h[k] for k in (
             "epoch", "batches", "tracked_losses", "seconds", "data_seconds",
             "first_batch_data_seconds", "step_seconds", "plots_per_s")})
-    if len(epochs) != TRAINER_EPOCHS:
+    n_epochs = spec.get("epochs", TRAINER_EPOCHS)
+    if len(epochs) != n_epochs:
         raise AssertionError(f"{what}: {len(epochs)} train epochs")
     run_dir = os.path.join(root, "run")
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
     stage_metrics = {}
-    for epoch in range(1, TRAINER_EPOCHS + 1):
+    for epoch in range(1, n_epochs + 1):
         for stage in ("val", "test"):
             rec = [r for r in records
                    if r["epoch"] == epoch and r["stage"] == stage]
@@ -3489,7 +3530,7 @@ def phase_trainer(tmp: str, smi: str, krows: list,
             any(k.startswith(("best_test", "best_train"))
                 for k in ckpt.models) or \
             [len(ckpt.stats[s]) for s in ("train", "val", "test")] != \
-            [TRAINER_EPOCHS] * 3:
+            [n_epochs] * 3:
         raise AssertionError(f"{what}: checkpoint models "
                              f"{sorted(ckpt.models)}, stats "
                              f"{ {s: len(v) for s, v in ckpt.stats.items()} }")
@@ -3511,9 +3552,10 @@ def phase_trainer(tmp: str, smi: str, krows: list,
     del trainer
     torch.cuda.empty_cache()
 
-    # eval.main twice on the checkpoint alone (its own run_config)
+    # eval.main twice (trainer-map: once) on the checkpoint alone (its own
+    # run_config)
     evals = []
-    for i in (1, 2):
+    for i in range(1, spec.get("evals", 2) + 1):
         kernels.reset_launches()
         with StepCounter() as ecount:
             t0 = time.perf_counter()
@@ -3529,7 +3571,7 @@ def phase_trainer(tmp: str, smi: str, krows: list,
                                dict(kernels.LAUNCHES), ecount, spec)
         evals.append((results, seconds))
     train_csv = os.path.join(run_dir, "SYNTH_test_preds.csv")
-    header, want_rows = read_pred_csv(train_csv, TRAINER_EPOCHS)
+    header, want_rows = read_pred_csv(train_csv, n_epochs)
     eval_csv = os.path.join(root, "eval1", "SYNTH_test_preds.csv")
     got_header, got_rows = read_pred_csv(eval_csv)
     pred_cols = [i for i, h in enumerate(header) if h.startswith("pred_")]
@@ -3556,9 +3598,8 @@ def phase_trainer(tmp: str, smi: str, krows: list,
     if worst > 1e-6:
         raise AssertionError(f"{what}: eval's test metrics differ from its "
                              f"csv's by {worst} (relative)")
-    second = read_pred_csv(os.path.join(root, "eval2",
-                                        "SYNTH_test_preds.csv"))[1]
-    if second != got_rows:
+    if len(evals) > 1 and read_pred_csv(os.path.join(
+            root, "eval2", "SYNTH_test_preds.csv"))[1] != got_rows:
         raise AssertionError(f"{what}: a second eval.main gave other bits")
 
     # calibrate_bn.main for one epoch
@@ -3668,7 +3709,7 @@ def optimizer_groups_check(root: str, key: str, what: str, ckpt) -> dict:
 # builds each batch's levels and kernel maps (343 binary searches a voxel
 # for the stem alone), serially in `predict.make_batches` and in the
 # `input=` form of train.main, so its phases keep the builds few
-MAP_TRAIN_STEPS = 2
+MAP_TRAIN_STEPS = 1   # cut from 2 for the script's time
 # map mode against the dense path on one batch that fits both: the JAX
 # package's own check (tests/test_host_pyramid.py), 2e-3, taken relative
 # to the outputs' size (rtol, and atol 2e-3 * max|dense|): the JAX check's
@@ -3926,9 +3967,10 @@ def phase_map_train(key: str, dtname: str, plot_dir: str, out_dir: str,
     h2d_ms = wall_ms(lambda: host_batch.to(runner.device), 3, 1)
     batch = host_batch.to(runner.device)
     kernels.reset_launches()
-    step_ms = wall_ms(lambda: runner.train(batch), 3, 1)
+    # the peak over the timed steps (one warm-up, two timed), not a step
+    # of its own
     torch.cuda.reset_peak_memory_stats()
-    runner.train(batch)
+    step_ms = wall_ms(lambda: runner.train(batch), 2, 1)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 1e9
     reserved = torch.cuda.max_memory_reserved() / 1e9
@@ -4895,10 +4937,75 @@ def phase_export(tmp: str, plot_dir: str, smi: str, seed: int,
 
 MULTIGPU_WORLD = 2
 MULTIGPU_PLOTS = 48      # trainer_multigpu's synthetic plots (global bs16)
+MULTIGPU_EPOCHS = 1      # trainer_multigpu's epochs (cut from 2)
 MULTIGPU_DEVICE = "cuda:0"
 # each rank's launches in one train step of SENet14's sparse level 0
 MULTIGPU_STEP = _only(stem_sites=1, max_pool_k3s2_rows=1, stem_sites_dw=1,
                       max_pool_k3s2_bwd=1)
+# the 2-rank bf16 step against one process, gradients: at most this share
+# of the elements that the route before (each rank rounding its partials
+# before the SUM) puts off, in the same run, and no farther in rel-L2
+MULTIGPU_ONCE_SHARE = 0.5
+# the bf16 step at world size 1 (every sum rounded once, after the SUM:
+# cuDNN's weight gradient in f32 on the widened operands) against the one
+# process's bf16 kernels, all gradients (rel-L2)
+MULTIGPU_BF16_GRADS_TOL = 5e-4
+
+
+def bf16_ulps(a, b):
+    """How many bf16 steps apart a and b are once each is rounded to bf16,
+    elementwise."""
+    import torch
+
+    def key(t):
+        u = t.to(torch.bfloat16).view(torch.int16).int()
+        return torch.where(u < 0, -(u & 0x7FFF), u)
+    return (key(a) - key(b)).abs()
+
+
+def grad_ulps(got: dict, want: dict) -> dict:
+    """The gradients of one step against another's, elementwise, in bf16
+    ulps: how many elements differ, how many by one ulp and by more, the
+    most, and how many of those further apart differ by less than f32's
+    resolution of their tensor (sums cancelling to rounding noise)."""
+    import torch
+    n = moved = one = more = below = 0
+    most = 0
+    for k, b in want.items():
+        a = got[k]
+        u = bf16_ulps(a, b)
+        n += u.numel()
+        moved += int((u > 0).sum())
+        one += int((u == 1).sum())
+        far = u > 1
+        more += int(far.sum())
+        below += int((far & ((a - b).abs() <= torch.finfo(
+            torch.float32).eps * b.abs().max())).sum())
+        most = max(most, int(u.max()))
+    return {"elements": n, "differ": moved, "one_ulp": one,
+            "more_than_one_ulp": more,
+            "more_than_one_ulp_below_f32_resolution": below,
+            "max_ulps": most}
+
+
+@contextlib.contextmanager
+def rounding_per_rank():
+    """While open, a bf16 step under a process group rounds each rank's
+    partial sums before the SUM (the route before `parallel/rounding.py`):
+    a reading of what rounding once costs."""
+    from dpcr_agb_tpu_torch.models import minkowski
+    from dpcr_agb_tpu_torch.nn import norm
+    from dpcr_agb_tpu_torch.ops import sparse_stem, voxel
+    from dpcr_agb_tpu_torch.parallel import rounding
+    mods = (rounding, minkowski, norm, sparse_stem, voxel)
+    saved = [m.sums_rounded_once for m in mods]
+    for m in mods:
+        m.sums_rounded_once = lambda dtype: False
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.sums_rounded_once = f
 
 
 def run_ranks(mode: str, world: int, out_dir: str, backend: str,
@@ -5041,6 +5148,12 @@ def worker_multigpu_step(out_dir: str, plot_dir: str, seed: int) -> dict:
         plain = train.build_runner(copy.deepcopy(runner.net), run.stats,
                                    seed=0)
         plain.generator.set_state(runner.generator.get_state())
+        # bf16: the route before's step from the same state, for (b)
+        route_before = None
+        if dtname == "bfloat16":
+            route_before = train.build_runner(copy.deepcopy(runner.net),
+                                              run.stats, seed=0)
+            route_before.generator.set_state(runner.generator.get_state())
         before = {n: p.detach().clone()
                   for n, p in plain.net.named_parameters()}
         rec = step_record(runner, local)
@@ -5057,33 +5170,52 @@ def worker_multigpu_step(out_dir: str, plot_dir: str, seed: int) -> dict:
                 "errors": errs, "tolerance": STEP_TOL[dtname],
                 "worst_grads": sorted(grad.items(),
                                       key=lambda kv: -kv[1])[:3]}}
-        del run, runner, plain
+        if dtname == "bfloat16":
+            # the cost of rounding once: the same rank's steps (both ranks
+            # in lockstep on the one card) with cuDNN's f32 wgrad, then
+            # with the route before's bf16 wgrad
+            once = wall_ms(lambda: runner.train(local), 3, 1)
+            with rounding_per_rank():
+                per_rank = wall_ms(lambda: runner.train(local), 3, 1)
+            out[dtname]["step_ms_rounded_once"] = once
+            out[dtname]["step_ms_rounded_per_rank"] = per_rank
+            with rounding_per_rank():
+                torch.save(step_record(route_before, local), os.path.join(
+                    out_dir, f"step_{dtname}_per_rank_{rank}.pt"))
+        del run, runner, plain, route_before
         torch.cuda.empty_cache()
     return out
 
 
 def worker_nccl1(out_dir: str, plot_dir: str, seed: int) -> dict:
-    """The rank of `multigpu_nccl1`: world size 1 over NCCL, the f32 step
-    on the whole global batch with every collective running."""
+    """The rank of `multigpu_nccl1`: world size 1 over NCCL, the f32 and
+    bf16 steps on the whole global batch with every collective running
+    (bf16: every sum over the batch rounded once, after the SUM)."""
     import torch
-    run, host = multigpu_setup(plot_dir, "float32", seed)
-    rec = step_record(run.runner, host.to(MULTIGPU_DEVICE))
-    torch.save(rec, os.path.join(out_dir, "nccl1_float32.pt"))
-    return {"backend": torch.distributed.get_backend(),
-            "world": torch.distributed.get_world_size(),
-            "loss": rec["loss"], "launches": rec["launches"]}
+    out = {"backend": torch.distributed.get_backend(),
+           "world": torch.distributed.get_world_size()}
+    for dtname in ("float32", "bfloat16"):
+        run, host = multigpu_setup(plot_dir, dtname, seed)
+        rec = step_record(run.runner, host.to(MULTIGPU_DEVICE))
+        torch.save(rec, os.path.join(out_dir, f"nccl1_{dtname}.pt"))
+        out[dtname] = {"loss": rec["loss"], "launches": rec["launches"]}
+        del run
+        torch.cuda.empty_cache()
+    return out
 
 
 def _rel_dict(got: dict, want: dict, floor: float = 0.0) -> dict:
     return {k: _rel(got[k], want[k], floor) for k in want}
 
 
-def global_vs_split(one: dict, ranks: list, dtname: str) -> dict:
+def global_vs_split(one: dict, ranks: list, dtname: str,
+                    before: dict = None) -> dict:
     """(b) and (c): the 2-rank step (rank 0's record; the ranks' routes put
     together) against the one-process step on the whole batch, gated at
     STEP_TOL (f32: the loss, the parameters, the BN stats; bf16: those and
     all gradients as one vector), and the ranks' parameters bit for
-    bit."""
+    bit; a miss is named under "failed" (the caller raises once every
+    comparison is printed)."""
     import torch
     r0 = ranks[0]
     tol = STEP_TOL[dtname]
@@ -5101,10 +5233,17 @@ def global_vs_split(one: dict, ranks: list, dtname: str) -> dict:
             "stat": max(_rel_dict(r0["stats"], one["stats"]).values())}
     # each gradient is reported, not gated: a conv bias ahead of a
     # train-mode BN has a gradient of rounding noise, whose pattern turns
-    # on how the BN backward's sums are split between the ranks (and in
-    # f32 a near-tie in a pool window may route to another row)
+    # on the order of the BN backward's sums (and a near-tie in a pool
+    # window may route to another row)
     gated = ("loss", "params", "stat") if dtname == "float32" \
         else ("loss", "grads", "params", "stat")
+    ulps = route_before = None
+    if dtname == "bfloat16":
+        ulps = grad_ulps(r0["grads"], one["grads"])
+        route_before = {"grads": _rel(flat(before["grads"]),
+                                      flat(one["grads"])),
+                        "grad_ulps": grad_ulps(before["grads"],
+                                               one["grads"])}
     routes = torch.cat([r["routes"] for r in ranks])
     flipped = int((routes != one["routes"]).sum())
     same_ranks = all(torch.equal(r0["params"][n], r["params"][n])
@@ -5114,22 +5253,34 @@ def global_vs_split(one: dict, ranks: list, dtname: str) -> dict:
            "worst_grads": sorted(grad.items(), key=lambda kv: -kv[1])[:3],
            "pool_routes": routes.numel(), "pool_routes_flipped": flipped,
            "ranks_params_bit_equal": same_ranks}
+    if dtname == "bfloat16":
+        out["grad_ulps"] = ulps
+        out["route_before"] = route_before
+        # rounding once must be what moved: no farther from one process
+        # than the route before in the same run, and at most half its
+        # gradient elements off
+        if not (errs["grads"] <= route_before["grads"] and ulps["differ"]
+                <= MULTIGPU_ONCE_SHARE * route_before["grad_ulps"]["differ"]):
+            bad["grads_vs_route_before"] = (
+                errs["grads"], ulps["differ"], route_before["grads"],
+                route_before["grad_ulps"]["differ"])
     if bad or not same_ranks:
         starts = next((n for n in names if not torch.equal(
             r0["params"][n], one["params"][n])), None)
-        raise AssertionError(
-            f"multigpu_step {dtname}: 2 ranks vs one process out of "
-            f"tolerance {bad} (ranks bit-equal: {same_ranks}); the "
-            f"parameters differ from {starts}; {out}")
+        out["failed"] = (f"multigpu_step {dtname}: 2 ranks vs one process "
+                         f"out of tolerance {bad} (ranks bit-equal: "
+                         f"{same_ranks}); the parameters differ from "
+                         f"{starts}")
     return out
 
 
 def phase_multigpu_step(tmp: str, plot_dir: str, smi: str, seed: int,
-                        krows: list, procs: list) -> dict:
+                        krows: list, procs: list, nccl1: list) -> None:
     """SENet14 (sparse level 0, full width) one train step from one state
     on the pinned bs16 batch: two gloo ranks on the card (8 samples each,
     started as `procs`) against one process (see the module docstring);
-    returns the one-process f32 record for multigpu_nccl1."""
+    then `multigpu_nccl1` (its rank started as `nccl1`). Raises once both
+    lines are printed."""
     import torch
     out_dir = os.path.join(tmp, "multigpu")
     t0 = time.perf_counter()
@@ -5138,7 +5289,7 @@ def phase_multigpu_step(tmp: str, plot_dir: str, smi: str, seed: int,
     result = {"phase": "multigpu_step", "model": "SENet14",
               "world": MULTIGPU_WORLD, "backend": ranks[0]["backend"],
               "device": MULTIGPU_DEVICE, "ranks_seconds": ranks_seconds}
-    one_f32 = None
+    ones, failed = {}, []
     for dtname in ("float32", "bfloat16"):
         for r in ranks:
             d = r[dtname]
@@ -5157,20 +5308,31 @@ def phase_multigpu_step(tmp: str, plot_dir: str, smi: str, seed: int,
                     f"vs plain step of its split out of tolerance {over}: "
                     f"{d['kernel_vs_plain_step']}")
         run, host = multigpu_setup(plot_dir, dtname, seed)
-        one = step_record(run.runner, host.to(MULTIGPU_DEVICE))
-        if dtname == "float32":
-            one_f32 = one
+        one = ones[dtname] = step_record(run.runner,
+                                         host.to(MULTIGPU_DEVICE))
         del run
         torch.cuda.empty_cache()
         recs = [torch.load(os.path.join(out_dir, f"step_{dtname}_{r}.pt"),
                            weights_only=False)
                 for r in range(MULTIGPU_WORLD)]
+        # bf16: the route before (each rank rounding its partials before
+        # the SUM) from the same state, rank 0's record
+        before = torch.load(os.path.join(
+            out_dir, f"step_{dtname}_per_rank_0.pt"), weights_only=False) \
+            if dtname == "bfloat16" else None
+        split = global_vs_split(one, recs, dtname, before)
+        if "failed" in split:
+            failed.append(split["failed"])
         result[dtname] = {
             "loss_two_ranks": recs[0]["loss"], "loss_one_process": one["loss"],
             "launches_per_rank": [r[dtname]["launches"] for r in ranks],
             "kernel_vs_plain_step_per_rank": [
                 r[dtname]["kernel_vs_plain_step"] for r in ranks],
-            "two_ranks_vs_one_process": global_vs_split(one, recs, dtname)}
+            "two_ranks_vs_one_process": split}
+        if dtname == "bfloat16":
+            for k in ("step_ms_rounded_once", "step_ms_rounded_per_rank"):
+                result[dtname][f"{k}_per_rank"] = [r[dtname][k]
+                                                   for r in ranks]
         for row in krows:
             if row["kernels_phase"] == "sparse_l0" and row["dtype"] == \
                     dtname and MULTIGPU_STEP.get(row["name"]):
@@ -5178,69 +5340,113 @@ def phase_multigpu_step(tmp: str, plot_dir: str, smi: str, seed: int,
                     [r[dtname]["launches"][row["name"]] for r in ranks]
     result["card"] = smi
     emit(result)
-    return one_f32
+    failed += phase_multigpu_nccl1(tmp, smi, ones, nccl1)
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
-def phase_multigpu_nccl1(tmp: str, smi: str, one: dict,
-                         procs: list) -> None:
-    """The f32 step with world size 1 under NCCL (every collective
-    running; its rank started as `procs`) against the step with no process
-    group."""
+def phase_multigpu_nccl1(tmp: str, smi: str, ones: dict,
+                         procs: list) -> list:
+    """The step with world size 1 under NCCL (every collective running;
+    its rank started as `procs`) against the step with no process group:
+    f32 at STEP_TOL; bf16, where world size 1 takes the rounding-once
+    route (cuDNN's f32 wgrad on the widened operands, every sum rounded
+    once), a reading of how far the one-process bf16 kernels stand from
+    that rounding, and the 2 ranks' bf16 step against it. Returns the
+    misses."""
     import torch
     out_dir = os.path.join(tmp, "multigpu")
     rank = wait_ranks("nccl1", procs)[0]
-    rec = torch.load(os.path.join(out_dir, "nccl1_float32.pt"),
-                     weights_only=False)
     if rank["backend"] != "nccl" or rank["world"] != 1:
         raise AssertionError(f"multigpu_nccl1: {rank}")
-    bad = {k: v for k, v in rec["launches"].items() if v != MULTIGPU_STEP[k]}
-    if bad:
-        raise AssertionError(f"multigpu_nccl1: launches {bad}")
-    names = sorted(one["params"])
-    errs = {"loss": abs(rec["loss"] - one["loss"]) / max(abs(one["loss"]),
-                                                         1e-30),
-            "params": _rel(torch.cat([rec["params"][n].reshape(-1)
-                                      for n in names]),
-                           torch.cat([one["params"][n].reshape(-1)
-                                      for n in names])),
-            "stat": max(_rel_dict(rec["stats"], one["stats"]).values())}
-    tol = STEP_TOL["float32"]
-    bit_equal = all(torch.equal(rec["params"][n], one["params"][n])
-                    for n in names) and all(
-        torch.equal(rec["stats"][n], one["stats"][n]) for n in one["stats"])
-    over = {k: v for k, v in errs.items() if not v <= tol[k]}
-    if over:
-        raise AssertionError(f"multigpu_nccl1: NCCL world 1 vs no group out "
-                             f"of tolerance {over}")
-    emit({"phase": "multigpu_nccl1", "model": "SENet14", "dtype": "float32",
-          "backend": "nccl", "world": 1, "errors_vs_no_group": errs,
-          "tolerance": {k: tol[k] for k in errs}, "bit_equal": bit_equal,
-          "loss": rec["loss"], "launches": rec["launches"], "card": smi})
+    out = {"phase": "multigpu_nccl1", "model": "SENet14", "backend": "nccl",
+           "world": 1}
+    failed = []
+    for dtname in ("float32", "bfloat16"):
+        rec = torch.load(os.path.join(out_dir, f"nccl1_{dtname}.pt"),
+                         weights_only=False)
+        one = ones[dtname]
+        bad = {k: v for k, v in rec["launches"].items()
+               if v != MULTIGPU_STEP[k]}
+        if bad:
+            raise AssertionError(f"multigpu_nccl1 {dtname}: launches {bad}")
+        names = sorted(one["params"])
+
+        def flat(d):
+            return torch.cat([d[n].reshape(-1) for n in names])
+        errs = {"loss": abs(rec["loss"] - one["loss"])
+                / max(abs(one["loss"]), 1e-30),
+                "grads": _rel(flat(rec["grads"]), flat(one["grads"])),
+                "params": _rel(flat(rec["params"]), flat(one["params"])),
+                "stat": max(_rel_dict(rec["stats"], one["stats"]).values())}
+        bit_equal = all(torch.equal(rec["params"][n], one["params"][n])
+                        for n in names) and all(
+            torch.equal(rec["stats"][n], one["stats"][n])
+            for n in one["stats"])
+        row = {"errors_vs_no_group": errs, "bit_equal": bit_equal,
+               "loss": rec["loss"], "launches": rec["launches"]}
+        if dtname == "float32":
+            tol = STEP_TOL["float32"]
+            row["tolerance"] = {k: tol[k] for k in ("loss", "params",
+                                                    "stat")}
+            over = {k: errs[k] for k in row["tolerance"]
+                    if not errs[k] <= tol[k]}
+            if over:
+                failed.append(f"multigpu_nccl1: NCCL world 1 vs no group "
+                              f"out of tolerance {over}")
+        else:
+            row["grad_ulps_vs_no_group"] = grad_ulps(rec["grads"],
+                                                     one["grads"])
+            row["grads_tolerance"] = MULTIGPU_BF16_GRADS_TOL
+            if not errs["grads"] <= MULTIGPU_BF16_GRADS_TOL:
+                failed.append(f"multigpu_nccl1 bf16: world 1 (rounded "
+                              f"once) vs no group, gradients "
+                              f"{errs['grads']} > {MULTIGPU_BF16_GRADS_TOL}")
+            ranks = [torch.load(os.path.join(out_dir, f"step_{dtname}_{r}"
+                                             ".pt"), weights_only=False)
+                     for r in range(MULTIGPU_WORLD)]
+            row["two_ranks_vs_world1"] = {
+                "grads": _rel(flat(ranks[0]["grads"]), flat(rec["grads"])),
+                "params": _rel(flat(ranks[0]["params"]),
+                               flat(rec["params"])),
+                "grad_ulps": grad_ulps(ranks[0]["grads"], rec["grads"])}
+        out[dtname] = row
+    out["card"] = smi
+    emit(out)
+    return failed
 
 
-def multigpu_trainer_overrides(root: str) -> list:
+def multigpu_trainer_overrides(root: str, data_root: str) -> list:
     """The trainer phase's SENet14 command (bf16 through enable_mixed) on
-    MULTIGPU_PLOTS plots under `root`."""
-    return [o if not o.startswith("data.synthetic_plots=")
-            else f"data.synthetic_plots={MULTIGPU_PLOTS}"
+    MULTIGPU_PLOTS plots under `data_root` (one process's for both dtypes:
+    the second run reads the first one's processed plots), its run under
+    `root`, for MULTIGPU_EPOCHS epochs."""
+    swap = {"data.synthetic_plots": MULTIGPU_PLOTS,
+            "training.epochs": MULTIGPU_EPOCHS,
+            "data.dataroot": data_root}
+    return [f"{o.split('=')[0]}={swap[o.split('=')[0]]}"
+            if o.split("=")[0] in swap else o
             for o in trainer_overrides(root, "trainer")]
 
 
 # trainer_multigpu runs the trainer command in both dtypes. f32 is gated:
 # the ranks' summed gradient is the one-process gradient to f32 rounding.
-# bf16 is reported: each rank rounds its weight gradients to bf16 before
-# the SUM, where one process (and the JAX program) rounds the global
-# batch's once; one step stays within STEP_TOL's bf16 row
-# (`multigpu_step`), but the metrics drift past the 1e-3 bound within two
-# epochs (PERF.md §6)
+# bf16 rounds every sum over the global batch once, after the SUM, as one
+# process does; the metrics of the route before (each rank rounding its
+# partials) drifted past the 1e-3 bound within two epochs (worst
+# 0.468, median 1.04e-3, PERF.md §6); MULTIGPU_TRAINER_GATED names the
+# dtypes gated at 1e-3, the others are reported
+MULTIGPU_TRAINER_GATED = ("float32",)
+MULTIGPU_TRAINER_BEFORE = {"bfloat16": {"worst": 0.468, "median": 1.04e-3}}
 MULTIGPU_TRAINER_RUNS = (("float32", ("training.enable_mixed=False",)),
                          ("bfloat16", ()))
 
 
 def worker_trainer(out_dir: str) -> dict:
     """A rank of `trainer_multigpu`: train.main with the trainer command
-    for each of MULTIGPU_TRAINER_RUNS in turn, each under its own root
-    (its data and run dir) and its own process group, the runner's calls
+    for each of MULTIGPU_TRAINER_RUNS in turn, each with its own run dir
+    (the rank's data root shared by both) and its own process group, the
+    runner's calls
     and the kernels' launches counted, each step's gradient all-reduce
     timed with CUDA events."""
     import torch
@@ -5253,6 +5459,7 @@ def worker_trainer(out_dir: str) -> dict:
     for (dtname, extra), port in zip(MULTIGPU_TRAINER_RUNS, ports):
         os.environ["MASTER_PORT"] = port
         root = os.path.join(out_dir, dtname, f"rank{rank}")
+        data_root = os.path.join(out_dir, f"data_rank{rank}")
         reduce_ms = []
 
         def timed(params):
@@ -5269,7 +5476,7 @@ def worker_trainer(out_dir: str) -> dict:
         try:
             with StepCounter() as counter:
                 trainer = train.main(
-                    multigpu_trainer_overrides(root) + list(extra)
+                    multigpu_trainer_overrides(root, data_root) + list(extra)
                     + [f"device={MULTIGPU_DEVICE}"])
                 torch.cuda.synchronize()
         finally:
@@ -5298,7 +5505,8 @@ def worker_trainer(out_dir: str) -> dict:
     return out
 
 
-def trainer_one_process(root: str, dtname: str, extra, spec: dict):
+def trainer_one_process(root: str, data_root: str, dtname: str, extra,
+                        spec: dict):
     """The trainer command on one process with the shapes the ranks take:
     the V bucket at the ladder's top and the z bucket at the full extent
     (the dense grid's empty cells enter the next conv through BN, so the
@@ -5315,7 +5523,7 @@ def trainer_one_process(root: str, dtname: str, extra, spec: dict):
         with StepCounter() as counter:
             t0 = time.perf_counter()
             one = train.main(
-                multigpu_trainer_overrides(root) + list(extra)
+                multigpu_trainer_overrides(root, data_root) + list(extra)
                 + ["+data.buckets=[16384]", f"device={MULTIGPU_DEVICE}"])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
@@ -5347,7 +5555,8 @@ def phase_trainer_multigpu(tmp: str, smi: str, krows: list) -> None:
     root = os.path.join(tmp, "trainer_multigpu")
     spec = TRAINERS["trainer"]
     ones = {dtname: trainer_one_process(
-        os.path.join(root, dtname, "one"), dtname, extra, spec)
+        os.path.join(root, dtname, "one"), os.path.join(root, "data_one"),
+        dtname, extra, spec)
         for dtname, extra in MULTIGPU_TRAINER_RUNS}
     t0 = time.perf_counter()
     ranks = run_ranks("trainer", MULTIGPU_WORLD, root, "gloo", [],
@@ -5385,7 +5594,7 @@ def phase_trainer_multigpu(tmp: str, smi: str, krows: list) -> None:
                 rel_by_key[f"{g.get('epoch')}:{k}"] = [rel, g[k], w[k]]
                 if rel > worst:
                     worst, where = rel, (g.get("epoch"), k, g[k], w[k])
-        gated = dtname == "float32"
+        gated = dtname in MULTIGPU_TRAINER_GATED
         one_hist, one_seconds = ones[dtname]
         train_hist = [[h for h in r["history"] if h["stage"] == "train"]
                       for r in runs]
@@ -5399,6 +5608,7 @@ def phase_trainer_multigpu(tmp: str, smi: str, krows: list) -> None:
               "metrics_max_rel_diff": worst, "metrics_worst": where,
               "metrics_median_rel_diff": rels[len(rels) // 2],
               "metrics_rtol": 1e-3, "metrics_gated": gated,
+              "route_before": MULTIGPU_TRAINER_BEFORE.get(dtname),
               "metrics_rel_diff_two_ranks_one_process": rel_by_key,
               "launches_per_rank": [{k: v for k, v in r["launches"].items()
                                      if v} for r in runs],
@@ -5443,14 +5653,195 @@ def phase_multigpu(tmp: str, plot_dir: str, smi: str, seed: int,
                         args)
     nccl1 = start_ranks("nccl1", 1, out_dir, "nccl", args)
     try:
-        one = phase_multigpu_step(tmp, plot_dir, smi, seed, krows, steps)
-        phase_multigpu_nccl1(tmp, smi, one, nccl1)
+        phase_multigpu_step(tmp, plot_dir, smi, seed, krows, steps, nccl1)
     finally:
         for p in steps + nccl1:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     phase_trainer_multigpu(tmp, smi, krows)
+
+
+PAPER_BS = 32            # conf/training/nfi/minkowski.yaml's batch size
+PAPER_TRAINER_PLOTS = 48  # the recipe's train.main: one bs32 batch an epoch
+PAPER_TRAINER_EPOCHS = 2
+# the recipe's nets at bs32 (SENet14 and SENet50 on the sparse level 0,
+# SENet14 on the dense level 0) and each one's launches in one train step
+PAPER_NETS = {"SENet14": MULTIGPU_STEP, "SENet50": MULTIGPU_STEP,
+              "SENet14-denseL0": _only(firewall_copy=5, max_pool_k3s2=1,
+                                       max_pool_k3s2_bwd_vol=1)}
+# SENet50's bs16 train step before the blocks were rematerialized (PERF.md
+# section 5, run `full15a`, NVIDIA H100 80GB HBM3, 700.00 W)
+SENET50_BS16_BEFORE = {"float32": {"peak_mem_gb": 75.35,
+                                   "train_step_ms": 910.81},
+                       "bfloat16": {"peak_mem_gb": 72.29,
+                                    "train_step_ms": 634.94}}
+
+
+@contextlib.contextmanager
+def remat_off():
+    """While open, the sparse-voxel nets call their blocks directly (no
+    rematerialization): a reading of what remat saves and costs."""
+    from dpcr_agb_tpu_torch.models import minkowski
+    saved = minkowski.remat
+    minkowski.remat = lambda fn, *args, generator=None: fn(*args)
+    try:
+        yield
+    finally:
+        minkowski.remat = saved
+
+
+def paper_step(key: str, dtname: str, files: list, seed: int,
+               batch_size: int, pinned: bool, check: bool) -> dict:
+    """Path `key` built from `seed` at `batch_size` on `files`: with
+    `check`, one step from one state through the kernels and through the
+    plain versions (STEP_TOL) and the launches of one step (exact,
+    PAPER_NETS, counted over the timed steps); train_step_ms (host clock
+    from an idle card, median of 2 after one warm-up) and the peak memory
+    of those steps, on the first batch
+    (`pinned`: the V bucket at the ladder's top and the full z extent, the
+    shapes the trainer pins)."""
+    import torch
+    from dpcr_agb_tpu_torch import kernels, train
+    spec = MODELS[key]
+    what = f"paper_recipe {key} {dtname} bs{batch_size}"
+    with mode_env(spec["env"]):
+        run = train.setup(files, spec["model_name"],
+                          bf16=dtname == "bfloat16", batch_size=batch_size,
+                          seed=seed)
+    host = pinned_global_batch(run) if pinned else run.stream.next()
+    batch = host.to(run.runner.device)
+    runner = run.runner
+    out = {"batch_size": int(batch.mask.shape[0]),
+           "v_bucket": int(batch.mask.shape[1]),
+           "z_cells": int(batch.aux["zcells"].shape[0])}
+    if out["batch_size"] != batch_size:
+        raise AssertionError(f"{what}: a batch of {out['batch_size']}")
+    if check:
+        out["kernel_vs_plain_step"] = compare_train_steps(run, batch, dtname,
+                                                          STEP_TOL)
+    # the launches and the peak over the timed steps (one warm-up, two
+    # timed)
+    losses = []
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out["train_step_ms"] = wall_ms(
+        lambda: losses.append(runner.train(batch)["loss"]), 2, 1)
+    torch.cuda.synchronize()
+    steps = len(losses)
+    if check:
+        out["launches"] = {k: v // steps for k, v in kernels.LAUNCHES.items()}
+        bad = {k: v for k, v in kernels.LAUNCHES.items()
+               if v != steps * PAPER_NETS[key][k]}
+        if bad:
+            raise AssertionError(f"{what}: launches {bad} in {steps} steps, "
+                                 f"expected {PAPER_NETS[key]} a step")
+    loss = losses[-1]
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    card = torch.cuda.get_device_properties(0).total_memory / 1e9
+    if not out["peak_mem_gb"] < card or not np.isfinite(float(loss)):
+        raise AssertionError(f"{what}: peak {out['peak_mem_gb']} GB of "
+                             f"{card}, loss {float(loss)}")
+    del run, runner, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def paper_trainer(tmp: str) -> dict:
+    """The paper's recipe through the root grammar: `train.main` with
+    models=instance/minkowski_baseline model_name=SENet50
+    training=nfi/minkowski (bs32 and bf16 from the conf) on
+    PAPER_TRAINER_PLOTS synthetic plots, PAPER_TRAINER_EPOCHS epochs:
+    every step at bs32 with a finite loss, launches as the trainer phase
+    counts them."""
+    import torch
+    from dpcr_agb_tpu_torch import kernels, train
+    from dpcr_agb_tpu_torch.data.synthetic import generate_nfi_like_dataset
+    from dpcr_agb_tpu_torch.training.step import StepRunner
+    root = os.path.join(tmp, "paper_recipe")
+    what = "paper_recipe train.main"
+    generate_nfi_like_dataset(os.path.join(root, "data", "synthetic"),
+                              n_plots=PAPER_TRAINER_PLOTS)
+    steps, unwrapped = [], StepRunner.train
+
+    def captured(self, batch):
+        result = unwrapped(self, batch)
+        steps.append((int(batch.mask.shape[0]), float(result["loss"])))
+        return result
+    kernels.reset_launches()
+    StepRunner.train = captured
+    try:
+        with StepCounter() as counter:
+            t0 = time.perf_counter()
+            trainer = train.main([
+                "task=instance", "models=instance/minkowski_baseline",
+                "model_name=SENet50", "data=instance/synthetic/reg",
+                "data.transform_type=sparse_xy", "training=nfi/minkowski",
+                f"data.dataroot={root}/data",
+                f"data.synthetic_plots={PAPER_TRAINER_PLOTS}",
+                f"training.epochs={PAPER_TRAINER_EPOCHS}",
+                "training.num_workers=4", f"run_dir={root}/run"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        StepRunner.train = unwrapped
+    check_trainer_launches(what, dict(kernels.LAUNCHES), counter,
+                           TRAINERS["trainer"])
+    bf16 = bool((trainer.option.get("extra_options") or {}).get("bf16"))
+    sizes = [n for n, _ in steps]
+    losses = [v for _, v in steps]
+    if not steps or set(sizes) != {PAPER_BS} or not bf16 \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"{what}: steps (batch, loss) {steps}, bf16 "
+                             f"{bf16}")
+    hist = [h for h in trainer.history if h["stage"] == "train"]
+    del trainer
+    torch.cuda.empty_cache()
+    return {"command": "models=instance/minkowski_baseline "
+                       "model_name=SENet50 training=nfi/minkowski",
+            "plots": PAPER_TRAINER_PLOTS, "epochs": PAPER_TRAINER_EPOCHS,
+            "batch_size": PAPER_BS, "bf16": bf16, "step_losses": losses,
+            "steps": len(steps), "forwards": counter.forwards,
+            "step_seconds": [h["step_seconds"] for h in hist],
+            "train_main_seconds": seconds}
+
+
+def phase_paper_recipe(tmp: str, smi: str, seed: int, krows: list) -> None:
+    """The paper's training recipe on one card (see the module
+    docstring): the recipe's nets at bs32, f32 and bf16; SENet50 at bs16
+    (f32) with and without the blocks rematerialized; the recipe's
+    train.main."""
+    plot_dir = os.path.join(tmp, "plots_bs32")
+    files = write_plots(plot_dir, PAPER_BS, seed, DENSITY)
+    files16 = files[:N_PLOTS]
+    result = {"phase": "paper_recipe", "batch_size": PAPER_BS, "nets": {}}
+    for key in PAPER_NETS:
+        for dtname in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            row = paper_step(key, dtname, files, seed, PAPER_BS, True, True)
+            row["seconds"] = time.perf_counter() - t0
+            result["nets"][f"{key} {dtname}"] = row
+            for r in krows:
+                if r["dtype"] == dtname and row["launches"].get(r["name"]) \
+                        and r["kernels_phase"] == MODELS[key]["kernels"]:
+                    r.setdefault("launches_by_path", {})[
+                        f"paper_recipe {key}"] = row["launches"][r["name"]]
+    bs16 = {}
+    for dtname in ("float32",):
+        with_remat = paper_step("SENet50", dtname, files16, seed, N_PLOTS,
+                                False, False)
+        with remat_off():
+            without = paper_step("SENet50", dtname, files16, seed, N_PLOTS,
+                                 False, False)
+        bs16[dtname] = {"remat": with_remat, "no_remat": without,
+                        "no_remat_perf_md": SENET50_BS16_BEFORE[dtname],
+                        "remat_step_cost": with_remat["train_step_ms"]
+                        / without["train_step_ms"] - 1.0}
+    result["senet50_bs16"] = bs16
+    result["train_main"] = paper_trainer(tmp)
+    result["card"] = smi
+    emit(result)
 
 
 def worker_main(args) -> int:
@@ -5483,7 +5874,7 @@ def main(argv=None) -> int:
                     help="also write every phase's JSON to this file")
     ap.add_argument("--only", choices=sorted(MODELS) + sorted(TRAINERS)
                     + ["treeadd", "transforms", "norms", "export",
-                       "multigpu"],
+                       "multigpu", "paper-recipe"],
                     default=None,
                     help="run the phases of one path only (all the "
                          "kernels are built either way); 'trainer' and "
@@ -5566,6 +5957,12 @@ def main(argv=None) -> int:
             with mode_env({}):
                 phase_multigpu(tmp, plot_dir, smi, args.seed, krows)
             emit({"phase": "model", "model": "multigpu",
+                  "seconds": time.perf_counter() - t_model})
+        if args.only in (None, "paper-recipe"):
+            t_model = time.perf_counter()
+            with mode_env({}):
+                phase_paper_recipe(tmp, smi, args.seed, krows)
+            emit({"phase": "model", "model": "paper-recipe",
                   "seconds": time.perf_counter() - t_model})
     missing = [f"{r['name']} {r['dtype']} {r.get('case') or ''}"
                for r in krows if not r["launches"]]

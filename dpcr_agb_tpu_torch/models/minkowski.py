@@ -26,9 +26,15 @@ meaning when the model is built:
                sparse pool's forward) and separable | window3d (the manual
                pool's forward); unset: dense and separable
 
-Training runs the same path with train-mode BN and live DropPath; the
-JAX package's `nn.remat` around the stem conv and the blocks has no numeric
-effect and is not ported (bs16 fits on one 80 GB card without it).
+Training runs the same path with train-mode BN and live DropPath, and
+rematerializes where the JAX package's `nn.remat` does: every residual
+block of the dense-grid path and the dense level 0's stem conv keep only
+their inputs for the backward, which runs them again (`remat`:
+`torch.utils.checkpoint`, the recompute replaying the forward's DropPath
+coins and leaving BN's running stats alone). The full-width nets train the
+paper's bs32 on one 80 GB card that way. Eval, calibrate_bn (no gradients)
+and export run the blocks directly; map mode and the sparse level 0's stem
+are not rematerialized, as in the JAX package.
 
 Map mode (`dense_dims=None`, the JAX package's sparse-voxel formulation,
 MinkowskiEngine's way): the voxels stay rows [B, V, C] at every level, a
@@ -45,15 +51,19 @@ port's kernels. The parameters are the same as the dense path's, so one
 state dict (and one JAX `.ckpt`) serves both."""
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.blocks import (ACTIVATIONS, DropPath, Dropout, SELayer,
                          SeparateLinear, trunc_normal_)
-from ..nn.norm import MaskedBatchNorm, MaskedInstanceNorm, MaskedLayerNorm
+from ..nn.norm import (MaskedBatchNorm, MaskedInstanceNorm, MaskedLayerNorm,
+                       running_stats_frozen)
 from ..ops.dense_grid import (POOL_BWD_MODES, STEM_MODES, dense_conv,
                               dense_max_pool, level_dims, occupancy_pool,
                               scatter_to_dense)
@@ -64,8 +74,51 @@ from ..ops.sparse_stem import (max_pool_sparse, pool_neighbor_map_batch,
 from ..ops.host_pyramid import resnet_pyramid_plan
 from ..ops.voxel import (build_grid, downsample, hypercube_offsets,
                          kernel_map, max_pool_apply, sparse_conv_apply)
+from ..parallel.rounding import cast_widened, sums_rounded_once
 
 DEFAULT_LEVEL_FRACS = (1.0, 0.75, 0.4, 0.2, 0.1, 0.05, 0.03)
+
+
+def _remat_contexts(generator: Optional[torch.Generator]):
+    """`checkpoint`'s context_fn: the forward's context notes `generator`'s
+    state; the recompute's replays it (the same DropPath coins), puts the
+    state the backward found back after, and freezes BN's running stats
+    (one momentum update a step, as flax's remat drops the recompute's
+    mutations)."""
+    noted = {}
+
+    @contextlib.contextmanager
+    def forward():
+        if generator is not None:
+            noted["state"] = generator.get_state()
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        held = None
+        if generator is not None:
+            held = generator.get_state()
+            generator.set_state(noted["state"])
+        try:
+            with running_stats_frozen():
+                yield
+        finally:
+            if held is not None:
+                generator.set_state(held)
+    return forward(), recompute()
+
+
+def remat(fn, *args, generator: Optional[torch.Generator] = None):
+    """fn(*args) rematerialized (the JAX package's `nn.remat`): only its
+    inputs are kept for the backward, which runs it again. `generator` is
+    the one fn draws DropPath's coins from; no default generator is
+    drawn from inside, so theirs are not saved. Under a process group
+    every rank's recompute issues BN's collectives in the same order (one
+    backward graph on every rank)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=functools.partial(_remat_contexts,
+                                                   generator))
 
 
 def build_levels(coords: torch.Tensor, mask: torch.Tensor,
@@ -102,13 +155,20 @@ class SparseConv(nn.Module):
         if self.kernel_size == 1 and stride == 1:
             # the reference's f32-accumulating dot: output f32, masked
             # before and after the bias
-            y = (x.to(self.dtype).float()
-                 @ self.kernel[0].to(self.dtype).float()) * occ
+            y = (x.to(self.dtype).float() @ self._k1_weight()) * occ
             if self.bias is not None:
                 y = (y + self.bias.to(y.dtype)) * occ
             return y
         return dense_conv(x, occ, self.kernel, self.kernel_size, stride,
                           self.dtype, self.bias, stem_mode)
+
+    def _k1_weight(self) -> torch.Tensor:
+        """The pointwise conv's [Cin, Cout] weight rounded to the compute
+        dtype and widened to f32; under a process group its gradient
+        stays the f32 partial, rounded once after the SUM."""
+        if sums_rounded_once(self.dtype):
+            return cast_widened(self.kernel, self.dtype)[0]
+        return self.kernel[0].to(self.dtype).float()
 
     def forward_map(self, x: torch.Tensor,
                     nbr_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -116,8 +176,7 @@ class SparseConv(nn.Module):
         pointwise conv, K 1 and stride 1, a plain matmul) -> [B,V_out,Cout]
         f32 with the bias added at every row, as the JAX module does."""
         if nbr_idx is None:
-            w = self.kernel[0].to(self.dtype).float()
-            y = x.to(self.dtype).float() @ w
+            y = x.to(self.dtype).float() @ self._k1_weight()
         else:
             y = sparse_conv_apply(x.to(self.dtype), nbr_idx, self.kernel)
         if self.bias is not None:
@@ -379,14 +438,21 @@ class SparseResNet(nn.Module):
         return dense_max_pool(x, occ_in, occ_out, self.pool_bwd,
                               self.pool_fwd in ("unset", "separable"))
 
+    def _rematerialized(self, fn, *args, generator=None):
+        """fn(*args) through `remat` in training with gradients (where the
+        JAX package's nn.remat is), else called directly."""
+        if self.training and torch.is_grad_enabled():
+            return remat(fn, *args, generator=generator)
+        return fn(*args)
+
     def _dense_level0(self, feats, coords, mask, dims):
         """The input scattered to the full-resolution volume, the stem conv
         (stride first_stride) over it, BN over the occupied cells,
         activation, and the volume-form pool -> (h, occ_l)."""
         h, occ = scatter_to_dense(coords, mask, feats, dims)
         occ_stem = occ if self.first_stride == 1 else occupancy_pool(occ)
-        h = self.stem_conv.forward_dense(h, occ_stem, self.first_stride,
-                                         self.stem_mode)
+        h = self._rematerialized(self.stem_conv.forward_dense, h, occ_stem,
+                                 self.first_stride, self.stem_mode)
         b, width = h.shape[0], h.shape[-1]
         h = self.stem_norm(h.reshape(b, -1, width),
                            occ_stem.reshape(b, -1) > 0).reshape(h.shape)
@@ -415,7 +481,8 @@ class SparseResNet(nn.Module):
             occ_in = occ_l
             if s != 1:
                 occ_l = occupancy_pool(occ_l)
-            h = getattr(self, name)(h, occ_in, occ_l, generator)
+            h = self._rematerialized(getattr(self, name), h, occ_in, occ_l,
+                                     generator, generator=generator)
         hf = h.float()
         b = hf.shape[0]
         g = GLOBAL_POOL[self.global_pool](hf.reshape(b, -1, hf.shape[-1]),

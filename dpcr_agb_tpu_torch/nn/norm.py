@@ -12,14 +12,35 @@ MaskedBatchNorm:
   * under a process group (`parallel`), the moments are the global
     batch's (`masked_moments`) and the running stats take the global
     count, so they stay equal on every rank; this also holds for the
-    train-mode forwards of calibrate and enable_bn."""
+    train-mode forwards of calibrate and enable_bn. In bf16 the
+    normalization's sums over the rows (its cotangents of the mean, the
+    variance, scale and bias) are rounded once, after the SUM
+    (`parallel.rounding.batch_norm`)
+  * inside a rematerialized block the recompute leaves the running stats
+    alone (`running_stats_frozen`): one forward, one momentum update"""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
 
 from ..ops.masked import masked_moments
 from ..parallel import all_reduce_sum
+from ..parallel.rounding import batch_norm, sums_rounded_once
+
+_FROZEN = [0]
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """Train-mode MaskedBatchNorm forwards inside leave their running stats
+    as they are (a rematerialized block's recompute in the backward)."""
+    _FROZEN[0] += 1
+    try:
+        yield
+    finally:
+        _FROZEN[0] -= 1
 
 
 class MaskedBatchNorm(nn.Module):
@@ -38,18 +59,27 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             axes = tuple(range(x.dim() - 1))
             mean, var, count = masked_moments(x.float(), mask, axes)
-            with torch.no_grad():
-                m = self.momentum
-                n = torch.clamp(count, min=2.0)
-                self.mean.mul_(1 - m).add_(m * mean)
-                self.var.mul_(1 - m).add_(m * var * n / (n - 1.0))
+            if not _FROZEN[0]:
+                self._update_running_stats(mean, var, count)
         else:
             mean, var = self.mean, self.var
         dt = x.dtype
+        if sums_rounded_once(dt):
+            return batch_norm(x, mean, var, self.scale, self.bias,
+                              self.epsilon)
         y = (x - mean.to(dt)) * torch.rsqrt(var.to(dt) + self.epsilon)
         if self.scale is not None:
             y = y * self.scale.to(dt) + self.bias.to(dt)
         return y
+
+    @torch.no_grad()
+    def _update_running_stats(self, mean, var, count):
+        """The momentum update, with the unbiased variance (count clamped
+        at 2)."""
+        m = self.momentum
+        n = torch.clamp(count, min=2.0)
+        self.mean.mul_(1 - m).add_(m * mean)
+        self.var.mul_(1 - m).add_(m * var * n / (n - 1.0))
 
 
 class MaskedLayerNorm(nn.Module):

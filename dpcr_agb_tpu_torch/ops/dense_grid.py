@@ -15,13 +15,20 @@ channels_last_3d strides, so the permutes copy nothing on the card.
 
 How the stem conv and the level-0 pool run is chosen by mode arguments with
 the values of the JAX package's DPCR_STEM_MODE and DPCR_POOL_BWD; the model
-(`models/minkowski.py`) reads those variables when it is built."""
+(`models/minkowski.py`) reads those variables when it is built.
+
+Under a process group a bf16 conv's weight and bias gradients are the f32
+partials, rounded once after the SUM (`parallel.rounding.conv`); the
+forward is the one-process conv's."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import round_after_sum
+from ..parallel import rounding
 
 NEG_INF = -1e30
 STEM_MODES = ("xla3d", "zfold_firewall", "zfold2d_firewall")
@@ -103,8 +110,19 @@ def dense_conv(x: torch.Tensor, occ_out: torch.Tensor, weights: torch.Tensor,
                 weights.reshape(k, k, k, cin, cout).to(compute_dtype), k,
                 stride) * occ_out.to(compute_dtype)
         if bias is not None:
-            y = (y + bias.to(y.dtype)) * occ_out.to(y.dtype)
+            y = rounding.add_bias(y, bias) \
+                if rounding.sums_rounded_once(y.dtype) \
+                else y + bias.to(y.dtype)
+            y = y * occ_out.to(y.dtype)
         return y
+    if rounding.sums_rounded_once(compute_dtype):
+        round_after_sum(compute_dtype, weights, bias)
+        xc = x.to(compute_dtype).permute(0, 4, 1, 2, 3)
+        y = rounding.conv(xc, conv_weight(weights, torch.float32), bias,
+                          stride, [k // 2] * 3,
+                          widen=xc.device.type == "cpu").permute(
+                              0, 2, 3, 4, 1)
+        return y * occ_out.to(y.dtype)
     w5 = conv_weight(weights, compute_dtype)
     b5 = None if bias is None else bias.to(compute_dtype)
     xc = x.to(compute_dtype).permute(0, 4, 1, 2, 3)

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kernel_ops
+from ..parallel import round_after_sum
+from ..parallel import rounding
 
 
 def firewall_copy_plain(x: torch.Tensor) -> torch.Tensor:
@@ -77,9 +79,15 @@ def zfold_conv(x: torch.Tensor, w_dense: torch.Tensor, k: int,
     [k,k,k,Cin,Cout], as one depth-1 3D conv over k*Cin channels ->
     [B,D',H',W',Cout] in x's dtype."""
     xs = _fold(x, k, stride)
-    wf = _folded_weight(w_dense.to(x.dtype))[:, :, None]
-    y = F.conv3d(xs.permute(0, 4, 1, 2, 3), wf, stride=(1, stride, stride),
-                 padding=(0, k // 2, k // 2))
+    stride3, pad3 = (1, stride, stride), (0, k // 2, k // 2)
+    if rounding.sums_rounded_once(x.dtype):
+        y = rounding.conv(xs.permute(0, 4, 1, 2, 3),
+                          _folded_weight(w_dense)[:, :, None], None,
+                          stride3, pad3)
+    else:
+        wf = _folded_weight(w_dense.to(x.dtype))[:, :, None]
+        y = F.conv3d(xs.permute(0, 4, 1, 2, 3), wf, stride=stride3,
+                     padding=pad3)
     return y.permute(0, 2, 3, 4, 1)
 
 
@@ -88,9 +96,13 @@ def zfold2d_conv(x: torch.Tensor, w_dense: torch.Tensor, k: int,
     """The same conv as one true 2D k x k conv over [B*D', k*Cin, H, W]."""
     xs = _fold(x, k, stride)
     b, n_out, h, w, kc = xs.shape
-    wf = _folded_weight(w_dense.to(x.dtype))
-    y = F.conv2d(xs.reshape(b * n_out, h, w, kc).permute(0, 3, 1, 2), wf,
-                 stride=stride, padding=k // 2)
+    x2 = xs.reshape(b * n_out, h, w, kc).permute(0, 3, 1, 2)
+    if rounding.sums_rounded_once(x.dtype):
+        y = rounding.conv(x2, _folded_weight(w_dense), None, stride,
+                          [k // 2] * 2)
+    else:
+        y = F.conv2d(x2, _folded_weight(w_dense.to(x.dtype)),
+                     stride=stride, padding=k // 2)
     y = y.permute(0, 2, 3, 1)
     return y.reshape(b, n_out, *y.shape[1:])
 
@@ -101,10 +113,15 @@ def stem_conv_folded(x: torch.Tensor, occ_out: torch.Tensor,
                      two_d: bool = False) -> torch.Tensor:
     """The firewalled folded stem conv, with `dense_grid.dense_conv`'s
     contract (without the bias): x [B,D,H,W,Cin], weights [K^3,Cin,Cout]
-    -> conv * occ_out in compute_dtype."""
+    -> conv * occ_out in compute_dtype. Under a process group a bf16
+    conv's weight gradient is rounded once, after the SUM."""
     k = kernel_size
     cin, cout = weights.shape[-2:]
-    w5 = weights.reshape(k, k, k, cin, cout).to(compute_dtype)
+    w5 = weights.reshape(k, k, k, cin, cout)
+    if rounding.sums_rounded_once(compute_dtype):
+        round_after_sum(compute_dtype, weights)
+    else:
+        w5 = w5.to(compute_dtype)
     xi = layout_firewall(x.to(compute_dtype))
     y = (zfold2d_conv if two_d else zfold_conv)(xi, w5, k, stride)
     y = layout_firewall(y)

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kernel_ops
+from ..parallel import round_after_sum
+from ..parallel.rounding import sums_rounded_once
 from .dense_grid import scatter_to_dense
 from .pool import _pool_parents
 
@@ -109,7 +111,10 @@ def stem_conv_sites_dw(vol: torch.Tensor, coords: torch.Tensor,
 
 
 class _StemConvSites(torch.autograd.Function):
-    """`stem_conv_sites` with its weight and bias gradients. The volume is
+    """`stem_conv_sites` with its weight and bias gradients, each returned
+    in the dtype the weights and bias came in: given in vol's dtype, dW
+    (f32 from the kernel) and db are rounded to it here; given in f32 (cast
+    to vol's dtype inside), they stay the f32 partials. The volume is
     data, so it gets no gradient; only vol, coords and mask are saved."""
 
     @staticmethod
@@ -117,7 +122,9 @@ class _StemConvSites(torch.autograd.Function):
         ctx.save_for_backward(vol, coords, mask)
         ctx.weights_dtype = weights.dtype
         ctx.bias_dtype = None if bias is None else bias.dtype
-        return stem_conv_sites(vol, coords, mask, weights, bias)
+        return stem_conv_sites(
+            vol, coords, mask, weights.to(vol.dtype).contiguous(),
+            None if bias is None else bias.to(vol.dtype))
 
     @staticmethod
     def backward(ctx, ct):
@@ -140,12 +147,18 @@ def stem_conv_rows(coords: torch.Tensor, mask: torch.Tensor,
                    ) -> torch.Tensor:
     """Rows [B,V,Cin] -> stem rows [B,V,Cout] in compute_dtype: the scatter
     into the Cin-wide volume, then `stem_conv_sites` (the sites mode of
-    SparseConv, minkowski.py), differentiable in weights and bias."""
+    SparseConv, minkowski.py), differentiable in weights and bias. Under a
+    process group in bf16 their gradients are the f32 partials, rounded
+    once after the SUM."""
     vol, _ = scatter_to_dense(coords, mask, feats.to(compute_dtype), dims)
+    if sums_rounded_once(compute_dtype):
+        round_after_sum(compute_dtype, weights, bias)
+        dt = weights.dtype
+    else:
+        dt = compute_dtype
     return _StemConvSites.apply(
         vol, coords.to(torch.int32).contiguous(), mask.contiguous(),
-        weights.to(compute_dtype).contiguous(),
-        None if bias is None else bias.to(compute_dtype))
+        weights.to(dt).contiguous(), None if bias is None else bias.to(dt))
 
 
 def scatter_max_pool_batch(coords: torch.Tensor, mask: torch.Tensor,

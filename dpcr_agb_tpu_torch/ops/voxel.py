@@ -22,6 +22,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.rounding import cast_widened, sums_rounded_once
+
 COORD_BITS = 10
 COORD_OFFSET = 1 << (COORD_BITS - 1)          # 512
 SENTINEL_KEY = 1 << (3 * COORD_BITS)          # sorts after all valid keys
@@ -206,6 +208,11 @@ def sparse_conv_apply(feats: torch.Tensor, nbr_idx: torch.Tensor,
     if offset_chunk is None:
         offset_chunk = max(1, target_cols // max(cin, 1))
     chunk = max(1, min(offset_chunk, k))
+    widened = sums_rounded_once(feats.dtype)
+    if widened:
+        # under a process group the weights' gradient stays the f32
+        # partial, rounded once after the SUM
+        weights = cast_widened(weights, feats.dtype)
     rows = _flat_rows(feats, 0.0)
     # [B·V_out, K]: each output row's K input rows, side by side
     idx = _flat_index(nbr_idx, v_in).permute(0, 2, 1).reshape(b * v_out, k)
@@ -214,7 +221,7 @@ def sparse_conv_apply(feats: torch.Tensor, nbr_idx: torch.Tensor,
         k1 = min(k0 + chunk, k)
         g = rows[idx[:, k0:k1]].reshape(b * v_out, (k1 - k0) * cin)
         w = weights[k0:k1].reshape((k1 - k0) * cin, cout)
-        part = g.float() @ w.to(feats.dtype).float()
+        part = g.float() @ (w if widened else w.to(feats.dtype).float())
         acc = part if acc is None else acc + part
     return acc.reshape(b, v_out, cout)
 

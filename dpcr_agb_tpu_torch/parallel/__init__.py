@@ -3,4 +3,5 @@
 the global batch's numbers."""
 from .mesh import (all_gather_rows, all_reduce_grads, all_reduce_sum,  # noqa: F401
                    broadcast_state, destroy, is_main, local_rank,
-                   maybe_init_distributed, rank, shard_batch, world_size)
+                   maybe_init_distributed, rank, round_after_sum,
+                   shard_batch, world_size)

@@ -10,7 +10,11 @@ reductions meet in explicit collectives:
   * `all_reduce_sum`: a differentiable SUM (its backward all-reduces the
     cotangent), for the BN moments and the loss's denominator;
   * `all_reduce_grads`: one SUM over every gradient in a fixed order, so
-    the sum of the per-rank gradients is the global loss's gradient;
+    the sum of the per-rank gradients is the global loss's gradient; a
+    parameter that the step uses in bf16 hands the SUM its f32 partial
+    and is rounded to bf16 once after it (`round_after_sum`,
+    `parallel/rounding.py`), as one process rounds the global batch's
+    sum once;
   * `all_gather_rows`: the step outputs' rows of every rank in rank order,
     so each rank's tracker sees the global rows;
   * `broadcast_state`: rank 0's parameters and buffers at start-up.
@@ -127,13 +131,31 @@ def all_gather_rows(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return out.bool() if is_bool else out
 
 
+# the attribute that marks a parameter whose gradient is an f32 partial of
+# a sum that one process rounds once to the dtype it holds
+_ROUND_ATTR = "_dpcr_round_grad_to"
+
+
+def round_after_sum(dtype: torch.dtype, *params) -> None:
+    """Mark each parameter given (None skipped): this step hands the
+    gradient SUM the f32 partial of a sum that one process rounds to
+    `dtype`, so `all_reduce_grads` rounds it to `dtype` (and back to f32)
+    once after the SUM."""
+    for p in params:
+        if p is not None:
+            setattr(p, _ROUND_ATTR, dtype)
+
+
 def all_reduce_grads(params: Iterable[torch.nn.Parameter]) -> None:
     """Replace each gradient by its SUM over ranks: the gradients, in the
     order given, flattened into one buffer a dtype and reduced in one
-    collective each, so the same run gives the same bits. Parameters
-    without a gradient are left out (the same ones on every rank)."""
+    collective each, so the same run gives the same bits; then each
+    parameter marked by `round_after_sum` rounded to its dtype once.
+    Parameters without a gradient are left out (the same ones on every
+    rank)."""
     if not dist.is_initialized():
         return
+    params = list(params)
     by_dtype = {}
     for p in params:
         if p.grad is not None:
@@ -146,6 +168,10 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter]) -> None:
             n = p.grad.numel()
             p.grad.copy_(flat[i:i + n].view_as(p.grad))
             i += n
+    for p in params:
+        dtype = getattr(p, _ROUND_ATTR, None)
+        if dtype is not None and p.grad is not None:
+            p.grad.copy_(p.grad.to(dtype))
 
 
 def broadcast_state(module: torch.nn.Module) -> None:
