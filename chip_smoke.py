@@ -279,7 +279,15 @@ Then (`--only trainer` runs it alone):
            stem_sites_dw and max_pool_k3s2_bwd once a step, every other
            kernel 0; the samples ClampBatchSize dropped (at least one);
            points per sample after each transform of the train chain;
-           finite test predictions; train_main_seconds, eval_main_seconds
+           finite test predictions; train_main_seconds, eval_main_seconds;
+           then the last options ported: GridSampling3D(mode="mean") and
+           FixedPointsOwn(replace=True) timed on a full plot as above, and
+           the same command on sparse_xy with a pre_transform that ends in
+           a 0.25 m mean-mode GridSampling3D (GRID_PRE_SIZE_M) and
+           AdaBelief with rectify=False and fixed_decay=True, all through
+           the root grammar, under a new dataroot, then eval.main: finite
+           step losses, the launches as above; the points per plot with
+           and without the grid, process_seconds, train_main_seconds
   norms    (`--only norms`) SENet14 on the sparse level 0 with norm_type
            `in` and then `ln`, f32 and bf16, at full width on the serving
            plots: one forward of the serving batch and one train step
@@ -352,8 +360,13 @@ Then (`--only trainer` runs it alone):
     trainer_multigpu  the trainer phase's SENet14 command, 1 epoch, 48
            plots, global bs16, in f32 (training.enable_mixed=False), then
            in bf16 (MULTIGPU_TRAINER_RUNS; each rank runs both, a process
-           group each), on two gloo ranks on the card (each its own data
-           root) against one process with the same pinned shapes: f32,
+           group each), on two gloo ranks on the card against one process
+           with the same pinned shapes. The two ranks share one data root,
+           empty when they start, so both generate the synthetic dataset
+           and process it at once; each rank's digest of the processed
+           train split (sha256 over its sorted files' arrays) must equal
+           the other's and the one-process run's, and no temporary file
+           may be left under the root. f32,
            every numeric metric within rtol 1e-3; bf16, the metrics'
            relative differences reported beside the route before's
            (each rank rounded its partials before the SUM: worst 0.468,
@@ -395,6 +408,7 @@ import contextlib
 import csv
 import dataclasses
 import glob
+import hashlib
 import json
 import os
 import re
@@ -4345,13 +4359,20 @@ TIMED_TRANSFORMS = [
 ]
 
 
+# two more transform options, timed as the 37 are
+TIMED_OPTIONS = [
+    ("GridSampling3D", {"size": 0.25, "mode": "mean"}, "m"),
+    ("FixedPointsOwn", {"num": 12000, "replace": True}, "unit"),
+]
+
+
 def transforms_host_ms(seed: int) -> list:
-    """Each of the 37 on one full synthetic plot (the generator's density,
-    15 m radius), on the host clock (median of 3 calls): its input and
-    output points (or the bool of a sample filter). The plot gets the rgb
-    and norm that NFI-like plots lack, for the feature augments and
-    NormalFeature; FCompose composes two of the filters, ClampBatchSize
-    takes a batch of 16 copies."""
+    """Each of the 37 and of TIMED_OPTIONS on one full synthetic plot (the
+    generator's density, 15 m radius), on the host clock (median of 3
+    calls): its input and output points (or the bool of a sample filter).
+    The plot gets the rgb and norm that NFI-like plots lack, for the
+    feature augments and NormalFeature; FCompose composes two of the
+    filters, ClampBatchSize takes a batch of 16 copies."""
     from dpcr_agb_tpu_torch.data.synthetic import generate_plot
     from dpcr_agb_tpu_torch.transforms import (TRANSFORM_REGISTRY,
                                                instantiate_transform)
@@ -4368,22 +4389,23 @@ def transforms_host_ms(seed: int) -> list:
               "unit": (pts / np.array([30, 30, 40], np.float32)
                        + np.array([0.5, 0.5, 0.0], np.float32))}
     calls = [(name, instantiate_transform({"transform": name,
-                                           "params": params}), frame)
-             for name, params, frame in TIMED_TRANSFORMS]
+                                           "params": params}), frame,
+              params) for name, params, frame in TIMED_TRANSFORMS
+             + TIMED_OPTIONS]
     calls.append(("FCompose", TRANSFORM_REGISTRY["FCompose"](
         [TRANSFORM_REGISTRY["RandomFilter"](0.9),
-         TRANSFORM_REGISTRY["PlanarityFilter"](0.9)]), "unit"))
+         TRANSFORM_REGISTRY["PlanarityFilter"](0.9)]), "unit", None))
     clamp = TRANSFORM_REGISTRY["ClampBatchSize"](8 * n)
     out = []
-    for name, t, frame in calls:
+    for name, t, frame, params in calls:
         sample = {"pos": frames[frame], **base}
         times, result = [], None
         for rep in range(3):
             t0 = time.perf_counter()
             result = t(np.random.default_rng(rep), dict(sample))
             times.append((time.perf_counter() - t0) * 1e3)
-        row = {"name": name, "frame": frame, "points_in": n,
-               "host_ms_per_plot": statistics.median(times)}
+        row = {"name": name, "params": params, "frame": frame,
+               "points_in": n, "host_ms_per_plot": statistics.median(times)}
         if isinstance(result, (bool, np.bool_)):
             row["keeps_sample"] = bool(result)
         else:
@@ -4396,7 +4418,7 @@ def transforms_host_ms(seed: int) -> list:
                 "host_ms_per_plot": (time.perf_counter() - t0) * 1e3 / 16,
                 "batch_kept": f"{len(kept)} of 16"})
     names = {r["name"] for r in out}
-    if len(names) != 37:
+    if len(names) != 37 + len(TIMED_OPTIONS):
         raise AssertionError(f"transforms: timed {sorted(names)}")
     return out
 
@@ -4522,6 +4544,123 @@ def phase_transforms(tmp: str, smi: str, krows: list, seed: int) -> None:
               "test_total_BMag_ha_rmse"],
           "train_main_seconds": train_seconds,
           "eval_main_seconds": eval_seconds, "card": smi})
+    emit({"phase": what, "run": "options", "model": "SENet14",
+          "dtype": "bfloat16", **phase_transform_options(tmp, spec),
+          "card": smi})
+
+
+# the options run of the transforms phase: the NFI pre_transform
+# (conf/data/instance/NFI/default.yaml) ending in a mean-mode grid of
+# GRID_PRE_SIZE_M metres, which merges 4-9% of a synthetic plot's points
+# (the chain's own voxels are 0.375 m in xy), and AdaBelief unrectified
+# with its decay fixed
+GRID_PRE_SIZE_M = 0.25
+GRID_PRE_TRANSFORM = [
+    {"transform": "DBSCANZOutlierRemoval",
+     "params": {"eps": 1.5, "min_samples": 10,
+                "skip_list": "${data.skip_list}"}},
+    {"transform": "StartZFromZero"},
+    {"transform": "ZFilter", "params": {"z_min": -1.0e-5, "z_max": 50,
+                                        "skip_keys": "${data.skip_list}"}},
+    {"transform": "GridSampling3D",
+     "params": {"size": GRID_PRE_SIZE_M, "mode": "mean"}}]
+OPTIONS_OVERRIDES = [
+    "data.pre_transform=" + json.dumps(GRID_PRE_TRANSFORM),
+    "+training.optim.optimizer.params.rectify=False",
+    "+training.optim.optimizer.params.fixed_decay=True"]
+
+
+def phase_transform_options(tmp: str, spec: dict) -> dict:
+    """The transforms phase's options run (see the module docstring):
+    train.main then eval.main, the launches and losses gated; returns its
+    readings."""
+    import torch
+    from dpcr_agb_tpu_torch import eval as ev, kernels, train
+    from dpcr_agb_tpu_torch.training.step import StepRunner
+    from dpcr_agb_tpu_torch.transforms import TRANSFORM_REGISTRY
+    what = "transforms options"
+    root = os.path.join(tmp, "transform_options")
+    overrides = [o for o in trainer_overrides(root, "trainer")
+                 if not o.startswith(("data.synthetic_plots=",
+                                      "training.epochs=",
+                                      "training.batch_size="))]
+    overrides += [f"data.synthetic_plots={TRANSFORMS_PLOTS}",
+                  "training.epochs=1", f"training.batch_size={TRANSFORMS_BS}",
+                  *OPTIONS_OVERRIDES]
+    grid = TRANSFORM_REGISTRY["GridSampling3D"]
+    unwrapped, unwrapped_step = grid.__call__, StepRunner.train
+    points, step_losses = [], []
+
+    def counting(self, rng, sample):
+        out = unwrapped(self, rng, sample)
+        if self.mode == "mean":
+            points.append((int(sample["pos"].shape[0]),
+                           int(out["pos"].shape[0])))
+        return out
+
+    def train_step(runner, batch, *a, **k):
+        out = unwrapped_step(runner, batch, *a, **k)
+        step_losses.append(out["loss"].detach())
+        return out
+
+    grid.__call__ = counting
+    StepRunner.train = train_step
+    try:
+        kernels.reset_launches()
+        with StepCounter() as counter, DatasetClock() as data_clock:
+            t0 = time.perf_counter()
+            trainer = train.main(overrides)
+            torch.cuda.synchronize()
+            train_seconds = time.perf_counter() - t0
+    finally:
+        grid.__call__ = unwrapped
+        StepRunner.train = unwrapped_step
+    train_launches = dict(kernels.LAUNCHES)
+    check_trainer_launches(f"{what}: train.main", train_launches, counter,
+                           spec)
+    opt = trainer.runner.optimizer
+    if opt.rectify or not opt.fixed_decay or not opt.decoupled_decay:
+        raise AssertionError(f"{what}: AdaBelief rectify={opt.rectify}, "
+                             f"fixed_decay={opt.fixed_decay}")
+    losses = [float(x) for x in step_losses]
+    if not losses or len(losses) != counter.calls["train"] \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"{what}: train losses {losses}, "
+                             f"{counter.calls['train']} steps")
+    if not points or any(b > a for a, b in points) \
+            or sum(b for _, b in points) >= sum(a for a, _ in points):
+        raise AssertionError(f"{what}: the {GRID_PRE_SIZE_M} m grid "
+                             f"removed no point: {points}")
+    del trainer
+    kernels.reset_launches()
+    with StepCounter() as count:
+        t0 = time.perf_counter()
+        metrics = ev.main([f"checkpoint_dir={root}/run",
+                           "model_name=SENet14", "weight_name=latest",
+                           f"batch_size={TRANSFORMS_BS}",
+                           f"run_dir={root}/eval", "pretty_print=False"])
+        torch.cuda.synchronize()
+        eval_seconds = time.perf_counter() - t0
+    check_trainer_launches(f"{what}: eval.main", dict(kernels.LAUNCHES),
+                           count, {"forward": spec["forward"], "step": {}})
+    rmse = metrics["test"]["test_total_BMag_ha_rmse"]
+    if not np.isfinite(rmse):
+        raise AssertionError(f"{what}: eval.main test rmse {rmse}")
+    before = [a for a, _ in points]
+    after = [b for _, b in points]
+    return {"grid_size_m": GRID_PRE_SIZE_M, "overrides": OPTIONS_OVERRIDES,
+            "plots_processed": len(points),
+            "points_per_plot_without_grid": before,
+            "points_per_plot_with_grid": after,
+            "points_kept_share": sum(after) / sum(before),
+            "process_seconds": data_clock.seconds,
+            "train_losses": losses, "train_steps": counter.calls["train"],
+            "train_launches": {k: train_launches[k] for k in
+                               (*spec["forward"], *spec["step"])},
+            "eval_forwards": count.forwards,
+            "test_total_BMag_ha_rmse": rmse,
+            "train_main_seconds": train_seconds,
+            "eval_main_seconds": eval_seconds}
 
 
 NORMS_TRAINER_PLOTS = 24
@@ -5416,6 +5555,71 @@ def phase_multigpu_nccl1(tmp: str, smi: str, ones: dict,
     return failed
 
 
+class DatasetClock:
+    """While installed, the host seconds of each dataset the trainer
+    instantiates (generating a synthetic dataset and processing its
+    plots when its root has none)."""
+
+    def __init__(self):
+        from dpcr_agb_tpu_torch.training import trainer
+        self.module, self.saved = trainer, trainer.instantiate_dataset
+        self.seconds = []
+
+    def __enter__(self):
+        def timed(cfg):
+            t0 = time.perf_counter()
+            out = self.saved(cfg)
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+        self.module.instantiate_dataset = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.instantiate_dataset = self.saved
+
+
+def split_digest(data_root: str, split: str) -> dict:
+    """sha256 over the arrays of a split's processed samples (each area's
+    `.npz` files in their numeric order, each file's keys sorted), and the
+    number of files."""
+    h, n = hashlib.sha256(), 0
+    for area in sorted(glob.glob(os.path.join(data_root, "*", "processed*",
+                                              split, "*"))):
+        files = sorted(glob.glob(os.path.join(area, "*.npz")),
+                       key=lambda f: int(os.path.basename(f)[:-4]))
+        for f in files:
+            with np.load(f) as z:
+                for k in sorted(z.files):
+                    h.update(k.encode() + np.ascontiguousarray(z[k])
+                             .tobytes())
+        n += len(files)
+    return {"sha256": h.hexdigest(), "files": n}
+
+
+def temp_files(root: str) -> list:
+    return sorted(os.path.join(d, f) for d, _, files in os.walk(root)
+                  for f in files if f.endswith(".tmp"))
+
+
+def shared_root_check(root: str, ranks: list) -> dict:
+    """trainer_multigpu's shared data root: both ranks' train-split
+    digests equal and equal to the one-process run's, no temporary file
+    left."""
+    one = split_digest(os.path.join(root, "data_one"), "train")
+    got = [r["train_split"] for r in ranks]
+    left = temp_files(os.path.join(root, MULTIGPU_SHARED_DATA))
+    out = {"digest_per_rank": got, "digest_one_process": one,
+           "tmp_left": left}
+    if any(g != one for g in got) or not one["files"] or left:
+        raise AssertionError(f"trainer_multigpu: the shared data root "
+                             f"differs from one process's: {out}")
+    return out
+
+
+# the data root both ranks of trainer_multigpu share (under its out dir)
+MULTIGPU_SHARED_DATA = "data_shared"
+
+
 def multigpu_trainer_overrides(root: str, data_root: str) -> list:
     """The trainer phase's SENet14 command (bf16 through enable_mixed) on
     MULTIGPU_PLOTS plots under `data_root` (one process's for both dtypes:
@@ -5445,10 +5649,11 @@ MULTIGPU_TRAINER_RUNS = (("float32", ("training.enable_mixed=False",)),
 def worker_trainer(out_dir: str) -> dict:
     """A rank of `trainer_multigpu`: train.main with the trainer command
     for each of MULTIGPU_TRAINER_RUNS in turn, each with its own run dir
-    (the rank's data root shared by both) and its own process group, the
-    runner's calls
-    and the kernels' launches counted, each step's gradient all-reduce
-    timed with CUDA events."""
+    and its own process group, on the data root that both ranks and both
+    runs share (the first run's ranks generate and process it at once),
+    the runner's calls and the kernels' launches counted, each step's
+    gradient all-reduce timed with CUDA events; and the rank's digest of
+    the processed train split."""
     import torch
     from dpcr_agb_tpu_torch import kernels, parallel, train
     from dpcr_agb_tpu_torch.training import step as step_mod
@@ -5459,7 +5664,7 @@ def worker_trainer(out_dir: str) -> dict:
     for (dtname, extra), port in zip(MULTIGPU_TRAINER_RUNS, ports):
         os.environ["MASTER_PORT"] = port
         root = os.path.join(out_dir, dtname, f"rank{rank}")
-        data_root = os.path.join(out_dir, f"data_rank{rank}")
+        data_root = os.path.join(out_dir, MULTIGPU_SHARED_DATA)
         reduce_ms = []
 
         def timed(params):
@@ -5474,7 +5679,7 @@ def worker_trainer(out_dir: str) -> dict:
         kernels.reset_launches()
         step_mod.all_reduce_grads = timed
         try:
-            with StepCounter() as counter:
+            with StepCounter() as counter, DatasetClock() as data_clock:
                 trainer = train.main(
                     multigpu_trainer_overrides(root, data_root) + list(extra)
                     + [f"device={MULTIGPU_DEVICE}"])
@@ -5498,10 +5703,15 @@ def worker_trainer(out_dir: str) -> dict:
                              "tracked_losses")} if h["stage"] == "train"
                              else {}) for h in trainer.history],
             "allreduce_ms": reduce_ms,
+            "dataset_seconds": data_clock.seconds,
             "files": sorted(os.listdir(run_dir))
             if os.path.isdir(run_dir) else []}
         del trainer
         torch.cuda.empty_cache()
+    out["train_split"] = split_digest(
+        os.path.join(out_dir, MULTIGPU_SHARED_DATA), "train")
+    print(json.dumps({"rank": rank, "train_split": out["train_split"]}),
+          flush=True)
     return out
 
 
@@ -5562,6 +5772,7 @@ def phase_trainer_multigpu(tmp: str, smi: str, krows: list) -> None:
     ranks = run_ranks("trainer", MULTIGPU_WORLD, root, "gloo", [],
                       groups=len(MULTIGPU_TRAINER_RUNS))
     ranks_seconds = time.perf_counter() - t0
+    shared_root = shared_root_check(root, ranks)
 
     class _Counted:
         def __init__(self, r):
@@ -5626,6 +5837,9 @@ def phase_trainer_multigpu(tmp: str, smi: str, krows: list) -> None:
                                           for h in one_hist],
               "allreduce_ms_per_step": [r["allreduce_ms"] for r in runs],
               "one_process_seconds": one_seconds,
+              "dataset_seconds_per_rank": [r["dataset_seconds"]
+                                           for r in runs],
+              "shared_data_root": shared_root,
               "ranks_seconds_both_dtypes": ranks_seconds, "card": smi})
         for row in krows:
             if row["kernels_phase"] == "sparse_l0" and \

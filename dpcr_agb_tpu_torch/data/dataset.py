@@ -3,7 +3,9 @@
 Plot extraction and the pre_transform run once and cache one `.npz` per
 sample at `<dataroot>/<dataset_name>/<processed_folder>/<split>/<area>/
 <i>.npz` with a `done.flag` per split and area, in the JAX package's format
-and paths, so either package reads the cache the other wrote. The random
+and paths, so either package reads the cache the other wrote. Each file
+is written to a temporary name and renamed into place (`atomic.py`), so
+ranks that share a dataroot never read a partial file. The random
 train chain runs later, in the loader, with an explicit generator.
 
 A sample is the transform-layer dict: pos [N,3] f32 centered on the plot
@@ -27,6 +29,7 @@ from ..metrics import InstanceTracker, TrackerSpec
 from ..native import KDTree2D
 from ..transforms import Compose, instantiate_transforms
 from ..transforms.core import instantiate_batch_transforms
+from .atomic import atomic_write
 from .labels import ensure_split, process_label_files
 from .las_io import read_pt
 from .stats import compute_local_stats
@@ -112,15 +115,18 @@ class Las:
                     continue
                 f = out_dir / f"{file_idx}.npz"
                 if self.save_processed:
-                    np.savez_compressed(f, **{k: v for k, v in sample.items()
-                                              if v is not None})
+                    with atomic_write(f) as tmp, open(tmp, "wb") as fh:
+                        np.savez_compressed(
+                            fh, **{k: v for k, v in sample.items()
+                                   if v is not None})
                 if self.in_memory:
                     self.memory[file_idx] = sample
                 self._files.append(f)
                 file_idx += 1
             area["labels"] = labels.drop_index(missing_idx)
             if self.save_processed:
-                flag.touch()
+                with atomic_write(flag) as tmp:
+                    open(tmp, "wb").close()
 
     def _load_scene(self, area_name: str, area: dict):
         cached = self.pos_cache.get(area_name)

@@ -3,13 +3,17 @@
 points with plot-level biomass/volume targets from an allometric model, and
 an NFI-shaped dataset of such plots (per-plot .las files and a label
 table) that `data.synthetic=true` configs generate on first use, and a
-treeDB of single trees for the treeadd presets (`generate_tree_db`)."""
+treeDB of single trees for the treeadd presets (`generate_tree_db`).
+Every file is written to a temporary name and renamed into place
+(`atomic.py`), the label table last: its presence marks a whole dataset,
+so ranks that generate one dataset on a shared root at once are safe."""
 from __future__ import annotations
 
 import os
 
 import numpy as np
 
+from .atomic import atomic_write
 from .las_io import write_las
 from .table import Table
 
@@ -107,17 +111,20 @@ def generate_nfi_like_dataset(root: str, n_plots: int = 60, seed: int = 0,
         low = pts[:, 2] < 0.5
         ground_z = np.median(pts[low, 2]) if low.any() else 0.0
         cls = np.where(np.abs(pts[:, 2] - ground_z) < 0.3, 2, 5)
-        write_las(os.path.join(raw, las_name), world, classification=cls)
+        with atomic_write(os.path.join(raw, las_name)) as tmp:
+            write_las(tmp, world, classification=cls)
         rows.append((f"plot_{i:04d}", cx, cy, bmag, v))
     names = ("las_file", "x", "y", "BMag_ha", "V_ha")
     df = Table({n: [r[j] for r in rows] for j, n in enumerate(names)})
     if label_format == "gpkg":
         from ..visualization.gpkg import write_gpkg
         label_file = os.path.join(raw, "nfi.gpkg")
-        write_gpkg(label_file, df, layer="nfi")
+        with atomic_write(label_file) as tmp:
+            write_gpkg(tmp, df, layer="nfi")
     else:
         label_file = os.path.join(raw, "labels.csv")
-        df.write_csv(label_file)
+        with atomic_write(label_file) as tmp:
+            df.write_csv(tmp)
     return label_file
 
 
@@ -150,12 +157,14 @@ def generate_tree_db(root: str, n_trees: int = 40, seed: int = 1) -> str:
         pts, h = generate_tree(rng)
         cx, cy = rng.uniform(5e5, 6e5), rng.uniform(6e6, 6.1e6)
         world = pts + np.array([cx, cy, rng.uniform(0, 100)], np.float32)
-        write_las(os.path.join(raw, f"ALS/tree_{i:04d}.las"), world,
-                  classification=np.full(len(pts), 5, np.int32))
+        with atomic_write(os.path.join(raw, f"ALS/tree_{i:04d}.las")) as tmp:
+            write_las(tmp, world,
+                      classification=np.full(len(pts), 5, np.int32))
         rows.append((f"tree_{i:04d}", cx, cy, h))
     names = ("file_path", "x", "y", "height_m")
     df = Table({n: [r[j] for r in rows] for j, n in enumerate(names)})
     from ..visualization.gpkg import write_gpkg
     label_file = os.path.join(raw, "treeDB_epsg_25832.gpkg")
-    write_gpkg(label_file, df, layer="treeDB")
+    with atomic_write(label_file) as tmp:
+        write_gpkg(tmp, df, layer="treeDB")
     return label_file

@@ -5,8 +5,11 @@
   * eps is ADDED INTO the second-moment state every step
   * the rectified (RAdam-style) step size is computed in f32 with `expm1`,
     and steps whose num_sma is below 5 (the first five) take the SGD branch
-  * weight decay is decoupled (update -= lr * wd * p) and applies to every
-    parameter, BN scale and biases included
+    (or no step, with degenerated_to_sgd=False); unrectified, the second
+    moment is bias-corrected by 1 - b2^t
+  * weight decay is decoupled (update -= lr * wd * p, or wd * p with
+    fixed_decay) and applies to every parameter, BN scale and biases
+    included; decoupled_decay=False applies none, as in JAX
   * the lr of an update is the schedule at the count BEFORE the increment
 A missing gradient counts as zero, as in JAX where every parameter has one.
 The gradient clip of the recipe is an elementwise value clip
@@ -29,8 +32,7 @@ batches and steps once.
 The scalar arithmetic (bias corrections, rectification, schedules) runs in
 numpy float32, operation by operation, as the JAX version runs it in f32.
 Every schedule of `conf/lr_scheduler/` is ported; ReduceLROnPlateau is a
-constant here and the trainer scales it by the selection stage's loss.
-Only the JAX `adabelief`'s default branches (the recipe's) are ported."""
+constant here and the trainer scales it by the selection stage's loss."""
 from __future__ import annotations
 
 import math
@@ -105,11 +107,15 @@ class _JaxState:
 
 
 class AdaBelief(_JaxState, torch.optim.Optimizer):
-    """AdaBelief over `params` with lr = lr_fn(count), in the JAX
-    `adabelief`'s default branches: rectified, degenerating to SGD while
-    num_sma < 5, weight decay decoupled and scaled by the lr. The update
-    count is kept per group as `count` (the JAX state's `count`); each
-    parameter's state holds f32 `exp_avg` and `exp_avg_var`."""
+    """AdaBelief over `params` with lr = lr_fn(count), in every branch of
+    the JAX `adabelief`: rectified or not (`rectify`), the rectified steps
+    whose num_sma is below 5 taking the SGD step or none
+    (`degenerated_to_sgd`), and weight decay decoupled and scaled by the
+    lr, or fixed (`fixed_decay`), or, with decoupled_decay=False, not
+    applied at all (the JAX transform leaves L2 to a caller that never
+    adds it). The update count is kept per group as `count` (the JAX
+    state's `count`); each parameter's state holds f32 `exp_avg` and
+    `exp_avg_var`."""
 
     STATE = ("count", "exp_avg", "exp_avg_var")
 
@@ -118,16 +124,14 @@ class AdaBelief(_JaxState, torch.optim.Optimizer):
                  weight_decay: float = 0.0, decoupled_decay: bool = True,
                  fixed_decay: bool = False, rectify: bool = True,
                  degenerated_to_sgd: bool = True):
-        if not (decoupled_decay and rectify and degenerated_to_sgd) \
-                or fixed_decay:
-            raise NotImplementedError(
-                "AdaBelief: only the default branches are ported "
-                "(decoupled, rectified, degenerating to SGD, lr-scaled "
-                "decay)")
         defaults = dict(count=0, lr=float(lr_fn(0)), b1=b1, b2=b2, eps=eps,
                         weight_decay=float(weight_decay))
         super().__init__(params, defaults)
         self.lr_fn = lr_fn
+        self.decoupled_decay = bool(decoupled_decay)
+        self.fixed_decay = bool(fixed_decay)
+        self.rectify = bool(rectify)
+        self.degenerated_to_sgd = bool(degenerated_to_sgd)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -136,27 +140,40 @@ class AdaBelief(_JaxState, torch.optim.Optimizer):
         for group in self.param_groups:
             self._step_group(group)
 
-    def _step_group(self, group: dict) -> None:
-        b1, b2, eps = group["b1"], group["b2"], group["eps"]
-        count = group["count"]
+    def _scale(self, b1: float, b2: float, count: int, lr):
+        """(k, sqrt_bc2): the update of a parameter is k * m / (sqrt(s) /
+        sqrt_bc2 + eps), the division left out where sqrt_bc2 is 1 (the
+        rectified branch has none), or k * m when sqrt_bc2 is None (the
+        SGD step)."""
         stepf = f32(count + 1)
-        lr = f32(self.lr_fn(count))
         bc1 = f32(1.0) - f32(b1) ** stepf
+        if not self.rectify:
+            bc2 = f32(1.0) - f32(b2) ** stepf
+            return float(-(lr / bc1)), float(np.sqrt(bc2))
         log_b2 = f32(math.log(b2))
         beta2_t = np.exp(stepf * log_b2)
         one_minus_beta2_t = -np.expm1(stepf * log_b2)
         sma_max = f32(2.0 / (1.0 - b2) - 1.0)
         sma = sma_max - f32(2.0) * stepf * beta2_t / one_minus_beta2_t
-        adaptive = sma >= f32(5.0)
-        if adaptive:
+        if sma >= f32(5.0):
             rect = np.sqrt(max(
                 one_minus_beta2_t * (sma - f32(4.0)) / (sma_max - f32(4.0))
                 * (sma - f32(2.0)) / sma * sma_max / (sma_max - f32(2.0)),
                 f32(0.0))) / bc1
-            k = float(-rect * lr)
-        else:
-            k = float(-(f32(1.0) / bc1) * lr)
-        decay = float(lr * f32(group["weight_decay"]))
+            return float(-rect * lr), 1.0
+        if self.degenerated_to_sgd:
+            return float(-(f32(1.0) / bc1) * lr), None
+        return -0.0, None   # JAX's -0.0 * lr * m: the zero's sign too
+
+    def _step_group(self, group: dict) -> None:
+        b1, b2, eps = group["b1"], group["b2"], group["eps"]
+        count = group["count"]
+        lr = f32(self.lr_fn(count))
+        k, sqrt_bc2 = self._scale(b1, b2, count, lr)
+        wd = f32(group["weight_decay"])
+        decay = 0.0
+        if self.decoupled_decay:
+            decay = float(wd if self.fixed_decay else lr * wd)
 
         for p in group["params"]:
             g = (p.grad if p.grad is not None
@@ -167,7 +184,11 @@ class AdaBelief(_JaxState, torch.optim.Optimizer):
                 st["exp_avg_var"] = torch.zeros_like(p, dtype=torch.float32)
             m = b1 * st["exp_avg"] + (1 - b1) * g
             s = b2 * st["exp_avg_var"] + (1 - b2) * torch.square(g - m) + eps
-            u = k * m / (torch.sqrt(s) + eps) if adaptive else k * m
+            if sqrt_bc2 is None:
+                u = k * m
+            else:
+                r = torch.sqrt(s)
+                u = k * m / ((r if sqrt_bc2 == 1.0 else r / sqrt_bc2) + eps)
             if decay:
                 u = u - decay * p.float()
             p.add_(u.to(p.dtype))

@@ -1,12 +1,15 @@
 """Voxel-grid sampling, the voxel augmentations of the sparse_xy train
 chain, `SaveOriginalPosId` and `ElasticDistortion` (counterparts in
-`dpcr_agb_tpu/transforms/grid.py`). GridSampling3D runs in the sparse_xy
-chain's mode "last":
+`dpcr_agb_tpu/transforms/grid.py`). GridSampling3D:
   * coords = round(pos / size)
-  * shuffle all per-point arrays, then keep the last point of each voxel (a
-    uniform random representative)
-  * quantize_coords stores int32 voxel coords in sample['coords']
-The reference's mode "mean" is not used by the ported chains."""
+  * mode "last" (the sparse_xy chains'): shuffle all per-point arrays, then
+    keep the last point of each voxel (a uniform random representative)
+  * mode "mean" (the default, for pre_transforms: it draws nothing): one
+    point per voxel in the order of the sorted unique voxels; float arrays
+    take their f64 mean cast to f32 (a bool array stays bool), the integer
+    label keys (y, y_cls, instance_labels) a majority vote with ties to
+    the smallest label, batch and origin_id the voxel's last point
+  * quantize_coords stores int32 voxel coords in sample['coords']"""
 from __future__ import annotations
 
 import numpy as np
@@ -14,28 +17,69 @@ import numpy as np
 from .core import Transform, num_points, register, shuffle_sample, \
     unique_int_rows
 
+_INTEGER_LABEL_KEYS = ("y", "y_cls", "instance_labels")
+
+
+def group_data(sample: dict, inverse: np.ndarray, last_indices: np.ndarray,
+               n_clusters: int, mode: str) -> dict:
+    """Each per-point array aggregated over the voxel clusters: the last
+    point of a cluster in mode "last" (and for batch and origin_id), in
+    mode "mean" a majority vote for the integer label keys and an f64
+    mean cast to f32 (bool for a bool array) for every other array."""
+    n = num_points(sample)
+    out = dict(sample)
+    for key, item in sample.items():
+        if not (isinstance(item, np.ndarray) and item.ndim >= 1
+                and item.shape[0] == n):
+            continue
+        if mode == "last" or key in ("batch", "origin_id"):
+            out[key] = item[last_indices]
+        elif key in _INTEGER_LABEL_KEYS and np.issubdtype(item.dtype,
+                                                          np.integer):
+            item_min = item.min()
+            shifted = item - item_min
+            votes = np.zeros((n_clusters, int(shifted.max()) + 1), np.int64)
+            np.add.at(votes, (inverse, shifted), 1)
+            out[key] = (votes.argmax(axis=1) + item_min).astype(item.dtype)
+        else:
+            sums = np.zeros((n_clusters,) + item.shape[1:], np.float64)
+            np.add.at(sums, inverse, item.astype(np.float64))
+            counts = np.bincount(inverse, minlength=n_clusters).astype(
+                np.float64).reshape((-1,) + (1,) * (item.ndim - 1))
+            mean = sums / np.maximum(counts, 1)
+            out[key] = mean.astype(bool if item.dtype == np.bool_
+                                   else np.float32)
+    return out
+
 
 @register
 class GridSampling3D(Transform):
-    def __init__(self, size, quantize_coords=False, mode="mean"):
-        if mode != "last":
-            raise NotImplementedError(
-                f"GridSampling3D mode {mode!r} is not ported (ported: last)")
+    """One point per voxel of edge `size`, by `mode` ("mean" or "last");
+    `verbose` is accepted and unused, as in the JAX class."""
+
+    def __init__(self, size, quantize_coords=False, mode="mean",
+                 verbose=False):
+        if mode not in ("mean", "last"):
+            raise ValueError(f"GridSampling3D mode {mode!r}: 'mean' or "
+                             f"'last'")
         self.size = size
         self.quantize_coords = quantize_coords
+        self.mode = mode
 
     def __call__(self, rng, sample):
-        sample = shuffle_sample(rng, sample)
-        n = num_points(sample)
+        if self.mode == "last":
+            sample = shuffle_sample(rng, sample)
         coords = np.round(sample["pos"] / self.size)
         uniq, inverse = unique_int_rows(coords)
         last_indices = np.zeros(len(uniq), dtype=np.int64)
         last_indices[inverse] = np.arange(len(inverse))
-        out = {k: (v[last_indices] if isinstance(v, np.ndarray)
-                   and v.ndim >= 1 and v.shape[0] == n else v)
-               for k, v in sample.items()}
+        out = group_data(sample, inverse, last_indices, len(uniq),
+                         mode=self.mode)
         if self.quantize_coords:
-            out["coords"] = coords[last_indices].astype(np.int32)
+            out["coords"] = (uniq if self.mode == "mean"
+                             else coords[last_indices]).astype(np.int32)
+        if self.mode == "mean":
+            out["pos"] = out["pos"].astype(np.float32)
         out["grid_size"] = np.array([self.size], dtype=np.float32)
         return out
 

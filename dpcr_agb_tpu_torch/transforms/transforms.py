@@ -63,17 +63,22 @@ class StartZFromZero(Transform):
 
 @register
 class FixedPointsOwn(Transform):
-    """Sample exactly `num` points without replacement (minimal duplication
-    when fewer and `allow_duplicates`)."""
+    """Sample exactly `num` points: with `replace`, `num` uniform draws;
+    else without replacement (minimal duplication when fewer and
+    `allow_duplicates`)."""
 
-    def __init__(self, num, allow_duplicates=True, skip_list=None):
+    def __init__(self, num, replace=False, allow_duplicates=True,
+                 skip_list=None):
         self.num = num
+        self.replace = replace
         self.allow_duplicates = allow_duplicates
         self.skip_list = list(skip_list or [])
 
     def __call__(self, rng, sample):
         n = num_points(sample)
-        if self.allow_duplicates:
+        if self.replace:
+            idx = rng.integers(0, n, size=self.num)
+        elif self.allow_duplicates:
             reps = math.ceil(self.num / n)
             idx = np.concatenate([rng.permutation(n)
                                   for _ in range(reps)])[:self.num]
@@ -127,11 +132,22 @@ class ZFilter(Transform):
                           self.skip_keys)
 
 
+def _no_skeleton(add_skeleton_pts) -> None:
+    """The polygon transforms take the skeleton keywords, and raise as the
+    JAX classes do when skeleton points are asked for."""
+    if add_skeleton_pts:
+        raise NotImplementedError("skeleton points unused by NFI presets")
+
+
 @register
 class Polygon2dExtend(Transform):
-    """Keep points inside a fixed 2D polygon (the NFI hexagon plot mask)."""
+    """Keep points inside a fixed 2D polygon (the NFI hexagon plot mask).
+    The skeleton keywords are accepted; add_skeleton_pts=True raises."""
 
-    def __init__(self, polygon, skip_list=None):
+    def __init__(self, polygon, skip_list=None, add_skeleton_pts=False,
+                 num_skeleton_pts=100, height_skeleton_pts=1.0,
+                 cage_skeleton=False):
+        _no_skeleton(add_skeleton_pts)
         self.polygon = np.asarray(polygon, dtype=np.float64)
         self.skip_list = list(skip_list or [])
 
@@ -339,7 +355,9 @@ class RandomPolygon2dExtend(Transform):
     (0.5, 0.5), keep the points inside (when any are)."""
 
     def __init__(self, polygons, skip_list=None, size_min=1.0, size_max=1.0,
-                 rotate=180.0):
+                 rotate=180.0, add_skeleton_pts=False, num_skeleton_pts=100,
+                 height_skeleton_pts=1.0, cage_skeleton=False):
+        _no_skeleton(add_skeleton_pts)
         self.polygons = [np.asarray(p, dtype=np.float64) if p != "None"
                          else None for p in polygons]
         self.size_min, self.size_max, self.rotate = size_min, size_max, rotate

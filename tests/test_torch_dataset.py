@@ -4,8 +4,11 @@ package: the KD-tree's radius query returns exactly
 `compute_local_stats` matches scipy's moments within 1e-9 relative, and
 `LasDataset` gives the same splits, bit-equal processed samples, the same
 per-area statistics and the same `InstanceSpec` scale and center as the JAX
-`LasDataset`; each package reads the processed cache the other wrote."""
+`LasDataset` (with a pre_transform that ends in a mean-mode
+`GridSampling3D` too); each package reads the processed cache the other
+wrote."""
 import copy
+import json
 import os
 
 import numpy as np
@@ -153,6 +156,30 @@ def test_instance_spec_options_equal_jax(tmp_path, norm):
     for field in ("scale", "center", "weights"):
         np.testing.assert_array_equal(getattr(got, field),
                                       getattr(want, field))
+
+
+# the NFI pre_transform (conf/data/instance/NFI/default.yaml) then a 0.5 m
+# mean-mode grid, which merges the crowns' points
+MEAN_GRID_PRE = [
+    {"transform": "DBSCANZOutlierRemoval",
+     "params": {"eps": 1.5, "min_samples": 10,
+                "skip_list": "${data.skip_list}"}},
+    {"transform": "StartZFromZero"},
+    {"transform": "ZFilter", "params": {"z_min": -1.0e-5, "z_max": 50,
+                                        "skip_keys": "${data.skip_list}"}},
+    {"transform": "GridSampling3D", "params": {"size": 0.5}}]
+
+
+def test_mean_grid_pre_transform_equals_jax(tmp_path):
+    extra = ("data.pre_transform=" + json.dumps(MEAN_GRID_PRE),
+             "data.synthetic_plots=8")
+    jd, td = _datasets(tmp_path, extra)
+    assert_same_samples(jd, td)
+    sample = td.datasets["train"].get(0)
+    assert sample["grid_size"].tolist() == [0.5]
+    # one point a 0.5 m cell: each cell's mean stays in its cell
+    cells = np.unique(np.round(sample["pos"] / 0.5), axis=0)
+    assert len(cells) == len(sample["pos"])
 
 
 def test_each_package_reads_the_others_cache(tmp_path):

@@ -1,7 +1,7 @@
-"""The port's trainer on two ranks (two processes over loopback gloo, each
-with its own data root, as tests/test_multihost.py runs the JAX trainer)
-against one process, on the root grammar's MPointNet command (24 plots,
-batch size 4, f32).
+"""The port's trainer on two ranks (two processes over loopback gloo on
+one shared, initially empty data root; tests/test_multihost.py gives the
+JAX trainer's ranks a root each) against one process, on the root
+grammar's MPointNet command (24 plots, batch size 4, f32).
 
 The JAX trainer trains epoch 1 (on the conftest's virtual devices: a
 4-device mesh) and writes its `.ckpt`; the JAX trainer, the port in one
@@ -63,8 +63,10 @@ def runs(tmp_path_factory):
         jlayout.set_batch_local(*saved)
     ttrain.main(_overrides(str(tmp / "data"), str(tmp / "t2"), 2, resume,
                            "device=cpu"))
+    # both ranks on one empty data root: each generates and processes the
+    # dataset there at the same time (the data layer's writes are atomic)
     _ranks("dpcr_agb_tpu_torch.train", lambda r: _overrides(
-        str(tmp / f"rank{r}" / "data"), str(tmp / f"rank{r}" / "run"), 2,
+        str(tmp / "shared_data"), str(tmp / f"rank{r}" / "run"), 2,
         resume))
     cal = ["model_name=MPointNet", f"checkpoint_dir={tmp / 't2'}",
            "epochs=1", "pretty_print=False"]

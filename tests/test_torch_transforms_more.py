@@ -1,7 +1,11 @@
 """The 37 transforms that slice 16 ported, against the JAX package's on the
 CPU: both registries hold the same 65 names; each transform gives the same
 sample, bit for bit, from the same sample and seed, and draws as much from
-the generator (3 seeds each); the three that the JAX package hands to
+the generator (3 seeds each), as do GridSampling3D's mean mode (majority
+votes with ties to the smallest label, f64 means, bool keys),
+FixedPointsOwn(replace=True) and the polygon transforms' skeleton
+keywords, whose add_skeleton_pts=True raises in both packages; the three
+that the JAX package hands to
 scikit-learn agree with scikit-learn where its rules bite (OPTICS' index-0
 border point, KDTree's inclusive float64 count at exactly r and at
 float32(r), the KDE score within 1e-10 of scikit-learn's and the kept range
@@ -79,14 +83,24 @@ def _sample(seed, kind="unit", n=None):
         xy = rng.uniform(0, 1, (n, 2))
         z = rng.gamma(2.0, 0.1, n)
     norm = rng.normal(size=(n, 3))
-    return {"pos": np.concatenate([xy, z[:, None]], 1).astype(np.float32),
-            "x": rng.normal(size=(n, 2)).astype(np.float32),
-            "rgb": rng.uniform(0, 1, (n, 3)).astype(np.float32),
-            "norm": (norm / np.linalg.norm(norm, axis=1, keepdims=True)
-                     ).astype(np.float32),
-            "y_reg": np.array([1.5, 2.0], np.float32),
-            "y_reg_mask": np.ones(2, bool), "label_idx": np.int64(seed),
-            "area_idx": np.int64(0)}
+    sample = {
+        "pos": np.concatenate([xy, z[:, None]], 1).astype(np.float32),
+        "x": rng.normal(size=(n, 2)).astype(np.float32),
+        "rgb": rng.uniform(0, 1, (n, 3)).astype(np.float32),
+        "norm": (norm / np.linalg.norm(norm, axis=1, keepdims=True)
+                 ).astype(np.float32),
+        "y_reg": np.array([1.5, 2.0], np.float32),
+        "y_reg_mask": np.ones(2, bool), "label_idx": np.int64(seed),
+        "area_idx": np.int64(0)}
+    if kind == "labels":
+        # per-point labels for GridSampling3D's mean mode: few classes
+        # (votes tie), a negative label, a bool and a plain int key
+        sample.update(
+            y=rng.integers(-1, 3, n), y_cls=rng.integers(0, 4, n).astype(
+                np.int32), keep=rng.random(n) < 0.5,
+            intensity=rng.integers(0, 255, n), origin_id=np.arange(n),
+            batch=np.repeat(np.arange(2), [n // 2, n - n // 2]))
+    return sample
 
 
 def _assert_same(want, got, what):
@@ -98,6 +112,8 @@ def _assert_same(want, got, what):
 
 
 SKIP = ["y_reg", "y_reg_mask"]
+HEXAGON = [[0.0, 0.5], [0.25, 0.9330127], [0.75, 0.9330127], [1.0, 0.5],
+           [0.75, 0.0669873], [0.25, 0.0669873]]
 CROPS = [{"transform": "EllipsoidCrop", "params": {"a": 0.5, "b": 0.4}},
          {"transform": "CubeCrop", "params": {"c": 0.3,
                                               "grid_size_center": 0.05}},
@@ -178,6 +194,26 @@ CASES = [
     ("ElasticDistortion", {"granularity": [0.05, 0.2],
                            "magnitude": [0.01, 0.02], "p": 0.7}, "unit"),
     ("ElasticDistortion", {"granularity": [1.0, 3.0], "p": 1.0}, "metres"),
+    # options of names in PORTED_BEFORE
+    ("GridSampling3D", {"size": 0.1}, "labels"),
+    ("GridSampling3D", {"size": 0.03, "quantize_coords": True,
+                        "mode": "mean"}, "labels"),
+    ("GridSampling3D", {"size": 0.05, "verbose": True}, "unit"),
+    ("GridSampling3D", {"size": 1.0, "quantize_coords": True}, "metres"),
+    ("GridSampling3D", {"size": 0.05, "quantize_coords": True,
+                        "mode": "last"}, "labels"),
+    ("FixedPointsOwn", {"num": 700, "replace": True}, "unit"),
+    ("FixedPointsOwn", {"num": 3000, "replace": True, "skip_list": SKIP},
+     "unit"),
+    ("FixedPointsOwn", {"num": 2500, "replace": False}, "unit"),
+    ("Polygon2dExtend", {"polygon": HEXAGON, "add_skeleton_pts": False,
+                         "num_skeleton_pts": 100, "height_skeleton_pts": 1.0,
+                         "cage_skeleton": False}, "unit"),
+    ("RandomPolygon2dExtend", {"polygons": [HEXAGON], "size_min": 0.8,
+                               "add_skeleton_pts": False,
+                               "num_skeleton_pts": 100,
+                               "height_skeleton_pts": 1.0,
+                               "cage_skeleton": False}, "unit"),
 ]
 IDS = [f"{c[0]}-{i}" for i, c in enumerate(CASES)]
 
@@ -208,6 +244,56 @@ def test_transform_equals_jax(name, params, kind):
         else:
             _assert_same(want, got, what)
         assert jr.random() == tr.random(), f"{what}: draws differ"
+
+
+def test_grid_mean_votes_tie_to_the_smallest_label():
+    """Two voxels: one whose labels tie 2-2 (the smaller wins), one with a
+    majority; the mean of x and of a bool key (any point set gives True),
+    and the voxels in sorted order, as in the JAX class."""
+    pos = np.array([[0.9, 0, 0], [1.1, 0, 0], [0.95, 0, 0], [1.0, 0.1, 0],
+                    [0.0, 0, 0], [0.1, 0, 0], [-0.1, 0, 0]], np.float32)
+    sample = {"pos": pos, "y": np.array([5, 2, 5, 2, -3, 4, 4]),
+              "keep": np.array([1, 1, 0, 0, 1, 0, 0], bool),
+              "x": np.arange(7, dtype=np.float32)[:, None]}
+    params = {"size": 0.5, "quantize_coords": True}
+    want = J.instantiate_transform({"transform": "GridSampling3D",
+                                    "params": params})(None, dict(sample))
+    got = T.instantiate_transform({"transform": "GridSampling3D",
+                                   "params": params})(None, dict(sample))
+    _assert_same(want, got, "two voxels")
+    np.testing.assert_array_equal(got["y"], [4, 2])
+    np.testing.assert_array_equal(got["coords"], [[0, 0, 0], [2, 0, 0]])
+    np.testing.assert_array_equal(got["keep"], [True, True])
+    np.testing.assert_array_equal(got["x"][:, 0], [5.0, 1.5])
+
+
+def test_labels_sample_ties_its_votes():
+    """The mean-mode cases' sample has voxels whose top y votes tie, at
+    the coarsest of their sizes."""
+    sample = _sample(0, "labels")
+    keys = np.round(sample["pos"] / 0.1).astype(np.int64)
+    _, inverse = np.unique(keys, axis=0, return_inverse=True)
+    votes = np.zeros((inverse.max() + 1, 4), np.int64)
+    np.add.at(votes, (inverse.ravel(), sample["y"] + 1), 1)
+    top = np.sort(votes, axis=1)
+    assert ((top[:, -1] == top[:, -2]) & (top[:, -1] > 0)).any()
+
+
+def test_unknown_grid_mode_and_skeleton_points_raise_in_both():
+    with pytest.raises(AssertionError):
+        J.instantiate_transform({"transform": "GridSampling3D",
+                                 "params": {"size": 1, "mode": "max"}})
+    with pytest.raises(ValueError, match="'mean' or 'last'"):
+        T.instantiate_transform({"transform": "GridSampling3D",
+                                 "params": {"size": 1, "mode": "max"}})
+    for name, params in (("Polygon2dExtend", {"polygon": HEXAGON}),
+                         ("RandomPolygon2dExtend", {"polygons": [HEXAGON]})):
+        cfg = {"transform": name,
+               "params": {**params, "add_skeleton_pts": True}}
+        for pkg in (J, T):
+            with pytest.raises(NotImplementedError,
+                               match="skeleton points unused"):
+                pkg.instantiate_transform(cfg)
 
 
 def test_random_param_int_truncates():
